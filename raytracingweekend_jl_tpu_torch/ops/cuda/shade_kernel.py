@@ -1,0 +1,315 @@
+"""K2 — one strided persistent iteration (csrc/shade_strided.cu) and its
+plain version.
+
+Counterpart of ``raytracingweekend_jl_tpu/ops/pallas/shade_kernel.py``
+(``_shade_strided_kernel`` with ``_shade_core``, ``_uniforms``, ``_gauss3``
+and ``_concentric``). Each lane serves ``k`` pixels spaced ``n_lanes`` apart;
+when a pixel has all its samples the lane folds its accumulator into that
+pixel's strip buffer and switches to its next pixel in place.
+
+State layout (all ``[planes, n_lanes]``, contiguous, updated in place):
+
+- ``fstate`` float32 [12]: origin xyz, direction xyz, throughput rgb,
+  current-pixel accumulator rgb;
+- ``istate`` int32 [7]: bounce, sample, strip, px, py, active, lane_lim
+  (the lane's last sample id);
+- ``buf`` float32 [3k]: plane ``3*c + ch`` holds channel ``ch`` of the pixel
+  the lane served in strip ``c``.
+
+:func:`shade_strided_step` launches the CUDA kernel on CUDA tensors and runs
+:func:`shade_strided_step_ref` on CPU tensors; nothing else.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..intersect import BIG
+from ... import rng
+from . import build
+
+#: Number of K2 launches since the last reset (incremented only where the
+#: kernel is launched).
+launches = 0
+
+N_FSTATE = 12
+N_ISTATE = 7
+
+_TWO_PI = np.float32(2.0 * np.pi)
+_QP = np.float32(np.pi / 4)
+_HP = np.float32(np.pi / 2)
+
+
+def pack_camera_consts(cam, image_width: int, image_height: int,
+                       device=None) -> torch.Tensor:
+    """``[21]`` float32: origin, lower_left, horizontal, vertical, u, v,
+    lens_radius, 1/W, 1/H (reference camera frame, src/camera.jl:1-10)."""
+    f32 = torch.float32
+    device = cam.origin.device if device is None else device
+    inv = torch.tensor([np.float32(1.0) / np.float32(image_width),
+                        np.float32(1.0) / np.float32(image_height)], dtype=f32)
+    parts = [cam.origin, cam.lower_left_corner, cam.horizontal, cam.vertical,
+             cam.u, cam.v, cam.lens_radius.reshape(1)]
+    return torch.cat([p.to(f32).cpu() for p in parts] + [inv]).to(device)
+
+
+def _concentric(u: torch.Tensor, v: torch.Tensor):
+    a = 2.0 * u - 1.0
+    b = 2.0 * v - 1.0
+    use_a = torch.abs(a) > torch.abs(b)
+    r = torch.where(use_a, a, b)
+    one = torch.ones_like(a)
+    safe_a = torch.where(a == 0, one, a)
+    safe_b = torch.where(b == 0, one, b)
+    theta = torch.where(use_a, float(_QP) * (b / safe_a),
+                        float(_HP) - float(_QP) * (a / safe_b))
+    theta = torch.where((a == 0) & (b == 0), torch.zeros_like(theta), theta)
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def _rsqrt(x: torch.Tensor) -> torch.Tensor:
+    return torch.rsqrt(torch.clamp(x, min=1e-20))
+
+
+def shade_strided_step_ref(fstate: torch.Tensor, istate: torch.Tensor,
+                           buf: torch.Tensor, t: torch.Tensor,
+                           attrs: torch.Tensor, cam: torch.Tensor,
+                           geom: tuple, seed: int, iteration: int,
+                           first_sample: int, max_depth: int,
+                           u9: torch.Tensor | None = None) -> None:
+    """Plain PyTorch K2, updating ``fstate``, ``istate`` and ``buf`` in place.
+
+    ``t`` [R] and ``attrs`` [10, R] are the sweep's winner distance and
+    attributes (``materials.attr_mat`` column order); ``cam`` the [21]
+    camera constants; ``geom`` = (W, H, dpx, dpy, p_end) with
+    ``dpx, dpy = n_lanes % W, n_lanes // W``. ``u9`` [9, R] injects the
+    uniforms; without it they are :func:`rng.philox_uniforms` of
+    ``(seed, iteration)``, the kernel's own draws."""
+    n = t.shape[0]
+    k = buf.shape[0] // 3
+    W, H, dpx, dpy, p_end = (int(g) for g in geom)
+    if u9 is None:
+        u9 = rng.philox_uniforms(seed, iteration, n, 9, device=t.device)
+    ox, oy, oz, dx, dy, dz, tx, ty, tz, cx, cy, cz = fstate.unbind(0)
+    bo, sa, strip, pxi, pyi, ac, lane_lim = istate.unbind(0)
+    (acx, acy, acz, arr, aar, aag, aab, afz, air, amt) = attrs.unbind(0)
+    active = ac != 0
+    zero = torch.zeros_like(t)
+    one = torch.ones_like(t)
+
+    hitm = (t < BIG) & active
+    miss = active & ~hitm
+
+    # Sky on miss (src/ray_color.jl:1-6,35-37).
+    st = 0.5 * (dy + 1.0)
+    skyr = (1.0 - st) + st * 0.5
+    skyg = (1.0 - st) + st * 0.7
+    skyb = (1.0 - st) + st * 1.0
+    cx = torch.where(miss, cx + tx * skyr, cx)
+    cy = torch.where(miss, cy + ty * skyg, cy)
+    cz = torch.where(miss, cz + tz * skyb, cz)
+
+    # Hit point and facing normal (src/hit.jl:3,6-10,32-34).
+    ts = torch.where(hitm, t, one)
+    px = ox + ts * dx
+    py = oy + ts * dy
+    pz = oz + ts * dz
+    inv_r = torch.where(arr == 0, zero, 1.0 / torch.where(arr == 0, one, arr))
+    nx = (px - acx) * inv_r
+    ny = (py - acy) * inv_r
+    nz = (pz - acz) * inv_r
+    front = (dx * nx + dy * ny + dz * nz) < 0
+    sgn = torch.where(front, one, -one)
+    nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+
+    # Three normals by Box-Muller -> a uniform unit vector.
+    r0g = torch.sqrt(-2.0 * torch.log(torch.clamp(u9[0], min=1e-12)))
+    r1g = torch.sqrt(-2.0 * torch.log(torch.clamp(u9[2], min=1e-12)))
+    a0 = float(_TWO_PI) * u9[1]
+    a1 = float(_TWO_PI) * u9[3]
+    g0, g1, g2 = r0g * torch.cos(a0), r0g * torch.sin(a0), r1g * torch.cos(a1)
+    gn = _rsqrt(g0 * g0 + g1 * g1 + g2 * g2)
+    ux, uy, uz = g0 * gn, g1 * gn, g2 * gn
+    xi = u9[4]
+
+    # Lambertian (src/material.jl:13-23).
+    lx, ly, lz = nx + ux, ny + uy, nz + uz
+    lsq = lx * lx + ly * ly + lz * lz
+    degen = lsq < 1e-5
+    lno = _rsqrt(lsq)
+    lamx = torch.where(degen, nx, lx * lno)
+    lamy = torch.where(degen, ny, ly * lno)
+    lamz = torch.where(degen, nz, lz * lno)
+
+    # Metal (src/material.jl:25-34).
+    dn = dx * nx + dy * ny + dz * nz
+    refx = dx - 2.0 * dn * nx
+    refy = dy - 2.0 * dn * ny
+    refz = dz - 2.0 * dn * nz
+    mx, my, mz = refx + afz * ux, refy + afz * uy, refz + afz * uz
+    mno = _rsqrt(mx * mx + my * my + mz * mz)
+    metx, mety, metz = mx * mno, my * mno, mz * mno
+
+    # Dielectric (src/material.jl:41-53, src/light.jl:12-25).
+    safe_ir = torch.where(air == 0, one, air)
+    eta = torch.where(front, 1.0 / safe_ir, safe_ir)
+    cos_t = torch.clamp(-(dx * nx + dy * ny + dz * nz), max=1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    cannot = eta * sin_t > 1.0
+    r0 = (1.0 - eta) / (1.0 + eta)
+    r0 = r0 * r0
+    omc = 1.0 - cos_t
+    omc2 = omc * omc
+    schlick = r0 + (1.0 - r0) * omc2 * omc2 * omc
+    choose_reflect = cannot | (schlick > xi)
+    rpx = eta * (dx + cos_t * nx)
+    rpy = eta * (dy + cos_t * ny)
+    rpz = eta * (dz + cos_t * nz)
+    par = -torch.sqrt(torch.abs(1.0 - (rpx * rpx + rpy * rpy + rpz * rpz)))
+    fx, fy, fz = rpx + par * nx, rpy + par * ny, rpz + par * nz
+    fno = _rsqrt(fx * fx + fy * fy + fz * fz)
+    dielx = torch.where(choose_reflect, refx, fx * fno)
+    diely = torch.where(choose_reflect, refy, fy * fno)
+    dielz = torch.where(choose_reflect, refz, fz * fno)
+
+    # Material dispatch (0 lambert / 1 metal / 2 dielectric).
+    is_lam = amt == 0
+    is_met = amt == 1
+    ndx = torch.where(is_lam, lamx, torch.where(is_met, metx, dielx))
+    ndy = torch.where(is_lam, lamy, torch.where(is_met, mety, diely))
+    ndz = torch.where(is_lam, lamz, torch.where(is_met, metz, dielz))
+
+    # Continue bouncing.
+    newb = bo + 1
+    cont = hitm & (newb < max_depth)
+    ox = torch.where(cont, px, ox)
+    oy = torch.where(cont, py, oy)
+    oz = torch.where(cont, pz, oz)
+    dx = torch.where(cont, ndx, dx)
+    dy = torch.where(cont, ndy, dy)
+    dz = torch.where(cont, ndz, dz)
+    tx = torch.where(cont, tx * aar, tx)
+    ty = torch.where(cont, ty * aag, ty)
+    tz = torch.where(cont, tz * aab, tz)
+    bo = torch.where(cont, newb, bo)
+
+    # Ray finished: next sample of this pixel, or fold and switch pixels.
+    need = miss | (hitm & ~cont)
+    nxt = sa + 1
+    same_pix = need & (nxt <= lane_lim)
+    done_pix = need & ~same_pix
+    fold = torch.nonzero(done_pix & (strip < k)).squeeze(1)
+    if fold.numel():
+        rows = 3 * strip[fold].long()
+        for ch, acc in enumerate((cx, cy, cz)):
+            buf[rows + ch, fold] += acc[fold]
+    cx = torch.where(done_pix, zero, cx)
+    cy = torch.where(done_pix, zero, cy)
+    cz = torch.where(done_pix, zero, cz)
+
+    # Advance pixel coordinates by n_lanes (one carry).
+    npx = pxi + dpx
+    carry = (npx >= W).to(torch.int32)
+    npx = npx - W * carry
+    npy = pyi + dpy + carry
+    new_strip = strip + 1
+    pxi = torch.where(done_pix, npx, pxi)
+    pyi = torch.where(done_pix, npy, pyi)
+    strip = torch.where(done_pix, new_strip, strip)
+    sa = torch.where(done_pix, torch.full_like(sa, first_sample),
+                     torch.where(same_pix, nxt, sa))
+    valid_new = (npy * W + npx) < p_end
+    start = same_pix | (done_pix & (new_strip < k) & valid_new)
+
+    # Thin-lens camera ray for lanes that start a sample (src/camera.jl).
+    inv_w, inv_h = cam[19], cam[20]
+    u_f = (pxi + 1).to(torch.float32) * inv_w
+    v_f = (H - 1 - pyi).to(torch.float32) * inv_h
+    centered = sa == 0
+    ju = torch.where(centered, zero, u9[5] * inv_w)
+    jv = torch.where(centered, zero, u9[6] * inv_h)
+    s_f = u_f + ju
+    t_f = v_f + jv
+    da, db = _concentric(u9[7], u9[8])
+    rdx, rdy = cam[18] * da, cam[18] * db
+    offx = rdx * cam[12] + rdy * cam[15]
+    offy = rdx * cam[13] + rdy * cam[16]
+    offz = rdx * cam[14] + rdy * cam[17]
+    gdx = cam[3] + s_f * cam[6] + t_f * cam[9] - cam[0] - offx
+    gdy = cam[4] + s_f * cam[7] + t_f * cam[10] - cam[1] - offy
+    gdz = cam[5] + s_f * cam[8] + t_f * cam[11] - cam[2] - offz
+    gno = _rsqrt(gdx * gdx + gdy * gdy + gdz * gdz)
+    ox = torch.where(start, cam[0] + offx, ox)
+    oy = torch.where(start, cam[1] + offy, oy)
+    oz = torch.where(start, cam[2] + offz, oz)
+    dx = torch.where(start, gdx * gno, dx)
+    dy = torch.where(start, gdy * gno, dy)
+    dz = torch.where(start, gdz * gno, dz)
+    tx = torch.where(start, one, tx)
+    ty = torch.where(start, one, ty)
+    tz = torch.where(start, one, tz)
+    bo = torch.where(start, torch.zeros_like(bo), bo)
+    active = (active & ~need) | start
+
+    fstate.copy_(torch.stack([ox, oy, oz, dx, dy, dz, tx, ty, tz, cx, cy, cz]))
+    istate[:6].copy_(torch.stack([bo, sa, strip, pxi, pyi,
+                                  active.to(torch.int32)]))
+
+
+def _check_planes(name, x, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"shade_strided_step: {name} on {x.device}, "
+                         f"expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"shade_strided_step: {name} must be {dtype}, "
+                        f"got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"shade_strided_step: {name} must be {shape}, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"shade_strided_step: {name} must be contiguous")
+
+
+def shade_strided_step(fstate: torch.Tensor, istate: torch.Tensor,
+                       buf: torch.Tensor, t: torch.Tensor,
+                       attrs: torch.Tensor, cam: torch.Tensor, geom: tuple,
+                       seed: int, iteration: int, first_sample: int,
+                       max_depth: int, u9: torch.Tensor | None = None) -> None:
+    """K2: one strided iteration, in place (arguments as
+    :func:`shade_strided_step_ref`).
+
+    CPU tensors run :func:`shade_strided_step_ref`. CUDA tensors launch the
+    kernel on the current stream; anything it does not take raises."""
+    global launches
+    if fstate.device.type == "cpu":
+        return shade_strided_step_ref(fstate, istate, buf, t, attrs, cam, geom,
+                                      seed, iteration, first_sample,
+                                      max_depth, u9)
+    dev = fstate.device
+    if dev.type != "cuda":
+        raise ValueError(f"shade_strided_step: unsupported device {dev}")
+    n = t.shape[0] if t.dim() == 1 else -1
+    k = buf.shape[0] // 3 if buf.dim() == 2 else -1
+    f32, i32 = torch.float32, torch.int32
+    _check_planes("fstate", fstate, f32, (N_FSTATE, n), dev)
+    _check_planes("istate", istate, i32, (N_ISTATE, n), dev)
+    _check_planes("buf", buf, f32, (3 * k, n), dev)
+    _check_planes("t", t, f32, (n,), dev)
+    _check_planes("attrs", attrs, f32, (10, n), dev)
+    _check_planes("cam", cam, f32, (21,), dev)
+    if u9 is not None:
+        _check_planes("u9", u9, f32, (9, n), dev)
+    if k < 1:
+        raise ValueError("shade_strided_step: buf must hold 3k planes, k >= 1")
+    W, H, dpx, dpy, p_end = (int(g) for g in geom)
+    lib = build.load()
+    with torch.cuda.device(dev):  # the launch uses the current device
+        err = lib.rtw_shade_strided(
+            fstate.data_ptr(), istate.data_ptr(), buf.data_ptr(), t.data_ptr(),
+            attrs.data_ptr(), cam.data_ptr(),
+            None if u9 is None else u9.data_ptr(), n, k, W, H, dpx, dpy,
+            p_end, int(first_sample), int(max_depth), seed & 0xFFFFFFFF,
+            iteration & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "shade_strided_step")
+    launches += 1

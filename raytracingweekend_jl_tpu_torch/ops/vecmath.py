@@ -1,0 +1,67 @@
+"""Vector math on stacked ``[..., 3]`` tensors — the PyTorch counterpart of
+``raytracingweekend_jl_tpu.ops.vecmath`` (reference: src/vec.jl:1-22,
+src/light.jl:1-25).
+
+Every helper is shape-polymorphic over leading batch dims and keeps the
+reference package's operation order, so float32 results agree with it to the
+last few ulps on the same inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Reference thresholds (src/vec.jl:20, src/ray_color.jl:19).
+NEAR_ZERO_EPS = 1e-5
+#: Guard inside the normalisation so degenerate lanes stay finite.
+_SAFE_EPS = 1e-20
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched dot product over the trailing axis (reference: src/vec.jl:19)."""
+    return (a * b).sum(dim=-1)
+
+
+def squared_length(v: torch.Tensor) -> torch.Tensor:
+    """``|v|^2`` (reference: squared_length, src/vec.jl:19)."""
+    return dot(v, v)
+
+
+def normalize(v: torch.Tensor) -> torch.Tensor:
+    """Unit-normalise over the trailing axis; a zero vector stays zero."""
+    sq = squared_length(v)
+    inv = torch.where(sq > 0, 1.0 / torch.sqrt(torch.clamp(sq, min=_SAFE_EPS)),
+                      torch.zeros_like(sq))
+    return v * inv[..., None]
+
+
+def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt that is 0 for x <= 0."""
+    pos = x > 0
+    return torch.sqrt(torch.where(pos, x, torch.ones_like(x))) * pos
+
+
+def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection of ``v`` about unit normal ``n`` (src/light.jl:6)."""
+    return v - (2.0 * dot(v, n))[..., None] * n
+
+
+def refract(d: torch.Tensor, n: torch.Tensor,
+            eta_ratio: torch.Tensor) -> torch.Tensor:
+    """Snell refraction returning a unit direction (src/light.jl:12-17)."""
+    cos_theta = torch.clamp(-dot(d, n), max=1.0)
+    r_perp = eta_ratio[..., None] * (d + cos_theta[..., None] * n)
+    r_par = -safe_sqrt(torch.abs(1.0 - squared_length(r_perp)))[..., None] * n
+    return normalize(r_perp + r_par)
+
+
+def reflectance(cos_theta: torch.Tensor, eta_ratio: torch.Tensor) -> torch.Tensor:
+    """Schlick's reflectance approximation (src/light.jl:19-25)."""
+    r0 = (1.0 - eta_ratio) / (1.0 + eta_ratio)
+    r0 = r0 * r0
+    return r0 + (1.0 - r0) * (1.0 - cos_theta) ** 5
+
+
+def gamma2_encode(linear: torch.Tensor) -> torch.Tensor:
+    """Gamma-2 encode = sqrt (reference: rgb_gamma2, src/vec.jl:22)."""
+    return torch.sqrt(torch.clamp(linear, min=0.0))
