@@ -5,9 +5,11 @@
 Builds the port's CUDA kernels from ``raytracingweekend_jl_tpu_torch/csrc``,
 checks each against its plain PyTorch version on the card, drives the
 flagship forward render through the public ``render(..., device="cuda")``
-entry point, and times the kernels and the render against the plain path.
-Each phase prints one JSON line; a failed check raises and the script exits
-non-zero without printing a result. The last line is
+entry point and the flagship gradient step through the public
+``render_grads(..., device="cuda")``, and times the kernels, the render and
+the step against the plain path. Each phase prints one JSON line; a failed
+check raises and the script exits non-zero without printing a result. The
+last line is
 ``{"ok": true, "device": {...}}``. It needs a CUDA device and exits non-zero
 without one. It imports nothing of JAX.
 """
@@ -77,16 +79,16 @@ def device_ms(fn, n: int, setup=None, sleep_cycles: int = 100_000_000) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / n
 
 
-def profile_render(render_once) -> dict:
-    """Device time by kernel and the device's busy share over one render,
-    from torch.profiler (CUPTI)."""
+def profile_call(fn) -> dict:
+    """Device time by kernel and the device's busy share over one call of
+    ``fn()``, from torch.profiler (CUPTI)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_once()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Only events that ran on the card (kernels, copies): the host-side
@@ -97,10 +99,377 @@ def profile_render(render_once) -> dict:
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) / 1e6
+    # Host side: operators by their own CPU time (a synchronising operator
+    # counts the time it waits for the card).
+    host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.self_cpu_time_total > 0), key=lambda r: -r[1])
     return {"wall_s_profiled": wall, "device_busy_s": busy_s,
             "device_idle_share": (1 - busy_s / wall) if rows else None,
             "top_kernels": [{"name": k[:80], "device_ms": us / 1e3,
-                             "count": c} for k, us, c in rows[:10]]}
+                             "count": c} for k, us, c in rows[:12]],
+            "top_host_ops": [{"name": k[:60], "self_cpu_ms": us / 1e3,
+                              "count": c} for k, us, c in host[:12]]}
+
+
+def lanes_outside(close_pairs, rel: float, exact_pairs=()) -> tuple:
+    """``(lanes, max_abs_err)``: the number of lanes (last axis) on which a
+    float pair differs by more than ``rel * max(1, |plain|)`` or an exact
+    pair differs at all, and the largest float difference. Each pair is
+    ``(kernel, plain)``."""
+    ok, err = None, 0.0
+    for a, b in close_pairs:
+        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        diff = (a - b).abs()
+        o = (diff <= rel * b.abs().clamp(min=1)).all(0)
+        ok = o if ok is None else ok & o
+        err = max(err, diff.max().item())
+    for a, b in exact_pairs:
+        ok &= (a.reshape(-1, a.shape[-1]) == b.reshape(-1, b.shape[-1])).all(0)
+    return int((~ok).sum().item()), err
+
+
+def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
+    """K3-K6 against their plain versions at the flagship's gradient shapes
+    (spp 1, 8 strips, 262 144 lanes, a recorded 44-slot phase), and their
+    times. Returns their rows of the ``kernels`` line (launches unset) and
+    their ``device_ms`` and ``call_ms`` entries."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch import rng
+    from raytracingweekend_jl_tpu_torch.ops import persist_grad as PG
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    from raytracingweekend_jl_tpu_torch.ops.cuda import persist_grad_kernel as PK
+    from raytracingweekend_jl_tpu_torch.ops.materials import (
+        attr_mat, fetch_attr_planes)
+
+    S, DEPTH, B1, SEED = 8, 16, 44, 0x5EED
+    spheres, amat = K1.sphere_consts(scene), attr_mat(scene)
+    g = torch.Generator(device=dev).manual_seed(7)
+    u_px, v_px = pt.pixel_coords(W, H, device=dev)
+    o, d = pt.get_rays(cam, u_px, v_px, generator=g)
+    strips, sf, si, rad = PG.start_planes(o, d, S)
+    lanes = sf.shape[1]
+    check(lanes == 262144, f"flagship gradient lanes {lanes}")
+    # Record one 44-slot phase through K3 + gather + K4 (Philox draws).
+    rec = torch.empty((B1, PK.N_REC, lanes), device=dev)
+    rec_idx = torch.empty((B1, lanes), dtype=torch.int32, device=dev)
+    for i in range(B1):
+        if i == 20:  # a mid-phase state for the K3 and K4 checks
+            sf20, si20, rad20 = sf.clone(), si.clone(), rad.clone()
+        t, idx = K1.sweep_masked(sf[0:6], si[2], spheres)
+        rec_idx[i] = idx
+        PK.persist_record_step(t, fetch_attr_planes(idx, amat), strips, sf,
+                               si, rad, rec[i], SEED, i, DEPTH)
+    torch.cuda.synchronize()
+
+    # -- K3 against sweep_masked_ref ----------------------------------------
+    live = si20[2] != 0
+    t3, i3 = K1.sweep_masked(sf20[0:6], si20[2], spheres)
+    torch.cuda.synchronize()
+    t3r, i3r = K1.sweep_masked_ref(sf20[0:6], si20[2], spheres)
+    idx_same = bool(torch.equal(i3, i3r))
+    t_bit = (t3 == t3r)[live].float().mean().item()
+    dead_ok = bool(((t3[~live] == K1.BIG) & (i3[~live] == 0)).all())
+    k3_err = (t3 - t3r).abs().max().item()
+    emit({"phase": "k3_vs_plain", "lanes": lanes, "spheres": scene.n_spheres,
+          "iteration": 20, "live_share": live.float().mean().item(),
+          "idx_identical": idx_same, "t_bit_equal_share_live": t_bit,
+          "dead_lanes_big_0": dead_ok, "t_max_abs_err": k3_err,
+          "tolerance": "idx identical; t bit-equal on >= 99.99% of live "
+                       "lanes; dead lanes exactly (BIG, 0)"})
+    check(idx_same, "K3 idx differs from sweep_masked_ref")
+    check(t_bit >= 0.9999, f"K3 t bit-equal on only {t_bit} of live lanes")
+    check(dead_ok, "K3 dead lanes are not (BIG, 0)")
+
+    # -- K4 against persist_record_step_ref -----------------------------------
+    attrs3 = fetch_attr_planes(i3, amat)
+    floats = [j for j in range(PK.N_REC) if j != 10]
+
+    def k4_run(step, u5):
+        sf_, si_, rad_ = sf20.clone(), si20.clone(), rad20.clone()
+        slot = torch.zeros((PK.N_REC, lanes), device=dev)
+        step(t3, attrs3, strips, sf_, si_, rad_, slot, SEED, 20, DEPTH, u5)
+        torch.cuda.synchronize()
+        return sf_, si_, rad_, slot
+
+    def k4_compare(u5):
+        a = k4_run(PK.persist_record_step, u5)
+        b = k4_run(PK.persist_record_step_ref, u5)
+        return lanes_outside(
+            [(a[0], b[0]), (a[2], b[2]), (a[3][floats], b[3][floats])], 1e-6,
+            [(a[1], b[1]), (PK.flags_of(a[3]), PK.flags_of(b[3]))])
+
+    u5 = torch.rand((5, lanes), generator=g, device=dev)
+    bad_inj, k4_err_inj = k4_compare(u5)
+    bad_ph, k4_err_ph = k4_compare(None)
+    emit({"phase": "k4_vs_plain", "lanes": lanes, "strips": S,
+          "iteration": 20, "lanes_outside_injected_u5": bad_inj,
+          "max_abs_err_injected": k4_err_inj, "lanes_outside_philox": bad_ph,
+          "max_abs_err_philox": k4_err_ph,
+          "tolerance": "int planes and flags identical, float planes within "
+                       "1e-6*max(1,|x|), on >= 99.99% of lanes"})
+    limit = int(1e-4 * lanes)
+    check(bad_inj <= limit, f"K4 (injected u5): {bad_inj} lanes outside")
+    check(bad_ph <= limit, f"K4 (Philox): {bad_ph} lanes outside")
+
+    # -- K5 and K6 against their plain versions over the recorded phase ------
+    g_rad = torch.rand((W * H, 3), generator=g, device=dev) * 2 - 1
+    gstrips = PG.grad_strip_planes(g_rad, S, lanes)
+    cot0 = torch.randn((9, lanes), generator=g, device=dev) * si[2]
+    dep0 = torch.zeros((6 * S, lanes), device=dev)
+
+    def k5_run(fused, u5_all=None):
+        cot, dep = cot0.clone(), dep0.clone()
+        dattr = fused(cot, dep, rec, gstrips, 0, SEED, u5_all)
+        torch.cuda.synchronize()
+        return cot, dep, dattr
+
+    def k6_run(step):  # the lean 11-plane record, attributes refetched
+        cot, dep = cot0.clone(), dep0.clone()
+        dattr = torch.empty((B1, 9, lanes), device=dev)
+        for s in reversed(range(B1)):
+            step(cot, dep, rec[s, :PK.N_REC_LEAN], gstrips, SEED, s, None,
+                 fetch_attr_planes(rec_idx[s], amat), out=dattr[s])
+        torch.cuda.synchronize()
+        return cot, dep, dattr
+
+    k5 = k5_run(PK.persist_replay_fused)
+    bad5, k5_err = lanes_outside(
+        list(zip(k5, k5_run(PK.persist_replay_fused_ref))), 1e-5)
+    u5_all = torch.stack([rng.philox_uniforms(SEED, i, lanes, 5, device=dev)
+                          for i in range(B1)])
+    philox_bitwise = all(torch.equal(a, b) for a, b in
+                         zip(k5, k5_run(PK.persist_replay_fused, u5_all)))
+    del u5_all
+    k6 = k6_run(PK.persist_replay_step)
+    bad6, k6_err = lanes_outside(
+        list(zip(k6, k6_run(PK.persist_replay_step_ref))), 1e-5)
+    k6_is_k5 = all(torch.equal(a, b) for a, b in zip(k6, k5))
+    tol = "cot, dep, dattr within 1e-5*max(1,|x|) on >= 99.9% of lanes"
+    emit({"phase": "k5_vs_plain", "lanes": lanes, "slots": B1,
+          "lanes_outside": bad5, "max_abs_err": k5_err,
+          "philox_vs_injected_bitwise": philox_bitwise, "tolerance": tol
+          + "; own Philox draws bitwise equal to injected philox_uniforms"})
+    emit({"phase": "k6_vs_plain", "lanes": lanes, "slots": B1,
+          "record": "lean (11 planes, attributes refetched)",
+          "lanes_outside": bad6, "max_abs_err": k6_err,
+          "bitwise_equal_to_k5": k6_is_k5, "tolerance": tol})
+    limit = int(1e-3 * lanes)
+    check(bad5 <= limit, f"K5: {bad5} lanes outside")
+    check(philox_bitwise, "K5 Philox draws differ from philox_uniforms")
+    check(bad6 <= limit, f"K6: {bad6} lanes outside")
+
+    # -- times at these shapes (CUDA events) --------------------------------
+    live4 = [sf20.clone(), si20.clone(), rad20.clone()]
+    slot4 = torch.empty((PK.N_REC, lanes), device=dev)
+    carry = [cot0.clone(), dep0.clone()]
+    lean10 = rec[10, :PK.N_REC_LEAN]
+    attrs10 = fetch_attr_planes(rec_idx[10], amat)
+    out6 = torch.empty((9, lanes), device=dev)
+    fns = {
+        "sweep_masked": lambda: K1.sweep_masked(sf20[0:6], si20[2], spheres),
+        "sweep_masked_plain": lambda: K1.sweep_masked_ref(
+            sf20[0:6], si20[2], spheres),
+        "persist_record": lambda: PK.persist_record_step(
+            t3, attrs3, strips, *live4, slot4, SEED, 20, DEPTH),
+        "persist_record_plain": lambda: PK.persist_record_step_ref(
+            t3, attrs3, strips, *live4, slot4, SEED, 20, DEPTH),
+        "persist_replay_fused": lambda: PK.persist_replay_fused(
+            *carry, rec, gstrips, 0, SEED),
+        "persist_replay_fused_plain": lambda: PK.persist_replay_fused_ref(
+            *carry, rec, gstrips, 0, SEED),
+        "persist_replay_step": lambda: PK.persist_replay_step(
+            *carry, lean10, gstrips, SEED, 10, None, attrs10, out=out6),
+        "persist_replay_step_plain": lambda: PK.persist_replay_step_ref(
+            *carry, lean10, gstrips, SEED, 10, None, attrs10, out=out6),
+    }
+    setups = {"persist_record": lambda: [x.copy_(y) for x, y in
+                                         zip(live4, (sf20, si20, rad20))],
+              "persist_replay": lambda: [x.copy_(y) for x, y in
+                                         zip(carry, (cot0, dep0))]}
+    dev_ms, call = {}, {}
+    for name, fn in fns.items():
+        plain = name.endswith("_plain")
+        setup = next((v for k, v in setups.items() if name.startswith(k)),
+                     None)
+        n = 3 if plain else 20
+        dev_ms[name] = device_ms(fn, n, setup=setup, sleep_cycles=(
+            3_000_000_000 if plain else 100_000_000))
+        call[name] = call_ms(fn, n, setup=setup)
+
+    pkg, tpu = "raytracingweekend_jl_tpu_torch/csrc", \
+        "raytracingweekend_jl_tpu/ops/pallas"
+    rows = [("sweep_masked", "sweep.cu", "intersect_kernel.py:115", k3_err),
+            ("persist_record", "persist_record.cu",
+             "persist_grad_kernel.py:239", max(k4_err_inj, k4_err_ph)),
+            ("persist_replay_fused", "persist_replay.cu",
+             "persist_grad_kernel.py:665", k5_err),
+            ("persist_replay_step", "persist_replay.cu",
+             "persist_grad_kernel.py:542", k6_err)]
+    return [{"name": nm, "route": "cuda", "source": f"{pkg}/{src}",
+             "replaces": f"{tpu}/{tpu_at}", "launches": None,
+             "max_abs_err": err, "ms": dev_ms[nm],
+             "plain_ms": dev_ms[nm + "_plain"]}
+            for nm, src, tpu_at, err in rows], dev_ms, call
+
+
+def grad_entry_phases(dev, card, W: int = 1920, w2: int = 480) -> dict:
+    """The gradient slice through the public ``render_grads``: the flagship
+    step (default route, then the lean-record route), the kernels against
+    the plain versions at 480x270, and a finite-difference check. Returns
+    the launches of K3-K6 on the main-path runs."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    from raytracingweekend_jl_tpu_torch.ops.cuda import persist_grad_kernel as PK
+
+    def reset_counts():
+        K1.masked_launches = PK.record_launches = 0
+        PK.replay_fused_launches = PK.replay_step_launches = 0
+
+    def counts():
+        return {"sweep_masked": K1.masked_launches,
+                "persist_record": PK.record_launches,
+                "persist_replay_fused": PK.replay_fused_launches,
+                "persist_replay_step": PK.replay_step_launches}
+
+    def same(a, b):
+        return bool(torch.equal(a[0], b[0])) and all(
+            torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+    H, h2, SPP = pt.image_height_for(W), pt.image_height_for(w2), 1
+    scene, cam = pt.scene_random_spheres(seed=1), pt.t_cam1()
+    bad = scene._replace(albedo=torch.clamp(scene.albedo * 0.8, 0, 1))
+    target = pt.render_radiance(scene, cam, W, SPP, seed=123, device=dev)
+
+    def step(**kw):
+        out = pt.render_grads(bad, cam, target, W, SPP, device=dev, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    # -- the flagship step, default route (K3, K4, K5) ----------------------
+    step()  # warm-up
+    stats = {}
+    reset_counts()
+    first = step(stats=stats)
+    launches = counts()
+    bitwise = same(first, step())
+    pt.check_grads_sane(first[1], first[0])
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    peak = torch.cuda.max_memory_allocated()
+    sec = sorted(secs)[len(secs) // 2]
+    n1, n2 = stats["phase1_counts"][0], stats["phase2_counts"][0]
+    lanes = stats["lanes"][0]
+    emit({"phase": "grad_step", "card": card, "size": [W, H], "spp": SPP,
+          "route": "persistent record, 8 strips, tail compaction (44, 16), "
+                   "strict, fused replay",
+          "launches": launches, "dropped": stats["dropped"],
+          "lanes": lanes, "boundary_active": stats["boundary_active"][0],
+          "occupancy_at_44": stats["boundary_active"][0] / lanes,
+          "phase1_iterations": sum(c > 0 for c in n1),
+          "phase2_iterations": sum(c > 0 for c in n2),
+          "phase2_counts": [c for c in n2 if c > 0],
+          "loss": float(first[0]), "bitwise_repeat": bitwise,
+          "seconds_runs": secs, "seconds_median": sec,
+          "mpaths_per_s": W * H * SPP / sec / 1e6,
+          "peak_allocated_bytes": peak,
+          "grad_sums": {f: float(getattr(first[1], f).sum())
+                        for f in pt.DIFF_FIELDS}})
+    check(all(launches[k] > 0 for k in
+              ("sweep_masked", "persist_record", "persist_replay_fused")),
+          f"gradient step launched {launches}")
+    check(stats["dropped"] == 0, f"{stats['dropped']} paths dropped")
+    check(bitwise, "two gradient steps differ")
+    emit({"phase": "grad_profile", "card": card, **profile_call(step)})
+
+    # -- the lean-record route of the same step (K3, K4, K6) ----------------
+    lean_kw = dict(recorded_persist=(8, None, (44, 16), False),
+                   persist_strict=True)
+    reset_counts()
+    lean = step(**lean_kw)
+    lean_launches = counts()
+    t0 = time.perf_counter()
+    step(**lean_kw)
+    lean_sec = time.perf_counter() - t0
+    lean_same = same(lean, first)
+    emit({"phase": "grad_step_lean", "card": card, "size": [W, H],
+          "spp": SPP, "launches": lean_launches, "seconds": lean_sec,
+          "mpaths_per_s": W * H * SPP / lean_sec / 1e6,
+          "bitwise_equal_to_default": lean_same})
+    check(all(lean_launches[k] > 0 for k in
+              ("sweep_masked", "persist_record", "persist_replay_step")),
+          f"lean gradient step launched {lean_launches}")
+    check(lean_same, "lean-record gradients differ from the default's")
+
+    # -- kernels against the plain versions at 480x270 -----------------------
+    target2 = pt.render_radiance(scene, cam, w2, 1, seed=123, device=dev)
+
+    def step2(**kw):
+        t0 = time.perf_counter()
+        out = pt.render_grads(bad, cam, target2, w2, 1, device=dev, seed=9,
+                              **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    sec_k = min(step2()[0], step2()[0])
+    _, (loss_k, g_k) = step2()
+    sec_p, (loss_p, g_p) = step2(impl="plain")
+    rel_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    fields = {}
+    for f in pt.DIFF_FIELDS:
+        a = getattr(g_k, f).double().ravel()
+        b = getattr(g_p, f).double().ravel()
+        na, nb = a.norm().item(), b.norm().item()
+        cos = 1.0 if na == nb == 0 else (a @ b).item() / max(na * nb, 1e-300)
+        fields[f] = {"cosine": cos,
+                     "norm_ratio": 1.0 if na == nb == 0 else na / nb}
+    emit({"phase": "grad_vs_plain", "card": card, "size": [w2, h2],
+          "spp": 1, "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+          "loss_rel_diff": rel_loss, "fields": fields,
+          "seconds_kernels": sec_k, "seconds_plain": sec_p,
+          "tolerance": "loss within 1e-5 relative; per field cosine >= "
+                       "0.999 and norm ratio within 1%"})
+    check(rel_loss <= 1e-5, f"loss differs by {rel_loss} relative")
+    for f, v in fields.items():
+        check(v["cosine"] >= 0.999 and abs(v["norm_ratio"] - 1) <= 0.01,
+              f"grad[{f}] kernels vs plain: {v}")
+
+    # -- finite differences in the largest Lambertian sphere's albedo -------
+    lf = lambda img, tgt: ((img.double() - tgt.double()) ** 2).mean()
+    _, g_fd = pt.render_grads(bad, cam, target2, w2, 1, device=dev, seed=9,
+                              loss_fn=lf)
+    k = int(torch.where(bad.mat == 0, bad.radius, -1.0).argmax())
+    eps, rows = 1e-3, []
+    for c in range(3):
+        losses = []
+        for sgn in (1.0, -1.0):
+            alb = bad.albedo.clone()
+            alb[k, c] += sgn * eps
+            with torch.no_grad():
+                losses.append(float(pt.render_loss(
+                    bad._replace(albedo=alb), cam, target2, w2, 1,
+                    device=dev, seed=9, loss_fn=lf)))
+        fd = (losses[0] - losses[1]) / (2 * eps)
+        an = float(g_fd.albedo[k, c])
+        rows.append({"channel": c, "fd": fd, "kernel_grad": an,
+                     "rel_err": abs(fd - an) / max(abs(an), 1e-30)})
+    emit({"phase": "grad_fd", "card": card, "size": [w2, h2], "spp": 1,
+          "sphere": k, "radius": float(bad.radius[k]), "eps": eps,
+          "channels": rows, "tolerance": "within 1e-2 relative"})
+    for r in rows:
+        check(r["rel_err"] <= 1e-2, f"FD check failed: {r}")
+
+    return {**{k: launches[k] for k in
+               ("sweep_masked", "persist_record", "persist_replay_fused")},
+            "persist_replay_step": lean_launches["persist_replay_step"]}
 
 
 def main() -> int:
@@ -293,23 +662,34 @@ def main() -> int:
     k2_ms = device_ms(k2, 50, setup=reset)
     k2_plain_ms = device_ms(k2_plain, 5, setup=reset,
                             sleep_cycles=long_sleep)
-    emit({"phase": "kernel_times", "card": card, "lanes": n_lanes,
-          "spheres": scene.n_spheres, "k": k,
-          "device_ms": {"sweep": k1_ms, "sweep_plain": k1_plain_ms,
-                        "shade_strided": k2_ms,
-                        "shade_strided_plain": k2_plain_ms},
-          "call_ms": {"sweep": call_ms(k1, 50),
-                      "sweep_plain": call_ms(k1_plain, 3),
-                      "shade_strided": call_ms(k2, 50, setup=reset),
-                      "shade_strided_plain": call_ms(k2_plain, 5,
-                                                     setup=reset)},
-          "note": "device_ms: card time only (queue pre-filled); call_ms: "
-                  "per synchronised call, host enqueue included"})
+    fwd_dev_ms = {"sweep": k1_ms, "sweep_plain": k1_plain_ms,
+                  "shade_strided": k2_ms, "shade_strided_plain": k2_plain_ms}
+    fwd_call_ms = {"sweep": call_ms(k1, 50),
+                   "sweep_plain": call_ms(k1_plain, 3),
+                   "shade_strided": call_ms(k2, 50, setup=reset),
+                   "shade_strided_plain": call_ms(k2_plain, 5, setup=reset)}
 
     # -- 7. where the flagship render's time goes (torch.profiler) ----------
-    emit({"phase": "profile", "card": card, **profile_render(
+    emit({"phase": "profile", "card": card, **profile_call(
         lambda: pt.render(flag_scene, flag_cam, W, SPP, persistent=True,
                           device="cuda"))})
+
+    # -- 8-9. the gradient slice: K3-K6, then the public entry point -------
+    grad_rows, grad_dev_ms, grad_call_ms = grad_kernel_phases(
+        dev, card, scene, cam, W, H)
+    emit({"phase": "kernel_times", "card": card,
+          "device_ms": {**fwd_dev_ms, **grad_dev_ms},
+          "call_ms": {**fwd_call_ms, **grad_call_ms},
+          "shapes": "sweep, shade_strided: 32 400 lanes mid-render, 488 "
+                    "spheres, k = 64; sweep_masked, persist_record: one "
+                    "record iteration (20) at 262 144 lanes, 8 strips; "
+                    "persist_replay_fused: the whole 44-slot phase; "
+                    "persist_replay_step: one slot of the lean record",
+          "note": "device_ms: card time only (queue pre-filled); call_ms: "
+                  "per synchronised call, host enqueue included"})
+    grad_launches = grad_entry_phases(dev, card)
+    for row in grad_rows:
+        row["launches"] = grad_launches[row["name"]]
 
     pkg = "raytracingweekend_jl_tpu_torch"
     emit({"kernels": [
@@ -322,6 +702,7 @@ def main() -> int:
          "replaces": "raytracingweekend_jl_tpu/ops/pallas/shade_kernel.py:380",
          "launches": launches["shade_strided"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        *grad_rows,
     ]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

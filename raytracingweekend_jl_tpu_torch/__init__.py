@@ -1,12 +1,20 @@
 """raytracingweekend_jl_tpu_torch — the PyTorch/CUDA port of
 ``raytracingweekend_jl_tpu``.
 
-The flagship forward render runs end to end: ``render(scene, cam, width,
-spp, device="cuda")`` goes through the strided persistent integrator and two
-hand-written CUDA kernels for Hopper (the sphere sweep and the strided shade
-step, built from ``csrc/`` at first use). On the CPU the same path runs the
-kernels' plain PyTorch versions. Module names follow the JAX package so each
-counterpart is easy to find; this package never imports JAX.
+Two main paths run end to end, each through hand-written CUDA kernels for
+Hopper built from ``csrc/`` at first use:
+
+- the flagship forward render: ``render(scene, cam, width, spp,
+  device="cuda")`` goes through the strided persistent integrator (the
+  sphere sweep K1 and the strided shade step K2);
+- the flagship gradient step: ``render_grads(scene, cam, target, width,
+  spp, device="cuda")`` goes through the persistent-record kernel pair (the
+  masked sweep K3, the record step K4, the fused replay K5, and the
+  per-slot replay K6 for lean records).
+
+On the CPU the same paths run the kernels' plain PyTorch versions. Module
+names follow the JAX package so each counterpart is easy to find; this
+package never imports JAX.
 """
 
 from .scene import (Scene, make_scene, trim_scene, scene_from_numpy, sphere,
@@ -17,6 +25,9 @@ from .camera import (Camera, default_camera, make_rays, get_rays,
                      hollow_glass_cam)
 from .render import (render, render_radiance, render_tile_sum,
                      image_height_for, pixel_coords)
+from .grad import (render_loss, render_grads, SceneGrads, check_grads_sane,
+                   GradSanityError, sgd_inverse_render_step, DIFF_FIELDS)
+from .ops.persist_grad import trace_recorded_persist, persist_dropped_paths
 from .ops.integrator import (persistent_render_sum_strided, skycolor,
                              DEFAULT_MAX_DEPTH)
 from .ops.intersect import intersect_spheres, HitResult, DEFAULT_TMIN

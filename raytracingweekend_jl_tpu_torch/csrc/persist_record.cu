@@ -1,0 +1,147 @@
+// K4: one record iteration of the persistent-record gradient path for
+// Hopper (sm_90a).
+//
+// Replaces the TPU kernel
+// raytracingweekend_jl_tpu/ops/pallas/persist_grad_kernel.py ::
+// _persist_record_kernel (launched by persist_record_step), whose state
+// machine is _advance_record_bank. The plain PyTorch version is
+// raytracingweekend_jl_tpu_torch/ops/cuda/persist_grad_kernel.py ::
+// persist_record_step_ref.
+//
+// What it computes, per lane: each lane owns S rays spaced W lanes apart
+// (its strips) and traces them one after another. It shades the swept
+// bounce (shade_core.cuh), banks T * sky(d) of a missing ray into that
+// strip's radiance planes, advances a continuing ray, and refills a
+// terminated lane with its next strip's camera ray. Before the update it
+// writes slot `slot` of the residual record: the bounce's inputs o, d, T,
+// the hit distance t, the packed event flags
+// act | hit<<1 | term<<2 | regen<<3 | strip<<4 (stored bit for bit in a
+// float plane), and, for the full 21-plane record, the winner's 10
+// attributes. An inactive lane changes nothing and writes a zero record.
+//
+// What bounds it on the card: memory traffic. A live lane reads ~130 bytes
+// (state, hit, attributes, its next strip's ray) and writes ~120 (state and
+// 21 record words); at the flagship width (262 144 lanes) one launch moves
+// ~65 MB, about 20 us of HBM time.
+//
+// Design: one thread per lane, [plane, lane] layout so every access of a
+// warp is one coalesced segment per plane. The TPU kernel banked and
+// refilled with masked blends over all S strips (9S planes read and
+// written per lane); here a lane reads and writes only the strip it needs.
+// Record offsets are 64-bit: n_slots x 21 x W grows with the image.
+// Draws: 5 uniforms, Philox4x32-10 keyed by (seed, absolute iteration) with
+// the lane as the counter, so the replay kernels redraw exactly these
+// numbers at any launch shape; or read from `u5` when given.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "philox.cuh"
+#include "shade_core.cuh"
+
+__global__ void persist_record_kernel(
+    const float* __restrict__ t_in, const float* __restrict__ attrs,
+    const float* __restrict__ strips, float* __restrict__ sf,
+    int* __restrict__ si, float* __restrict__ rad, float* __restrict__ rec,
+    int n_rec, const float* __restrict__ u5, int n_lanes, int S,
+    int max_depth, uint32_t seed, uint32_t iteration) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_lanes) return;
+  const size_t n = n_lanes;
+  const bool active = si[2 * n + i] != 0;
+  if (!active) {
+    for (int p = 0; p < n_rec; ++p) rec[p * n + i] = 0.0f;
+    return;
+  }
+
+  float ox = sf[0 * n + i], oy = sf[1 * n + i], oz = sf[2 * n + i];
+  float dx = sf[3 * n + i], dy = sf[4 * n + i], dz = sf[5 * n + i];
+  float tx = sf[6 * n + i], ty = sf[7 * n + i], tz = sf[8 * n + i];
+  int bo = si[0 * n + i], sp = si[1 * n + i];
+
+  float u[5];
+  if (u5) {
+#pragma unroll
+    for (int j = 0; j < 5; ++j) u[j] = u5[j * n + i];
+  } else {
+    rtw_uniforms<5>(seed, iteration, (uint32_t)i, u);
+  }
+  const float t = t_in[i];
+  float a[10];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) a[j] = attrs[j * n + i];
+
+  float bkr = 0.0f, bkg = 0.0f, bkb = 0.0f;
+  const RtwShade s = rtw_shade_core(u, t, a, ox, oy, oz, dx, dy, dz, tx, ty,
+                                    tz, true, bkr, bkg, bkb);
+  const int newb = bo + 1;
+  const bool cont = s.hitm && (newb < max_depth);
+  const bool exhausted = s.hitm && !cont;
+  const bool term = s.miss || exhausted;
+  const int nxt_s = sp + 1;
+  const bool can = term && (nxt_s < S);
+
+  // Residual record: this iteration's inputs and packed events.
+  const int flags = 1 + ((s.hitm ? 1 : 0) << 1) + ((term ? 1 : 0) << 2)
+                    + ((can ? 1 : 0) << 3) + (sp << 4);
+  rec[0 * n + i] = ox; rec[1 * n + i] = oy; rec[2 * n + i] = oz;
+  rec[3 * n + i] = dx; rec[4 * n + i] = dy; rec[5 * n + i] = dz;
+  rec[6 * n + i] = tx; rec[7 * n + i] = ty; rec[8 * n + i] = tz;
+  rec[9 * n + i] = t;
+  rec[10 * n + i] = __int_as_float(flags);
+  if (n_rec == 21) {
+#pragma unroll
+    for (int j = 0; j < 10; ++j) rec[(11 + j) * n + i] = a[j];
+  }
+
+  // Bank the terminating ray's radiance into its strip's planes.
+  if (s.miss) {
+    float* r = rad + (size_t)(3 * sp) * n + i;
+    r[0] = bkr;
+    r[n] = bkg;
+    r[2 * n] = bkb;
+  }
+
+  // Advance on continue.
+  if (cont) {
+    ox = s.px; oy = s.py; oz = s.pz;
+    dx = s.ndx; dy = s.ndy; dz = s.ndz;
+    tx = tx * a[4]; ty = ty * a[5]; tz = tz * a[6];
+    bo = newb;
+  }
+
+  // Refill from the next strip's camera ray.
+  if (can) {
+    const float* q = strips + (size_t)(6 * nxt_s) * n + i;
+    ox = q[0]; oy = q[n]; oz = q[2 * n];
+    dx = q[3 * n]; dy = q[4 * n]; dz = q[5 * n];
+    tx = 1.0f; ty = 1.0f; tz = 1.0f;
+    bo = 0;
+    sp = nxt_s;
+  }
+  const bool act = !term || can;
+
+  sf[0 * n + i] = ox; sf[1 * n + i] = oy; sf[2 * n + i] = oz;
+  sf[3 * n + i] = dx; sf[4 * n + i] = dy; sf[5 * n + i] = dz;
+  sf[6 * n + i] = tx; sf[7 * n + i] = ty; sf[8 * n + i] = tz;
+  si[0 * n + i] = bo; si[1 * n + i] = sp; si[2 * n + i] = act ? 1 : 0;
+}
+
+// t [W] f32, attrs [10, W] f32, strips [6S, W] f32; sf [9, W] f32 (o, d, T),
+// si [3, W] i32 (bounce, strip, active) and rad [3S, W] f32 are updated in
+// place; rec points at one record slot [n_rec, W] (n_rec 21 or 11). u5
+// [5, W] f32 may be NULL (in-kernel Philox).
+extern "C" int rtw_persist_record(const float* t, const float* attrs,
+                                  const float* strips, float* sf, int* si,
+                                  float* rad, float* rec, int n_rec,
+                                  const float* u5, int n_lanes, int S,
+                                  int max_depth, unsigned int seed,
+                                  unsigned int iteration, void* stream) {
+  if (n_lanes <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (n_lanes + threads - 1) / threads;
+  persist_record_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      t, attrs, strips, sf, si, rad, rec, n_rec, u5, n_lanes, S, max_depth,
+      seed, iteration);
+  return (int)cudaGetLastError();
+}

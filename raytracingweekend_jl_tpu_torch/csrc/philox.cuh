@@ -45,3 +45,20 @@ __device__ __forceinline__ RtwU4 rtw_philox4x32_10(RtwU4 c, uint32_t k0,
 __device__ __forceinline__ float rtw_u01(uint32_t bits) {
   return (float)(bits >> 8) * (1.0f / 16777216.0f);
 }
+
+// The first N uniforms of one lane's draws keyed by (seed, iteration):
+// counter (lane, block, 0, 0), uniform j = word j % 4 of block j / 4. The
+// plain PyTorch version is rng.py::philox_uniforms.
+template <int N>
+__device__ __forceinline__ void rtw_uniforms(uint32_t seed, uint32_t iteration,
+                                             uint32_t lane, float* u) {
+#pragma unroll
+  for (int blk = 0; blk < (N + 3) / 4; ++blk) {
+    RtwU4 c = {lane, (uint32_t)blk, 0u, 0u};
+    RtwU4 r = rtw_philox4x32_10(c, seed, iteration);
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (4 * blk + q < N) u[4 * blk + q] = rtw_u01(w[q]);
+  }
+}

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel raytracingweekend_jl_tpu/ops/pallas/shade_kernel.py
 // :: _shade_strided_kernel (launched by shade_strided_step), with the math of
-// _shade_core and the helpers _uniforms, _gauss3 and _concentric.
+// _shade_core (shade_core.cuh) and the helpers _uniforms, _gauss3 and
+// _concentric.
 //
 // What it computes, per lane (each lane serves k pixels spaced n_lanes
 // apart, one at a time): sky on miss; the hit point and facing normal;
@@ -35,12 +36,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
-
-#define RTW_BIG 3.0e38f
-
-__device__ __forceinline__ float rtw_rsqrt(float x) {
-  return rsqrtf(fmaxf(x, 1e-20f));
-}
+#include "shade_core.cuh"
 
 __global__ void shade_strided_kernel(
     float* __restrict__ fs, int* __restrict__ is, float* __restrict__ buf,
@@ -65,119 +61,29 @@ __global__ void shade_strided_kernel(
 #pragma unroll
     for (int j = 0; j < 9; ++j) u[j] = u9[j * n + i];
   } else {
-#pragma unroll
-    for (int blk = 0; blk < 3; ++blk) {
-      RtwU4 c = {(uint32_t)i, (uint32_t)blk, 0u, 0u};
-      RtwU4 r = rtw_philox4x32_10(c, seed, iteration);
-      const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (4 * blk + q < 9) u[4 * blk + q] = rtw_u01(w[q]);
-    }
+    rtw_uniforms<9>(seed, iteration, (uint32_t)i, u);
   }
 
   const float t = t_in[i];
-  const float acx = attrs[0 * n + i], acy = attrs[1 * n + i],
-              acz = attrs[2 * n + i], arr = attrs[3 * n + i];
-  const float aar = attrs[4 * n + i], aag = attrs[5 * n + i],
-              aab = attrs[6 * n + i], afz = attrs[7 * n + i];
-  const float air = attrs[8 * n + i], amt = attrs[9 * n + i];
+  float a[10];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) a[j] = attrs[j * n + i];
 
-  const bool hitm = (t < RTW_BIG) && active;
-  const bool miss = active && !hitm;
-
-  // Sky on miss (reference: src/ray_color.jl:1-6,35-37).
-  const float st = 0.5f * (dy + 1.0f);
-  const float skyr = (1.0f - st) + st * 0.5f;
-  const float skyg = (1.0f - st) + st * 0.7f;
-  const float skyb = (1.0f - st) + st * 1.0f;
-  if (miss) {
-    cx = cx + tx * skyr;
-    cy = cy + ty * skyg;
-    cz = cz + tz * skyb;
-  }
-
-  // Hit point and facing normal (src/hit.jl:3,6-10,32-34).
-  const float ts = hitm ? t : 1.0f;
-  const float px = ox + ts * dx, py = oy + ts * dy, pz = oz + ts * dz;
-  const float inv_r = arr == 0.0f ? 0.0f : 1.0f / arr;
-  float nx = (px - acx) * inv_r, ny = (py - acy) * inv_r,
-        nz = (pz - acz) * inv_r;
-  const float ddn = dx * nx + dy * ny + dz * nz;
-  const bool front = ddn < 0.0f;
-  const float sgn = front ? 1.0f : -1.0f;
-  nx = nx * sgn;
-  ny = ny * sgn;
-  nz = nz * sgn;
-
-  // Three normals by Box-Muller -> a uniform unit vector.
-  const float r0g = sqrtf(-2.0f * logf(fmaxf(u[0], 1e-12f)));
-  const float r1g = sqrtf(-2.0f * logf(fmaxf(u[2], 1e-12f)));
-  const float two_pi = 6.283185307179586f;
-  const float a0 = two_pi * u[1], a1 = two_pi * u[3];
-  const float g0 = r0g * cosf(a0), g1 = r0g * sinf(a0), g2 = r1g * cosf(a1);
-  const float gn = rtw_rsqrt(g0 * g0 + g1 * g1 + g2 * g2);
-  const float ux = g0 * gn, uy = g1 * gn, uz = g2 * gn;
-  const float xi = u[4];
-
-  // Lambertian (src/material.jl:13-23).
-  const float lx = nx + ux, ly = ny + uy, lz = nz + uz;
-  const float lsq = lx * lx + ly * ly + lz * lz;
-  const bool degen = lsq < 1e-5f;
-  const float lno = rtw_rsqrt(lsq);
-  const float lamx = degen ? nx : lx * lno;
-  const float lamy = degen ? ny : ly * lno;
-  const float lamz = degen ? nz : lz * lno;
-
-  // Metal (src/material.jl:25-34).
-  const float dn = dx * nx + dy * ny + dz * nz;
-  const float refx = dx - 2.0f * dn * nx;
-  const float refy = dy - 2.0f * dn * ny;
-  const float refz = dz - 2.0f * dn * nz;
-  const float mx = refx + afz * ux, my = refy + afz * uy, mz = refz + afz * uz;
-  const float mno = rtw_rsqrt(mx * mx + my * my + mz * mz);
-  const float metx = mx * mno, mety = my * mno, metz = mz * mno;
-
-  // Dielectric (src/material.jl:41-53, src/light.jl:12-25).
-  const float safe_ir = air == 0.0f ? 1.0f : air;
-  const float eta = front ? 1.0f / safe_ir : safe_ir;
-  const float cos_t = fminf(-(dx * nx + dy * ny + dz * nz), 1.0f);
-  const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-  const bool cannot = eta * sin_t > 1.0f;
-  float r0 = (1.0f - eta) / (1.0f + eta);
-  r0 = r0 * r0;
-  const float omc = 1.0f - cos_t;
-  const float omc2 = omc * omc;
-  const float schlick = r0 + (1.0f - r0) * omc2 * omc2 * omc;
-  const bool choose_reflect = cannot || (schlick > xi);
-  const float rpx = eta * (dx + cos_t * nx);
-  const float rpy = eta * (dy + cos_t * ny);
-  const float rpz = eta * (dz + cos_t * nz);
-  const float par = -sqrtf(fabsf(1.0f - (rpx * rpx + rpy * rpy + rpz * rpz)));
-  const float fx = rpx + par * nx, fy = rpy + par * ny, fz = rpz + par * nz;
-  const float fno = rtw_rsqrt(fx * fx + fy * fy + fz * fz);
-  const float dielx = choose_reflect ? refx : fx * fno;
-  const float diely = choose_reflect ? refy : fy * fno;
-  const float dielz = choose_reflect ? refz : fz * fno;
-
-  // Material dispatch (0 lambert / 1 metal / 2 dielectric).
-  const bool is_lam = amt == 0.0f, is_met = amt == 1.0f;
-  const float ndx = is_lam ? lamx : (is_met ? metx : dielx);
-  const float ndy = is_lam ? lamy : (is_met ? mety : diely);
-  const float ndz = is_lam ? lamz : (is_met ? metz : dielz);
+  const RtwShade s = rtw_shade_core(u, t, a, ox, oy, oz, dx, dy, dz, tx, ty,
+                                    tz, active, cx, cy, cz);
 
   // Continue bouncing.
   const int newb = bo + 1;
-  const bool cont = hitm && (newb < max_depth);
+  const bool cont = s.hitm && (newb < max_depth);
   if (cont) {
-    ox = px; oy = py; oz = pz;
-    dx = ndx; dy = ndy; dz = ndz;
-    tx = tx * aar; ty = ty * aag; tz = tz * aab;
+    ox = s.px; oy = s.py; oz = s.pz;
+    dx = s.ndx; dy = s.ndy; dz = s.ndz;
+    tx = tx * a[4]; ty = ty * a[5]; tz = tz * a[6];
     bo = newb;
   }
 
   // Ray finished: next sample of this pixel, or fold and switch pixels.
-  const bool need = miss || (hitm && !cont);
+  const bool need = s.miss || (s.hitm && !cont);
   const int nxt = sa + 1;
   const bool same_pix = need && (nxt <= lane_lim);
   const bool done_pix = need && !same_pix;

@@ -91,6 +91,95 @@ extern "C" int rtw_sweep(const float* rays, const float* spheres, int n_rays,
   return (int)cudaGetLastError();
 }
 
+// K3: the occupancy-masked sweep of the gradient path's record phases.
+//
+// Replaces the TPU kernel raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py
+// :: _sweep_masked_kernel (launched by sweep_masked_planes). The TPU kernel
+// skipped a (64, 128) tile whose lanes were all dead and swept every lane of
+// a live tile; its host code then masked dead lanes per lane off the TPU
+// (persist_grad_kernel.py:955-958). Here the mask is per lane: a dead lane
+// returns (BIG, 0) and does not sweep, and a block whose lanes are all dead
+// skips the staging of the sphere table as well (__syncthreads_or). Live
+// lanes run K1's loop, so they get K1's (t, idx) bit for bit.
+//
+// What bounds it: as K1, arithmetic per live lane; the record phase's
+// occupancy falls from 1 to a few percent, and dead lanes cost one load and
+// two stores.
+__global__ void sweep_masked_kernel(const float* __restrict__ rays,
+                                    const int* __restrict__ alive,
+                                    const float4* __restrict__ spheres,
+                                    int n_rays, int n_spheres, float tmin,
+                                    float* __restrict__ t_out,
+                                    int* __restrict__ idx_out) {
+  extern __shared__ float4 sph[];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n_rays && alive[i] != 0;
+  if (!__syncthreads_or(live)) {  // the whole block is dead
+    if (i < n_rays) {
+      t_out[i] = RTW_BIG;
+      idx_out[i] = 0;
+    }
+    return;
+  }
+  for (int s = threadIdx.x; s < n_spheres; s += blockDim.x) sph[s] = spheres[s];
+  __syncthreads();
+  if (i >= n_rays) return;
+  if (!live) {
+    t_out[i] = RTW_BIG;
+    idx_out[i] = 0;
+    return;
+  }
+  const size_t n = n_rays;
+  const float ox = rays[i], oy = rays[n + i], oz = rays[2 * n + i];
+  const float dx = rays[3 * n + i], dy = rays[4 * n + i],
+              dz = rays[5 * n + i];
+
+  const float od = ox * dx + oy * dy + oz * dz;
+  const float oo = ox * ox + oy * oy + oz * oz;
+
+  float best_t = RTW_BIG;
+  int best_i = 0;
+#pragma unroll 8
+  for (int s = 0; s < n_spheres; ++s) {
+    const float4 c4 = sph[s];
+    const float cd = c4.x * dx + c4.y * dy + c4.z * dz;
+    const float oc = c4.x * ox + c4.y * oy + c4.z * oz;
+    const float hb = od - cd;
+    const float c = oo - 2.0f * oc + c4.w;
+    const float disc = hb * hb - c;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float r1 = -hb - sq;
+    const float t = r1 >= tmin ? r1 : -hb + sq;
+    if (disc > 0.0f && t >= tmin && t < best_t) {
+      best_t = t;
+      best_i = s;
+    }
+  }
+  t_out[i] = best_t;
+  idx_out[i] = best_i;
+}
+
+// rays: [6, n_rays] f32 planes; alive: [n_rays] i32; spheres: [n, 4] f32.
+extern "C" int rtw_sweep_masked(const float* rays, const int* alive,
+                                const float* spheres, int n_rays,
+                                int n_spheres, float tmin, float* t_out,
+                                int* idx_out, void* stream) {
+  if (n_rays <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (n_rays + threads - 1) / threads;
+  const size_t smem = (size_t)n_spheres * sizeof(float4);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sweep_masked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sweep_masked_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      rays, alive, reinterpret_cast<const float4*>(spheres), n_rays,
+      n_spheres, tmin, t_out, idx_out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* rtw_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

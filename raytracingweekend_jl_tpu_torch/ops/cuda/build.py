@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources are compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
+Each ``csrc/*.cu`` source is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``.
 The library is built at first use into ``build/kernels/`` at the root of the
 checkout, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the cached library. Nothing is built
@@ -28,7 +29,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
 _LIB = None
 
@@ -45,6 +46,21 @@ _SIGNATURES = {
     # seed, iteration, stream
     "rtw_shade_strided": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _U, _U, _P],
+    # rays[6,W], alive[W], spheres[N,4], W, N, tmin, t[W], idx[W], stream
+    "rtw_sweep_masked": [_P, _P, _P, _I, _I, _F, _P, _P, _P],
+    # t[W], attrs[10,W], strips[6S,W], sf[9,W], si[3,W], rad[3S,W],
+    # rec slot[n_rec,W], n_rec, u5[5,W] or NULL, W, S, max_depth, seed,
+    # iteration, stream
+    "rtw_persist_record": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                           _U, _U, _P],
+    # cot[9,W], dep[6S,W], rec[K,21,W], gs[3S,W], dattr[K,9,W],
+    # u5[K,5,W] or NULL, W, S, K, seed, i0, stream
+    "rtw_persist_replay_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
+                                 _P],
+    # cot[9,W], dep[6S,W], rec slot[n_rec,W], attrs[10,W] or NULL,
+    # gs[3S,W], dattr[9,W], u5[5,W] or NULL, W, S, seed, iteration, stream
+    "rtw_persist_replay_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U,
+                                _P],
 }
 
 
@@ -75,26 +91,40 @@ def library_path() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile the kernels unless the library for these sources exists;
-    returns its path. The library is written under a temporary name and
-    renamed, so concurrent builders never load a half-written file."""
+    returns its path. One ``nvcc`` per source runs at the same time; the
+    library is linked under a temporary name and renamed, so concurrent
+    builds never load a half-written file."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cus = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cus]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, file=sys.stderr, flush=True)
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        cus = [s for s in _sources() if s.endswith(".cu")]
+        objs = [os.path.join(work, os.path.basename(s) + ".o") for s in cus]
+        extra = ["-Xptxas", "-v"] if verbose else []
+        procs = [subprocess.Popen(
+            [nvcc, *extra, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", o, s],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(cus, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for p, s, log in zip(procs, cus, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) on {s}:\n"
+                                   f"{log}")
+        tmp = os.path.join(work, "lib.so")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        if verbose:
+            print("".join(logs), file=sys.stderr, flush=True)
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return path
 
 

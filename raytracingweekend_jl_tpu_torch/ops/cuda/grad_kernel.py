@@ -1,0 +1,291 @@
+"""The bounce adjoint and the attribute contraction of the gradient path.
+
+Counterparts of ``raytracingweekend_jl_tpu/ops/pallas/grad_kernel.py``:
+
+- :func:`bounce_adjoint` is ``_bounce_adjoint``, the hand-written adjoint of
+  one recorded bounce that every replay kernel runs. Its CUDA form is the
+  ``__device__`` function of ``csrc/bounce_adjoint.cuh``, which the replay
+  kernels K5 and K6 call; this is its plain version, expression for
+  expression.
+- :func:`dattr_contract` is ``_dattr_contract``: it sums the per-lane
+  attribute cotangent rows onto the spheres. The JAX package ran it as an
+  exact bf16-split one-hot matrix product on the TPU's matrix unit. Here it
+  is plain PyTorch and deterministic on every device: a stable sort by
+  sphere index, then exact 64-bit fixed-point prefix sums, so two runs give
+  the same bits whatever the order of the card's threads.
+- :func:`base_seed` is ``_base_seed``: the 32-bit key word of the record
+  and replay draws.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .shade_kernel import _rsqrt, gauss3
+
+
+def base_seed(seed: int) -> int:
+    """The 32-bit Philox key word of a trace's draws."""
+    return int(seed) & 0xFFFFFFFF
+
+
+def bounce_adjoint(u5, vals, g3, cots, hitm, missm):
+    """Adjoint of one recorded bounce (the transpose of the shade core plus
+    the masked state advance).
+
+    ``u5``: the bounce's 5 uniforms; ``vals``: the record's ``(o3, d3, T3,
+    t)`` as 10 planes followed by the winner's 10 attribute planes (any
+    sequence of 20 tensors); ``g3``: the radiance cotangent of the lane's
+    strip; ``cots``: the carried cotangent of the bounce's outputs (zero
+    where the chain was cut). ``hitm`` marks lanes whose state advanced
+    (hit and continued), ``missm`` lanes that banked ``T * sky(d)``.
+    Returns ``(cot9, dattr9)``: the cotangents of the bounce's input
+    (origin, direction, throughput) and the rows for (center, radius,
+    albedo, fuzz, ir)."""
+    (ox, oy, oz, dx, dy, dz, Tx, Ty, Tz, t) = vals[:10]
+    (acx, acy, acz, arr, aar, aag, aab, afz, air, amt) = vals[10:20]
+    grx, gry, grz = g3
+    (gox_, goy_, goz_, gdx_, gdy_, gdz_, gTx_, gTy_, gTz_) = cots
+    w = torch.where
+    hf = hitm.to(torch.float32)
+    mf = missm.to(torch.float32)
+    zero = torch.zeros_like(t)
+    one = torch.ones_like(t)
+
+    # ---- recompute forward intermediates (mirror of the shade core) ----
+    ts = w(hitm, t, one)
+    px = ox + ts * dx
+    py = oy + ts * dy
+    pz = oz + ts * dz
+    inv_r = w(arr == 0, zero, 1.0 / w(arr == 0, one, arr))
+    nox = (px - acx) * inv_r
+    noy = (py - acy) * inv_r
+    noz = (pz - acz) * inv_r
+    ddn = dx * nox + dy * noy + dz * noz
+    front = ddn < 0
+    sgn = w(front, one, -one)
+    nx, ny, nz = nox * sgn, noy * sgn, noz * sgn
+    g0, g1, g2 = gauss3(u5[0], u5[1], u5[2], u5[3])
+    gnorm = _rsqrt(g0 * g0 + g1 * g1 + g2 * g2)
+    ux, uy, uz = g0 * gnorm, g1 * gnorm, g2 * gnorm
+    xi = u5[4]
+    # lambert
+    lx, ly, lz = nx + ux, ny + uy, nz + uz
+    lsq = lx * lx + ly * ly + lz * lz
+    degen = lsq < 1e-5
+    lno = _rsqrt(lsq)
+    lamx = w(degen, nx, lx * lno)
+    lamy = w(degen, ny, ly * lno)
+    lamz = w(degen, nz, lz * lno)
+    # metal
+    dn = dx * nx + dy * ny + dz * nz
+    mxv = (dx - 2.0 * dn * nx) + afz * ux
+    myv = (dy - 2.0 * dn * ny) + afz * uy
+    mzv = (dz - 2.0 * dn * nz) + afz * uz
+    mno = _rsqrt(mxv * mxv + myv * myv + mzv * mzv)
+    metx, mety, metz = mxv * mno, myv * mno, mzv * mno
+    # dielectric
+    safe_ir = w(air == 0, one, air)
+    eta = w(front, 1.0 / safe_ir, safe_ir)
+    ct = torch.clamp(-dn, max=1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
+    cannot = eta * sin_t > 1.0
+    r0 = (1.0 - eta) / (1.0 + eta)
+    r0 = r0 * r0
+    omc = 1.0 - ct
+    omc2 = omc * omc
+    schlick = r0 + (1.0 - r0) * omc2 * omc2 * omc
+    choose_ref = cannot | (schlick > xi)
+    rpx = eta * (dx + ct * nx)
+    rpy = eta * (dy + ct * ny)
+    rpz = eta * (dz + ct * nz)
+    S = 1.0 - (rpx * rpx + rpy * rpy + rpz * rpz)
+    par = -torch.sqrt(torch.abs(S))
+    fx = rpx + par * nx
+    fy = rpy + par * ny
+    fz_ = rpz + par * nz
+    fno = _rsqrt(fx * fx + fy * fy + fz_ * fz_)
+    frx, fry, frz = fx * fno, fy * fno, fz_ * fno
+    is_lam = amt == 0
+    is_met = amt == 1
+    is_diel = ~is_lam & ~is_met
+
+    # ---- adjoint ----
+    nhf = 1.0 - hf
+    # o' = hitm ? p : o ; d' = hitm ? nd : d ; T' = hitm ? T*A : T
+    gpx, gpy, gpz = hf * gox_, hf * goy_, hf * goz_
+    go_x, go_y, go_z = nhf * gox_, nhf * goy_, nhf * goz_
+    gndx, gndy, gndz = hf * gdx_, hf * gdy_, hf * gdz_
+    gd_x, gd_y, gd_z = nhf * gdx_, nhf * gdy_, nhf * gdz_
+    gTx = gTx_ * w(hitm, aar, one)
+    gTy = gTy_ * w(hitm, aag, one)
+    gTz = gTz_ * w(hitm, aab, one)
+    gA_r, gA_g, gA_b = hf * gTx_ * Tx, hf * gTy_ * Ty, hf * gTz_ * Tz
+    # miss lanes banked rad += T * sky(d); sky = (1-0.5s, 1-0.3s, 1), s=0.5(dy+1)
+    sth = 0.5 * (dy + 1.0)
+    gTx = gTx + mf * grx * (1.0 - 0.5 * sth)
+    gTy = gTy + mf * gry * (1.0 - 0.3 * sth)
+    gTz = gTz + mf * grz
+    g_sth = mf * (grx * Tx * (-0.5) + gry * Ty * (-0.3))
+    gd_y = gd_y + 0.5 * g_sth
+
+    # route the nd cotangent to the selected material branch
+    lamf = is_lam.to(torch.float32)
+    metf = is_met.to(torch.float32)
+    dief = is_diel.to(torch.float32)
+    glx_r, gly_r, glz_r = lamf * gndx, lamf * gndy, lamf * gndz
+    gmx_r, gmy_r, gmz_r = metf * gndx, metf * gndy, metf * gndz
+    gqx, gqy, gqz = dief * gndx, dief * gndy, dief * gndz
+
+    # lambert: lam = degen ? n : l * lno (u constant)
+    dotl = lamx * glx_r + lamy * gly_r + lamz * glz_r
+    ndegf = 1.0 - degen.to(torch.float32)
+    glx = ndegf * lno * (glx_r - lamx * dotl)
+    gly = ndegf * lno * (gly_r - lamy * dotl)
+    glz = ndegf * lno * (glz_r - lamz * dotl)
+    degf = degen.to(torch.float32)
+    gn_x = glx + degf * glx_r
+    gn_y = gly + degf * gly_r
+    gn_z = glz + degf * glz_r
+
+    # metal: met = m * mno; m = refl + fz * u
+    dotm = metx * gmx_r + mety * gmy_r + metz * gmz_r
+    gmx = mno * (gmx_r - metx * dotm)
+    gmy = mno * (gmy_r - mety * dotm)
+    gmz = mno * (gmz_r - metz * dotm)
+    gfz = ux * gmx + uy * gmy + uz * gmz
+    grefl_x, grefl_y, grefl_z = gmx, gmy, gmz
+
+    # dielectric select (coin/TIR detached)
+    crf = choose_ref.to(torch.float32)
+    grefl_x = grefl_x + crf * gqx
+    grefl_y = grefl_y + crf * gqy
+    grefl_z = grefl_z + crf * gqz
+    ncrf = 1.0 - crf
+    gfr_x, gfr_y, gfr_z = ncrf * gqx, ncrf * gqy, ncrf * gqz
+    # fr = f * fno
+    dotf = frx * gfr_x + fry * gfr_y + frz * gfr_z
+    gf_x = fno * (gfr_x - frx * dotf)
+    gf_y = fno * (gfr_y - fry * dotf)
+    gf_z = fno * (gfr_z - frz * dotf)
+    # f = rp + par * n
+    grp_x, grp_y, grp_z = gf_x, gf_y, gf_z
+    gpar = nx * gf_x + ny * gf_y + nz * gf_z
+    gn_x = gn_x + par * gf_x
+    gn_y = gn_y + par * gf_y
+    gn_z = gn_z + par * gf_z
+    # par = -sqrt(|S|)
+    sgnS = w(S >= 0, one, -one)
+    gS = gpar * (-sgnS * 0.5
+                 * torch.rsqrt(torch.clamp(torch.abs(S), min=1e-12)))
+    # S = 1 - rp.rp
+    grp_x = grp_x - 2.0 * rpx * gS
+    grp_y = grp_y - 2.0 * rpy * gS
+    grp_z = grp_z - 2.0 * rpz * gS
+    # rp = eta * (d + ct * n)
+    geta = ((dx + ct * nx) * grp_x + (dy + ct * ny) * grp_y
+            + (dz + ct * nz) * grp_z)
+    gd_x = gd_x + eta * grp_x
+    gd_y = gd_y + eta * grp_y
+    gd_z = gd_z + eta * grp_z
+    gct = eta * (nx * grp_x + ny * grp_y + nz * grp_z)
+    gn_x = gn_x + eta * ct * grp_x
+    gn_y = gn_y + eta * ct * grp_y
+    gn_z = gn_z + eta * ct * grp_z
+    # ct = min(-dn, 1): pass-through where -dn < 1
+    gdn = w(-dn < 1.0, -gct, zero)
+    # eta = front ? 1/safe_ir : safe_ir
+    gir = w(front, -geta / (safe_ir * safe_ir), geta)
+    # refl = d - 2 dn n (metal + diel-reflect)
+    gdn = gdn - 2.0 * (nx * grefl_x + ny * grefl_y + nz * grefl_z)
+    gn_x = gn_x - 2.0 * dn * grefl_x
+    gn_y = gn_y - 2.0 * dn * grefl_y
+    gn_z = gn_z - 2.0 * dn * grefl_z
+    gd_x = gd_x + grefl_x
+    gd_y = gd_y + grefl_y
+    gd_z = gd_z + grefl_z
+    # dn = d . n
+    gd_x = gd_x + gdn * nx
+    gd_y = gd_y + gdn * ny
+    gd_z = gd_z + gdn * nz
+    gn_x = gn_x + gdn * dx
+    gn_y = gn_y + gdn * dy
+    gn_z = gn_z + gdn * dz
+    # n = sgn * n_out; n_out = (p - c) * inv_r
+    gno_x, gno_y, gno_z = sgn * gn_x, sgn * gn_y, sgn * gn_z
+    gpx = gpx + gno_x * inv_r
+    gpy = gpy + gno_y * inv_r
+    gpz = gpz + gno_z * inv_r
+    gc_x = -gno_x * inv_r
+    gc_y = -gno_y * inv_r
+    gc_z = -gno_z * inv_r
+    gr = -(nox * gno_x + noy * gno_y + noz * gno_z) * inv_r
+    # p = o + ts d
+    go_x = go_x + gpx
+    go_y = go_y + gpy
+    go_z = go_z + gpz
+    gd_x = gd_x + ts * gpx
+    gd_y = gd_y + ts * gpy
+    gd_z = gd_z + ts * gpz
+    gt = dx * gpx + dy * gpy + dz * gpz
+    # implicit hit distance at the recorded winner
+    psx, psy, psz = px - acx, py - acy, pz - acz
+    pd = psx * dx + psy * dy + psz * dz
+    big_pd = torch.abs(pd) > 1e-12
+    ok = hitm & big_pd
+    scl = w(ok, gt / w(big_pd, pd, one), zero)
+    go_x = go_x - scl * psx
+    go_y = go_y - scl * psy
+    go_z = go_z - scl * psz
+    gd_x = gd_x - scl * ts * psx
+    gd_y = gd_y - scl * ts * psy
+    gd_z = gd_z - scl * ts * psz
+    gc_x = gc_x + scl * psx
+    gc_y = gc_y + scl * psy
+    gc_z = gc_z + scl * psz
+    gr = gr + scl * arr
+    return ((go_x, go_y, go_z, gd_x, gd_y, gd_z, gTx, gTy, gTz),
+            (gc_x, gc_y, gc_z, gr, gA_r, gA_g, gA_b, gfz, gir))
+
+
+def dattr_contract(dattr: torch.Tensor, idx: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """Sum per-lane attribute cotangent rows onto the spheres:
+    ``out[s, j] = sum over (k, w) with idx[k, w] == s of dattr[k, j, w]``.
+
+    ``dattr`` [K, 9, W] float32 (K record slots), ``idx`` [K, W] int32
+    winner indices; returns ``[n, 9]`` float32. Deterministic on every
+    device: lanes are stable-sorted by sphere, each field is scaled by a
+    power of two so that every partial sum fits 62 bits, rounded to int64
+    and prefix-summed exactly, and each sphere's segment is a difference of
+    two prefix sums. A value's rounding error is at most the field's largest
+    magnitude times 2^-(61 - ceil(log2(K*W + 1))), 2^-37 at the flagship's
+    ~1.2e7 lanes per phase. A field with a non-finite value comes out
+    NaN for every sphere, as the JAX package's matrix product gives."""
+    device = dattr.device
+    keys = idx.reshape(-1).to(torch.int64)
+    m = keys.numel()
+    out = torch.zeros((9, n), dtype=torch.float64, device=device)
+    if m == 0:
+        return out.T.to(torch.float32)
+    keys, perm = torch.sort(keys, stable=True)
+    bounds = torch.searchsorted(
+        keys, torch.arange(n + 1, dtype=torch.int64, device=device))
+    rows = dattr.transpose(0, 1).reshape(9, m)
+    bits = 61 - math.ceil(math.log2(m + 1))
+    for j in range(9):
+        v = rows[j][perm].to(torch.float64)
+        finite = torch.isfinite(v)
+        v = torch.where(finite, v, torch.zeros_like(v))
+        _, e = torch.frexp(v.abs().max())
+        scale = 2.0 ** (bits - int(e))
+        q = torch.round(v * scale).to(torch.int64)
+        cs = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                        torch.cumsum(q, 0)])
+        seg = cs[bounds[1:]] - cs[bounds[:-1]]
+        col = seg.to(torch.float64) / scale
+        out[j] = torch.where(finite.all(), col,
+                             torch.full_like(col, float("nan")))
+    return out.T.to(torch.float32).contiguous()

@@ -1,8 +1,10 @@
-"""K1 — the closest-hit sphere sweep (csrc/sweep.cu) and its plain version.
+"""K1 — the closest-hit sphere sweep — and K3 — its occupancy-masked form —
+(csrc/sweep.cu) with their plain versions.
 
-Counterpart of ``raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py``
-(``_sweep_kernel``, forward only). :func:`sweep` launches the CUDA kernel on
-CUDA tensors and runs :func:`sweep_ref` on CPU tensors; nothing else.
+Counterparts of ``raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py``
+``_sweep_kernel`` (forward only) and ``_sweep_masked_kernel``. :func:`sweep`
+and :func:`sweep_masked` launch the CUDA kernels on CUDA tensors and run
+:func:`sweep_ref` and :func:`sweep_masked_ref` on CPU tensors; nothing else.
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ from . import build
 #: Number of K1 launches since the last reset (incremented only where the
 #: kernel is launched).
 launches = 0
+
+#: Number of K3 launches since the last reset.
+masked_launches = 0
 
 
 def sphere_consts(scene: Scene) -> torch.Tensor:
@@ -55,6 +60,44 @@ def sweep_ref(rays: torch.Tensor, spheres: torch.Tensor,
     return best_t, best_i
 
 
+def sweep_masked_ref(rays: torch.Tensor, alive: torch.Tensor,
+                     spheres: torch.Tensor, tmin: float = DEFAULT_TMIN
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K3: :func:`sweep_ref` with dead lanes (``alive`` [R]
+    int32 == 0) set to the miss values ``(BIG, 0)``."""
+    t, idx = sweep_ref(rays, spheres, tmin)
+    live = alive != 0
+    return (torch.where(live, t, torch.full_like(t, BIG)),
+            torch.where(live, idx, torch.zeros_like(idx)))
+
+
+def _check_sweep_args(what, rays, spheres, alive=None):
+    if not (rays.is_cuda and spheres.device == rays.device):
+        raise ValueError(f"{what}: rays on {rays.device}, spheres on "
+                         f"{spheres.device}; both must be on one CUDA device")
+    if rays.dtype != torch.float32 or spheres.dtype != torch.float32:
+        raise TypeError(f"{what}: the CUDA kernel takes float32 only, got "
+                        f"{rays.dtype} and {spheres.dtype}")
+    if rays.dim() != 2 or rays.shape[0] != 6 or spheres.dim() != 2 \
+            or spheres.shape[1] != 4:
+        raise ValueError(f"{what}: rays must be [6, R] and spheres [N, 4], "
+                         f"got {tuple(rays.shape)} and "
+                         f"{tuple(spheres.shape)}")
+    if not (rays.is_contiguous() and spheres.is_contiguous()):
+        raise ValueError(f"{what}: rays and spheres must be contiguous")
+    if alive is not None and (alive.device != rays.device
+                              or alive.dtype != torch.int32
+                              or tuple(alive.shape) != (rays.shape[1],)
+                              or not alive.is_contiguous()):
+        raise ValueError(f"{what}: alive must be a contiguous int32 [R] "
+                         f"tensor on {rays.device}, got {alive.dtype} "
+                         f"{tuple(alive.shape)} on {alive.device}")
+    if spheres.shape[0] * 16 > 227 * 1024:
+        raise ValueError(f"{what}: {spheres.shape[0]} spheres exceed the "
+                         f"kernel's shared-memory table "
+                         f"(max {227 * 1024 // 16})")
+
+
 def sweep(rays: torch.Tensor, spheres: torch.Tensor,
           tmin: float = DEFAULT_TMIN) -> tuple[torch.Tensor, torch.Tensor]:
     """K1: closest hit of ``rays`` [6, R] against ``spheres`` [N, 4].
@@ -64,22 +107,8 @@ def sweep(rays: torch.Tensor, spheres: torch.Tensor,
     global launches
     if rays.device.type == "cpu" and spheres.device.type == "cpu":
         return sweep_ref(rays, spheres, tmin)
-    if not (rays.is_cuda and spheres.device == rays.device):
-        raise ValueError(f"sweep: rays on {rays.device}, spheres on "
-                         f"{spheres.device}; both must be on one CUDA device")
-    if rays.dtype != torch.float32 or spheres.dtype != torch.float32:
-        raise TypeError(f"sweep: the CUDA kernel takes float32 only, got "
-                        f"{rays.dtype} and {spheres.dtype}")
-    if rays.dim() != 2 or rays.shape[0] != 6 or spheres.dim() != 2 \
-            or spheres.shape[1] != 4:
-        raise ValueError(f"sweep: rays must be [6, R] and spheres [N, 4], got "
-                         f"{tuple(rays.shape)} and {tuple(spheres.shape)}")
-    if not (rays.is_contiguous() and spheres.is_contiguous()):
-        raise ValueError("sweep: rays and spheres must be contiguous")
+    _check_sweep_args("sweep", rays, spheres)
     n_rays, n_sph = rays.shape[1], spheres.shape[0]
-    if n_sph * 16 > 227 * 1024:
-        raise ValueError(f"sweep: {n_sph} spheres exceed the kernel's "
-                         f"shared-memory table (max {227 * 1024 // 16})")
     t = torch.empty(n_rays, dtype=torch.float32, device=rays.device)
     idx = torch.empty(n_rays, dtype=torch.int32, device=rays.device)
     lib = build.load()
@@ -91,3 +120,29 @@ def sweep(rays: torch.Tensor, spheres: torch.Tensor,
     launches += 1
     return t, idx
 
+
+def sweep_masked(rays: torch.Tensor, alive: torch.Tensor,
+                 spheres: torch.Tensor, tmin: float = DEFAULT_TMIN
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: :func:`sweep` of the lanes whose ``alive`` [R] int32 is non-zero;
+    dead lanes get ``(BIG, 0)``.
+
+    CPU tensors run :func:`sweep_masked_ref`. CUDA tensors launch the kernel
+    on the current stream; anything the kernel does not take raises."""
+    global masked_launches
+    if rays.device.type == "cpu" and spheres.device.type == "cpu" \
+            and alive.device.type == "cpu":
+        return sweep_masked_ref(rays, alive, spheres, tmin)
+    _check_sweep_args("sweep_masked", rays, spheres, alive)
+    n_rays, n_sph = rays.shape[1], spheres.shape[0]
+    t = torch.empty(n_rays, dtype=torch.float32, device=rays.device)
+    idx = torch.empty(n_rays, dtype=torch.int32, device=rays.device)
+    lib = build.load()
+    with torch.cuda.device(rays.device):
+        err = lib.rtw_sweep_masked(
+            rays.data_ptr(), alive.data_ptr(), spheres.data_ptr(), n_rays,
+            n_sph, float(tmin), t.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "sweep_masked")
+    masked_launches += 1
+    return t, idx

@@ -3,9 +3,11 @@ plain version.
 
 Counterpart of ``raytracingweekend_jl_tpu/ops/pallas/shade_kernel.py``
 (``_shade_strided_kernel`` with ``_shade_core``, ``_uniforms``, ``_gauss3``
-and ``_concentric``). Each lane serves ``k`` pixels spaced ``n_lanes`` apart;
-when a pixel has all its samples the lane folds its accumulator into that
-pixel's strip buffer and switches to its next pixel in place.
+and ``_concentric``). :func:`shade_core` is the shading core that K2 and the
+gradient path's record step share (csrc/shade_core.cuh). Each lane serves
+``k`` pixels spaced ``n_lanes`` apart; when a pixel has all its samples the
+lane folds its accumulator into that pixel's strip buffer and switches to
+its next pixel in place.
 
 State layout (all ``[planes, n_lanes]``, contiguous, updated in place):
 
@@ -72,29 +74,27 @@ def _rsqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.rsqrt(torch.clamp(x, min=1e-20))
 
 
-def shade_strided_step_ref(fstate: torch.Tensor, istate: torch.Tensor,
-                           buf: torch.Tensor, t: torch.Tensor,
-                           attrs: torch.Tensor, cam: torch.Tensor,
-                           geom: tuple, seed: int, iteration: int,
-                           first_sample: int, max_depth: int,
-                           u9: torch.Tensor | None = None) -> None:
-    """Plain PyTorch K2, updating ``fstate``, ``istate`` and ``buf`` in place.
+def gauss3(u0, u1, u2, u3):
+    """Three standard normals by Box-Muller from four uniforms
+    (``shade_kernel._gauss3``)."""
+    r0g = torch.sqrt(-2.0 * torch.log(torch.clamp(u0, min=1e-12)))
+    r1g = torch.sqrt(-2.0 * torch.log(torch.clamp(u2, min=1e-12)))
+    a0 = float(_TWO_PI) * u1
+    a1 = float(_TWO_PI) * u3
+    return r0g * torch.cos(a0), r0g * torch.sin(a0), r1g * torch.cos(a1)
 
-    ``t`` [R] and ``attrs`` [10, R] are the sweep's winner distance and
-    attributes (``materials.attr_mat`` column order); ``cam`` the [21]
-    camera constants; ``geom`` = (W, H, dpx, dpy, p_end) with
-    ``dpx, dpy = n_lanes % W, n_lanes // W``. ``u9`` [9, R] injects the
-    uniforms; without it they are :func:`rng.philox_uniforms` of
-    ``(seed, iteration)``, the kernel's own draws."""
-    n = t.shape[0]
-    k = buf.shape[0] // 3
-    W, H, dpx, dpy, p_end = (int(g) for g in geom)
-    if u9 is None:
-        u9 = rng.philox_uniforms(seed, iteration, n, 9, device=t.device)
-    ox, oy, oz, dx, dy, dz, tx, ty, tz, cx, cy, cz = fstate.unbind(0)
-    bo, sa, strip, pxi, pyi, ac, lane_lim = istate.unbind(0)
-    (acx, acy, acz, arr, aar, aag, aab, afz, air, amt) = attrs.unbind(0)
-    active = ac != 0
+
+def shade_core(u, t, attrs, ox, oy, oz, dx, dy, dz, tx, ty, tz, active,
+               rx, ry, rz):
+    """Plain version of the shading core that K2 and K4 share
+    (csrc/shade_core.cuh; the TPU's ``shade_kernel._shade_core``).
+
+    ``u`` holds at least 5 uniform planes (4 for the unit vector, 1 for the
+    Schlick coin); ``attrs`` the winner's [10, R] attributes. Returns
+    ``(rx, ry, rz, hitm, miss, px, py, pz, ndx, ndy, ndz)``: the radiance
+    accumulators with ``T * sky(d)`` banked on a miss, the hit and miss
+    masks, the hit point and the material's scatter direction."""
+    (acx, acy, acz, arr, _, _, _, afz, air, amt) = attrs.unbind(0)
     zero = torch.zeros_like(t)
     one = torch.ones_like(t)
 
@@ -106,9 +106,9 @@ def shade_strided_step_ref(fstate: torch.Tensor, istate: torch.Tensor,
     skyr = (1.0 - st) + st * 0.5
     skyg = (1.0 - st) + st * 0.7
     skyb = (1.0 - st) + st * 1.0
-    cx = torch.where(miss, cx + tx * skyr, cx)
-    cy = torch.where(miss, cy + ty * skyg, cy)
-    cz = torch.where(miss, cz + tz * skyb, cz)
+    rx = torch.where(miss, rx + tx * skyr, rx)
+    ry = torch.where(miss, ry + ty * skyg, ry)
+    rz = torch.where(miss, rz + tz * skyb, rz)
 
     # Hit point and facing normal (src/hit.jl:3,6-10,32-34).
     ts = torch.where(hitm, t, one)
@@ -124,14 +124,10 @@ def shade_strided_step_ref(fstate: torch.Tensor, istate: torch.Tensor,
     nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
 
     # Three normals by Box-Muller -> a uniform unit vector.
-    r0g = torch.sqrt(-2.0 * torch.log(torch.clamp(u9[0], min=1e-12)))
-    r1g = torch.sqrt(-2.0 * torch.log(torch.clamp(u9[2], min=1e-12)))
-    a0 = float(_TWO_PI) * u9[1]
-    a1 = float(_TWO_PI) * u9[3]
-    g0, g1, g2 = r0g * torch.cos(a0), r0g * torch.sin(a0), r1g * torch.cos(a1)
+    g0, g1, g2 = gauss3(u[0], u[1], u[2], u[3])
     gn = _rsqrt(g0 * g0 + g1 * g1 + g2 * g2)
     ux, uy, uz = g0 * gn, g1 * gn, g2 * gn
-    xi = u9[4]
+    xi = u[4]
 
     # Lambertian (src/material.jl:13-23).
     lx, ly, lz = nx + ux, ny + uy, nz + uz
@@ -179,6 +175,37 @@ def shade_strided_step_ref(fstate: torch.Tensor, istate: torch.Tensor,
     ndx = torch.where(is_lam, lamx, torch.where(is_met, metx, dielx))
     ndy = torch.where(is_lam, lamy, torch.where(is_met, mety, diely))
     ndz = torch.where(is_lam, lamz, torch.where(is_met, metz, dielz))
+    return rx, ry, rz, hitm, miss, px, py, pz, ndx, ndy, ndz
+
+
+def shade_strided_step_ref(fstate: torch.Tensor, istate: torch.Tensor,
+                           buf: torch.Tensor, t: torch.Tensor,
+                           attrs: torch.Tensor, cam: torch.Tensor,
+                           geom: tuple, seed: int, iteration: int,
+                           first_sample: int, max_depth: int,
+                           u9: torch.Tensor | None = None) -> None:
+    """Plain PyTorch K2, updating ``fstate``, ``istate`` and ``buf`` in place.
+
+    ``t`` [R] and ``attrs`` [10, R] are the sweep's winner distance and
+    attributes (``materials.attr_mat`` column order); ``cam`` the [21]
+    camera constants; ``geom`` = (W, H, dpx, dpy, p_end) with
+    ``dpx, dpy = n_lanes % W, n_lanes // W``. ``u9`` [9, R] injects the
+    uniforms; without it they are :func:`rng.philox_uniforms` of
+    ``(seed, iteration)``, the kernel's own draws."""
+    n = t.shape[0]
+    k = buf.shape[0] // 3
+    W, H, dpx, dpy, p_end = (int(g) for g in geom)
+    if u9 is None:
+        u9 = rng.philox_uniforms(seed, iteration, n, 9, device=t.device)
+    ox, oy, oz, dx, dy, dz, tx, ty, tz, cx, cy, cz = fstate.unbind(0)
+    bo, sa, strip, pxi, pyi, ac, lane_lim = istate.unbind(0)
+    aar, aag, aab = attrs[4], attrs[5], attrs[6]
+    active = ac != 0
+    zero = torch.zeros_like(t)
+    one = torch.ones_like(t)
+
+    cx, cy, cz, hitm, miss, px, py, pz, ndx, ndy, ndz = shade_core(
+        u9, t, attrs, ox, oy, oz, dx, dy, dz, tx, ty, tz, active, cx, cy, cz)
 
     # Continue bouncing.
     newb = bo + 1

@@ -50,15 +50,21 @@ class Scene(NamedTuple):
         return Scene(*(x.to(device) for x in self))
 
 
-def scene_from_numpy(arrays, device="cpu", dtype=torch.float32) -> Scene:
+def scene_from_numpy(arrays, device="cpu", dtype=torch.float32,
+                     requires_grad: bool = False) -> Scene:
     """Build a :class:`Scene` from numpy arrays keyed by field name (or any
-    object with those attributes, e.g. the JAX package's ``Scene``)."""
+    object with those attributes, e.g. the JAX package's ``Scene``).
+    ``requires_grad`` makes every field but ``mat`` a leaf that gradients
+    reach (it carries through :func:`trim_scene` and :meth:`Scene.to`)."""
     get = (arrays.__getitem__ if isinstance(arrays, dict)
            else lambda f: getattr(arrays, f))
     vals = {f: np.array(get(f)) for f in _FIELDS}
-    return Scene(**{f: torch.as_tensor(vals[f], dtype=torch.int32
-                                       if f == "mat" else dtype).to(device)
-                    for f in _FIELDS})
+    out = {f: torch.as_tensor(vals[f], dtype=torch.int32 if f == "mat"
+                              else dtype).to(device) for f in _FIELDS}
+    if requires_grad:
+        for f in _FIELDS[:-1]:
+            out[f].requires_grad_(True)
+    return Scene(**out)
 
 
 def trim_scene(scene: Scene, multiple: int = 8) -> Scene:

@@ -158,10 +158,14 @@ def test_float64_render_raises():
 
 
 def test_port_imports_no_jax():
-    # A fresh interpreter: importing every module of the port leaves JAX out.
+    # A fresh interpreter: importing every module of the port, the gradient
+    # slice's among them, leaves JAX out.
     code = ("import sys, pkgutil, importlib, raytracingweekend_jl_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
+            "for m in ('grad', 'ops.persist_grad', 'ops.cuda.grad_kernel',\n"
+            "          'ops.cuda.persist_grad_kernel'):\n"
+            "    assert p.__name__ + '.' + m in sys.modules, m\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('raytracingweekend_jl_tpu.')]\n"
             "assert not bad, bad\nprint('ok')\n")
