@@ -3,15 +3,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``raytracingweekend_jl_tpu_torch/csrc``,
-checks each against its plain PyTorch version on the card, drives the
-flagship forward render through the public ``render(..., device="cuda")``
-entry point and the flagship gradient step through the public
-``render_grads(..., device="cuda")``, and times the kernels, the render and
-the step against the plain path. Each phase prints one JSON line; a failed
+checks each against its plain PyTorch version on the card, and drives the
+port's three main paths through their public entry points on the card: the
+flagship forward render (``render``), the flagship gradient step
+(``render_grads``) and the inverse-rendering fit at the configuration of the
+JAX package's inverse demo (``fit_scene``, with its small-image gradient
+step and forward render). It times the kernels, the renders, the steps and
+the fit against the plain path. Each phase prints one JSON line; a failed
 check raises and the script exits non-zero without printing a result. The
-last line is
-``{"ok": true, "device": {...}}``. It needs a CUDA device and exits non-zero
-without one. It imports nothing of JAX.
+line before the card line lists every kernel with its launches on its main
+path, its error against its plain version, its time, the plain version's
+time and its bound (the least time the card could take for the same work).
+The last line is ``{"ok": true, "device": {...}}``. It needs a CUDA device
+and exits non-zero without one. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +41,66 @@ def card_line() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+#: Published peaks of one NVIDIA H100 SXM (data sheet, at its 700 W limit):
+#: device-memory bytes per second, float32 operations per second outside
+#: the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+
+#: Float operations counted per unit of work, from the kernels' code (the
+#: Philox integer arithmetic and the compares and selects are not counted,
+#: so each bound is a lower bound):
+SWEEP_RAY_OPS = 10       # o.d and o.o, once per ray
+SWEEP_SPHERE_OPS = 20    # the half-b quadratic and its roots, per sphere
+SHADE_OPS = 150          # shade core: sky, normal, Box-Muller, 3 materials
+ADVANCE_OPS = 3          # T *= albedo on a hit
+ADJOINT_OPS = 400        # bounce adjoint: forward recomputed, then reversed
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take to move ``n_bytes`` (each input
+    read once, each output written once) and do ``n_ops`` float32
+    operations: the larger of the two times at the published peaks, and
+    which one it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+
+def _counted_modules() -> tuple:
+    from raytracingweekend_jl_tpu_torch.ops.cuda import grad_kernel as GK
+    from raytracingweekend_jl_tpu_torch.ops.cuda import inline_kernel as K8
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    from raytracingweekend_jl_tpu_torch.ops.cuda import persist_grad_kernel as PK
+    from raytracingweekend_jl_tpu_torch.ops.cuda import shade_kernel as K2
+    return K1, K2, PK, GK, K8
+
+
+def reset_counts() -> None:
+    """Sets every kernel wrapper's launch count to 0."""
+    K1, K2, PK, GK, K8 = _counted_modules()
+    K1.launches = K2.launches = K1.masked_launches = 0
+    PK.record_launches = PK.replay_fused_launches = 0
+    PK.replay_step_launches = 0
+    GK.record_launches = GK.replay_step_launches = 0
+    GK.replay_fused_launches = K8.launches = 0
+
+
+def counts() -> dict:
+    """Every kernel's launch count, by its name in the ``kernels`` line."""
+    K1, K2, PK, GK, K8 = _counted_modules()
+    return {"sweep": K1.launches, "shade_strided": K2.launches,
+            "sweep_masked": K1.masked_launches,
+            "persist_record": PK.record_launches,
+            "persist_replay_fused": PK.replay_fused_launches,
+            "persist_replay_step": PK.replay_step_launches,
+            "record_shade": GK.record_launches,
+            "replay_bwd_step": GK.replay_step_launches,
+            "replay_bwd_fused": GK.replay_fused_launches,
+            "inline": K8.launches}
 
 
 def call_ms(fn, n: int, setup=None) -> float:
@@ -299,6 +363,62 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
             3_000_000_000 if plain else 100_000_000))
         call[name] = call_ms(fn, n, setup=setup)
 
+    # -- bounds at these shapes, counted from this run's flags: a live lane
+    # or slot moves all its words; a dead one reads its flag and writes what
+    # the kernel writes for it (K3: t and idx; K4: a zero slot; K5, K6: 9
+    # zero rows). A miss banks 3 radiance words, a regeneration reads 6
+    # strip words (K4) or deposits 6 cotangent words (K5, K6). ------------
+    def flag_counts(fl):
+        act = (fl & PK.F_ACT) != 0
+        return (act, int(act.sum()),
+                int((act & ((fl & PK.F_HIT) == 0)).sum()),
+                int(((fl & PK.F_REGEN) != 0).sum()))
+
+    n_live = int(live.sum())
+    _, live4, miss4, regen4 = flag_counts(PK.flags_of(rec[20]))
+    check(live4 == n_live, f"slot 20 holds {live4} live lanes, not {n_live}")
+    fl5 = rec[:, 10].view(torch.int32)
+    act5, live_slots5, _, regen5 = flag_counts(fl5)
+    # the (lane, strip) radiance cotangents the walk needs, each read once
+    strips5 = sum(int((act5 & ((fl5 >> PK.F_STRIP_SHIFT) == s)).any(0).sum())
+                  for s in range(S))
+    lanes5 = int(act5.any(0).sum())
+    _, live6, _, regen6 = flag_counts(PK.flags_of(rec[10]))
+    n_sph = spheres.shape[0]
+    bounds = {
+        # every lane: alive in, t and idx out; live lanes: the 6 ray words
+        # in; the table once; the sweep of live lanes.
+        "sweep_masked": bound(lanes * (4 + 8) + n_live * 24 + 16 * n_sph,
+                              n_live * (SWEEP_RAY_OPS
+                                        + SWEEP_SPHERE_OPS * n_sph)),
+        # live: t, attrs, 9 ray-state and 2 int words in; the 21-word slot,
+        # the state out.
+        "persist_record": bound(
+            lanes * 4 + (lanes - n_live) * PK.N_REC * 4
+            + n_live * ((1 + 10 + 9 + 2) + (PK.N_REC + 9 + 3)) * 4
+            + miss4 * 3 * 4 + regen4 * 6 * 4,
+            n_live * (SHADE_OPS + ADVANCE_OPS)),
+        # lanes with work: the carry in and out; every slot's flag; live
+        # slots: 20 more record words in, 9 rows out; dead slots: 9 zero
+        # rows out; each needed strip cotangent in once.
+        "persist_replay_fused": bound(
+            lanes5 * 2 * 9 * 4 + B1 * lanes * 4
+            + (B1 * lanes - live_slots5) * 9 * 4
+            + live_slots5 * (20 + 9) * 4 + strips5 * 3 * 4
+            + regen5 * 6 * 4, live_slots5 * ADJOINT_OPS),
+        # every lane's flag; live: 10 record words, 10 attributes, 3 strip
+        # cotangents and the carry in, the carry and 9 rows out; dead: 9
+        # zero rows out.
+        "persist_replay_step": bound(
+            lanes * 4 + (lanes - live6) * 9 * 4
+            + live6 * ((10 + 10 + 3 + 9) + (9 + 9)) * 4 + regen6 * 6 * 4,
+            live6 * ADJOINT_OPS),
+    }
+    emit({"phase": "grad_kernel_bounds", "bounds": bounds,
+          "live_lanes_k3_k4": n_live, "lanes": lanes, "misses_k4": miss4,
+          "regens_k4": regen4, "live_slots_k5": live_slots5,
+          "slots_k5": B1 * lanes, "live_lanes_k6": live6})
+
     pkg, tpu = "raytracingweekend_jl_tpu_torch/csrc", \
         "raytracingweekend_jl_tpu/ops/pallas"
     rows = [("sweep_masked", "sweep.cu", "intersect_kernel.py:115", k3_err),
@@ -308,11 +428,20 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
              "persist_grad_kernel.py:665", k5_err),
             ("persist_replay_step", "persist_replay.cu",
              "persist_grad_kernel.py:542", k6_err)]
-    return [{"name": nm, "route": "cuda", "source": f"{pkg}/{src}",
-             "replaces": f"{tpu}/{tpu_at}", "launches": None,
-             "max_abs_err": err, "ms": dev_ms[nm],
-             "plain_ms": dev_ms[nm + "_plain"]}
+    return [kernel_row(nm, f"{pkg}/{src}", f"{tpu}/{tpu_at}", err,
+                       dev_ms[nm], dev_ms[nm + "_plain"], bounds[nm])
             for nm, src, tpu_at, err in rows], dev_ms, call
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, bnd) -> dict:
+    """One entry of the ``kernels`` line (launches filled in later). No
+    single PyTorch call computes any of the port's kernels (a sphere sweep,
+    a shade or record step, a bounce adjoint walk, a whole render), so
+    ``library_ms`` is null."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+            "bound_by": bnd["bound_by"], "library_ms": None}
 
 
 def grad_entry_phases(dev, card, W: int = 1920, w2: int = 480) -> dict:
@@ -322,18 +451,6 @@ def grad_entry_phases(dev, card, W: int = 1920, w2: int = 480) -> dict:
     the launches of K3-K6 on the main-path runs."""
     import torch
     import raytracingweekend_jl_tpu_torch as pt
-    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
-    from raytracingweekend_jl_tpu_torch.ops.cuda import persist_grad_kernel as PK
-
-    def reset_counts():
-        K1.masked_launches = PK.record_launches = 0
-        PK.replay_fused_launches = PK.replay_step_launches = 0
-
-    def counts():
-        return {"sweep_masked": K1.masked_launches,
-                "persist_record": PK.record_launches,
-                "persist_replay_fused": PK.replay_fused_launches,
-                "persist_replay_step": PK.replay_step_launches}
 
     def same(a, b):
         return bool(torch.equal(a[0], b[0])) and all(
@@ -409,13 +526,15 @@ def grad_entry_phases(dev, card, W: int = 1920, w2: int = 480) -> dict:
           f"lean gradient step launched {lean_launches}")
     check(lean_same, "lean-record gradients differ from the default's")
 
-    # -- kernels against the plain versions at 480x270 -----------------------
+    # -- kernels against the plain versions at 480x270, the persistent pair
+    # pinned (below 2^17 pixels the default is the fixed-depth pair) -------
     target2 = pt.render_radiance(scene, cam, w2, 1, seed=123, device=dev)
+    persist = dict(recorded_persist=(8, None, (44, 16)), persist_strict=True)
 
     def step2(**kw):
         t0 = time.perf_counter()
         out = pt.render_grads(bad, cam, target2, w2, 1, device=dev, seed=9,
-                              **kw)
+                              **persist, **kw)
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
@@ -445,7 +564,7 @@ def grad_entry_phases(dev, card, W: int = 1920, w2: int = 480) -> dict:
     # -- finite differences in the largest Lambertian sphere's albedo -------
     lf = lambda img, tgt: ((img.double() - tgt.double()) ** 2).mean()
     _, g_fd = pt.render_grads(bad, cam, target2, w2, 1, device=dev, seed=9,
-                              loss_fn=lf)
+                              loss_fn=lf, **persist)
     k = int(torch.where(bad.mat == 0, bad.radius, -1.0).argmax())
     eps, rows = 1e-3, []
     for c in range(3):
@@ -456,7 +575,7 @@ def grad_entry_phases(dev, card, W: int = 1920, w2: int = 480) -> dict:
             with torch.no_grad():
                 losses.append(float(pt.render_loss(
                     bad._replace(albedo=alb), cam, target2, w2, 1,
-                    device=dev, seed=9, loss_fn=lf)))
+                    device=dev, seed=9, loss_fn=lf, **persist)))
         fd = (losses[0] - losses[1]) / (2 * eps)
         an = float(g_fd.albedo[k, c])
         rows.append({"channel": c, "fd": fd, "kernel_grad": an,
@@ -470,6 +589,473 @@ def grad_entry_phases(dev, card, W: int = 1920, w2: int = 480) -> dict:
     return {**{k: launches[k] for k in
                ("sweep_masked", "persist_record", "persist_replay_fused")},
             "persist_replay_step": lean_launches["persist_replay_step"]}
+
+
+def fit_slice_phases(dev, card, W: int = 200, H: int = 112, SPP: int = 8,
+                     STEPS: int = 120) -> tuple:
+    """The inverse-rendering slice at the JAX package's inverse demo
+    (``scripts/inverse_render.py`` defaults: ``scene_4_spheres``,
+    ``t_default_cam``, 200x112, spp 8, depth 16, 120 Adam steps, SPSA with
+    2 probe pairs): K7a, K7b, K7c and K8 against their plain versions at the
+    demo's shapes, the small-image gradient step, the forward render, the
+    fit itself against its plain path and under the profiler, and the
+    kernels' times. Returns the four kernel rows with their launches on the
+    fit's main path, and their ``device_ms`` and ``call_ms`` entries."""
+    import numpy as np
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch import rng
+    from raytracingweekend_jl_tpu_torch.camera import sample_pass_rays
+    from raytracingweekend_jl_tpu_torch.ops import fused_grad as FG
+    from raytracingweekend_jl_tpu_torch.ops.cuda import grad_kernel as GK
+    from raytracingweekend_jl_tpu_torch.ops.cuda import inline_kernel as K8
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    from raytracingweekend_jl_tpu_torch.ops.materials import (
+        attr_mat, fetch_attr_planes)
+
+    DEPTH = 16
+    R, fw, fh = W * H, float(W), float(H)
+
+    # -- the demo's scenes: the truth, and its perturbation (drawn from
+    # numpy, the JAX script's sizes: centers +-0.12 on the movable spheres,
+    # albedo 0.55 a + 0.15 on the movable non-glass ones) -----------------
+    scene_true, cam = pt.scene_4_spheres(), pt.t_default_cam()
+    movable = pt.movable_mask(scene_true)
+    scored = movable & (scene_true.mat.numpy() != pt.DIELECTRIC)
+    gen = np.random.default_rng(7)
+    jit = gen.uniform(-0.12, 0.12, tuple(scene_true.center.shape))
+    jit[~movable] = 0.0
+    alb = scene_true.albedo.numpy().copy()
+    alb[scored] = np.clip(alb[scored] * 0.55 + 0.15, 0, 1)
+    scene0 = scene_true._replace(
+        center=scene_true.center + torch.from_numpy(jit.astype(np.float32)),
+        albedo=torch.from_numpy(alb))
+    # The target: a forward pass of the fixed-depth pair, as the demo's.
+    target = pt.render_radiance(scene_true, cam, W, SPP, image_height=H,
+                                seed=0, persistent=False, recorded_fused=True)
+
+    # -- K7a, K7b, K7c against their plain versions: the demo's first pass,
+    # 22 400 lanes, checked from bounce 2 ----------------------------------
+    sc0 = pt.trim_scene(scene0.to(dev))
+    cam_d = cam.to(dev)
+    u_px, v_px = pt.pixel_coords(W, H, device=dev)
+    seed32 = rng.purpose_seed(0, rng.SCATTER_DIR, 0) & 0xFFFFFFFF
+    o1, d1 = sample_pass_rays(cam_d, u_px, v_px, 0, 0, 1, fw, fh)
+    spheres, amat = K1.sphere_consts(sc0), attr_mat(sc0)
+    st = FG.start_state(o1, d1)
+    rec = torch.empty((DEPTH, GK.N_REC, R), device=dev)
+    for b in range(DEPTH):
+        if b == 2:
+            st2 = st.clone()
+        t, idx = K1.sweep_masked(st[0:6], st[12].view(torch.int32), spheres)
+        GK.record_shade_step(t, fetch_attr_planes(idx, amat), st, rec[b],
+                             seed32, b)
+    t2, idx2 = K1.sweep_masked(st2[0:6], st2[12].view(torch.int32), spheres)
+    attrs2 = fetch_attr_planes(idx2, amat)
+    torch.cuda.synchronize()
+    g = torch.Generator(device=dev).manual_seed(11)
+    limit = int(1e-4 * R)
+
+    def k7a_run(step, u5):
+        st_, slot = st2.clone(), torch.zeros((GK.N_REC, R), device=dev)
+        step(t2, attrs2, st_, slot, seed32, 2, u5)
+        torch.cuda.synchronize()
+        return st_, slot
+
+    def k7a_compare(u5):
+        (sk, rk), (sr, rr) = (k7a_run(GK.record_shade_step, u5),
+                              k7a_run(GK.record_shade_step_ref, u5))
+        fl = [j for j in range(GK.N_REC) if j != 10]
+        return lanes_outside([(sk[:12], sr[:12]), (rk[fl], rr[fl])], 1e-6,
+                             [(sk[12], sr[12]), (rk[10], rr[10])])
+
+    bad_a_inj, err_a_inj = k7a_compare(torch.rand((5, R), generator=g,
+                                                  device=dev))
+    bad_a_ph, err_a_ph = k7a_compare(None)
+    live2 = int((st2[12].view(torch.int32) != 0).sum())
+    tol = ("alive flags identical; float planes within 1e-6*max(1,|x|) on "
+           ">= 99.99% of lanes")
+    emit({"phase": "k7a_vs_plain", "card": card, "lanes": R, "bounce": 2,
+          "live_lanes": live2, "lanes_outside_injected_u5": bad_a_inj,
+          "max_abs_err_injected": err_a_inj,
+          "lanes_outside_philox": bad_a_ph, "max_abs_err_philox": err_a_ph,
+          "tolerance": tol})
+    check(bad_a_inj <= limit and bad_a_ph <= limit,
+          f"K7a: {bad_a_inj} / {bad_a_ph} lanes outside")
+
+    g3 = torch.rand((3, R), generator=g, device=dev) * 2 - 1
+    cot2 = torch.randn((9, R), generator=g, device=dev)
+
+    def k7b_compare(u5):
+        outs = []
+        for step in (GK.replay_bwd_step, GK.replay_bwd_step_ref):
+            cot = cot2.clone()
+            outs.append((step(rec[2], g3, cot, seed32, 2, u5), cot))
+            torch.cuda.synchronize()
+        return lanes_outside(list(zip(*outs)), 1e-6)
+
+    bad_b_inj, err_b_inj = k7b_compare(torch.rand((5, R), generator=g,
+                                                  device=dev))
+    bad_b_ph, err_b_ph = k7b_compare(None)
+    emit({"phase": "k7b_vs_plain", "card": card, "lanes": R, "slot": 2,
+          "lanes_outside_injected_u5": bad_b_inj,
+          "max_abs_err_injected": err_b_inj,
+          "lanes_outside_philox": bad_b_ph, "max_abs_err_philox": err_b_ph,
+          "tolerance": tol.replace("alive flags identical; float", "carry "
+                                   "and attribute")})
+    check(bad_b_inj <= limit and bad_b_ph <= limit,
+          f"K7b: {bad_b_inj} / {bad_b_ph} lanes outside")
+
+    def k7c_compare(u5_all):
+        outs = []
+        for fused in (GK.replay_bwd_fused, GK.replay_bwd_fused_ref):
+            cot = torch.zeros((9, R), device=dev)
+            outs.append((fused(rec, g3, cot, seed32, u5_all), cot))
+            torch.cuda.synchronize()
+        return lanes_outside(list(zip(*outs)), 1e-6), outs[0]
+
+    (bad_c_inj, err_c_inj), _ = k7c_compare(
+        torch.rand((DEPTH, 5, R), generator=g, device=dev))
+    (bad_c_ph, err_c_ph), k7c_out = k7c_compare(None)
+    cot_s = torch.zeros((9, R), device=dev)
+    d_s = torch.empty((DEPTH, 9, R), device=dev)
+    for b in reversed(range(DEPTH)):
+        GK.replay_bwd_step(rec[b], g3, cot_s, seed32, b, out=d_s[b])
+    step_is_fused = bool(torch.equal(d_s, k7c_out[0])
+                         and torch.equal(cot_s, k7c_out[1]))
+    emit({"phase": "k7c_vs_plain", "card": card, "lanes": R,
+          "slots": DEPTH, "lanes_outside_injected_u5": bad_c_inj,
+          "max_abs_err_injected": err_c_inj,
+          "lanes_outside_philox": bad_c_ph, "max_abs_err_philox": err_c_ph,
+          "k7b_walk_bitwise_equal": step_is_fused,
+          "tolerance": "carry and attribute rows over the whole 16-slot "
+                       "walk within 1e-6*max(1,|x|) on >= 99.99% of lanes"})
+    check(bad_c_inj <= limit and bad_c_ph <= limit,
+          f"K7c: {bad_c_inj} / {bad_c_ph} lanes outside")
+
+    # -- K8 against its plain version: the demo at spp 8, 179 200 lanes ----
+    o8, d8 = sample_pass_rays(cam_d, u_px, v_px, 0, 0, SPP, fw, fh)
+    L8 = o8.shape[0]
+    seed8 = rng.persistent_seed(0, 0)
+
+    def k8_compare(u5):
+        a = K8.trace_inline(sc0, o8, d8, seed8, DEPTH, 1e-4, u5)
+        torch.cuda.synchronize()
+        b = K8.trace_inline_ref(sc0, o8, d8, seed8, DEPTH, 1e-4, u5)
+        return lanes_outside([(a.T, b.T)], 1e-6)
+
+    bad8_inj, err8_inj = k8_compare(
+        torch.rand((DEPTH, 5, L8), generator=g, device=dev))
+    bad8_ph, err8_ph = k8_compare(None)
+    emit({"phase": "k8_vs_plain", "card": card, "lanes": L8,
+          "spheres": sc0.n_spheres, "lanes_outside_injected_u5": bad8_inj,
+          "max_abs_err_injected": err8_inj, "lanes_outside_philox": bad8_ph,
+          "max_abs_err_philox": err8_ph,
+          "tolerance": "radiance within 1e-6*max(1,|x|) on >= 99.99% of "
+                       "lanes"})
+    check(bad8_inj <= int(1e-4 * L8) and bad8_ph <= int(1e-4 * L8),
+          f"K8: {bad8_inj} / {bad8_ph} lanes outside")
+
+    # -- the small-image gradient step through render_grads -----------------
+    def grad_step(**kw):
+        out = pt.render_grads(scene0, cam, target, W, SPP, seed=0, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    def same(a, b):
+        return bool(torch.equal(a[0], b[0])) and all(
+            torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+    def field_stats(ga, gb):
+        out = {}
+        for f in pt.DIFF_FIELDS:
+            a = getattr(ga, f).double().ravel()
+            b = getattr(gb, f).double().ravel()
+            na, nb = a.norm().item(), b.norm().item()
+            cos = 1.0 if na == nb == 0 else (a @ b).item() / max(na * nb,
+                                                                 1e-300)
+            out[f] = {"cosine": cos,
+                      "norm_ratio": 1.0 if na == nb == 0 else na / nb}
+        return out
+
+    grad_step()  # warm-up
+    reset_counts()
+    first = grad_step()
+    step_launches = counts()
+    bitwise = same(first, grad_step())
+    pt.check_grads_sane(first[1], first[0])
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        grad_step()
+        secs.append(time.perf_counter() - t0)
+    reset_counts()
+    stepwise = grad_step(replay_fused=False)
+    step_route = counts()
+    max_rel = max(((x - y).abs() / y.abs().clamp(min=1)).max().item()
+                  for x, y in zip(stepwise[1], first[1]))
+    max_rel = max(max_rel, abs(float(stepwise[0]) - float(first[0]))
+                  / abs(float(first[0])))
+    plain = grad_step(impl="plain")
+    rel_loss = abs(float(first[0]) - float(plain[0])) / abs(float(plain[0]))
+    fields = field_stats(first[1], plain[1])
+    lf = lambda img, tgt: ((img.double() - tgt.double()) ** 2).mean()
+    _, g_fd = grad_step(loss_fn=lf)
+    eps, fd_rows = 1e-3, []
+    for c in range(3):
+        losses = []
+        for sgn in (1.0, -1.0):
+            alb_ = scene0.albedo.clone()
+            alb_[0, c] += sgn * eps
+            with torch.no_grad():
+                losses.append(float(pt.render_loss(
+                    scene0._replace(albedo=alb_), cam, target, W, SPP,
+                    seed=0, loss_fn=lf)))
+        fd = (losses[0] - losses[1]) / (2 * eps)
+        an = float(g_fd.albedo[0, c])
+        fd_rows.append({"channel": c, "fd": fd, "kernel_grad": an,
+                        "rel_err": abs(fd - an) / max(abs(an), 1e-30)})
+    sec = sorted(secs)[len(secs) // 2]
+    emit({"phase": "fused_grad_step", "card": card, "size": [W, H],
+          "spp": SPP, "route": "fixed-depth pair (default below 2^17 "
+                               "pixels), fused replay",
+          "launches": step_launches, "loss": float(first[0]),
+          "bitwise_repeat": bitwise, "seconds_runs": secs,
+          "seconds_median": sec, "mpaths_per_s": R * SPP / sec / 1e6,
+          "replay_step_route_launches": step_route,
+          "replay_step_max_rel_diff": max_rel,
+          "plain_loss_rel_diff": rel_loss, "plain_fields": fields,
+          "fd_sphere": 0, "fd_eps": eps, "fd_channels": fd_rows,
+          "tolerance": "K7b route within 1e-6; plain: loss 1e-5 relative, "
+                       "per field cosine >= 0.999 and norm ratio within 1%; "
+                       "FD within 1e-2 relative"})
+    check(all(step_launches[k] > 0 for k in
+              ("sweep_masked", "record_shade", "replay_bwd_fused")),
+          f"small-image step launched {step_launches}")
+    check(step_launches["persist_record"] == 0
+          and step_launches["persist_replay_fused"] == 0,
+          f"small-image step took the persistent pair: {step_launches}")
+    check(step_route["replay_bwd_step"] > 0
+          and step_route["replay_bwd_fused"] == 0,
+          f"replay_fused=False launched {step_route}")
+    check(bitwise, "two small-image steps differ")
+    check(max_rel <= 1e-6, f"K7b route differs by {max_rel}")
+    check(rel_loss <= 1e-5, f"plain loss differs by {rel_loss}")
+    for f, v in fields.items():
+        check(v["cosine"] >= 0.999 and abs(v["norm_ratio"] - 1) <= 0.01,
+              f"grad[{f}] kernels vs plain: {v}")
+    for r in fd_rows:
+        check(r["rel_err"] <= 1e-2, f"FD check failed: {r}")
+
+    # -- the demo's forward render through the entry point (K8) -------------
+    def fwd(**kw):
+        t0 = time.perf_counter()
+        out = pt.render_radiance(scene_true, cam, W, SPP, image_height=H,
+                                 seed=0, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    fwd()  # warm-up
+    reset_counts()
+    _, img = fwd()
+    fwd_launches = counts()
+    fwd_secs = [fwd()[0] for _ in range(5)]
+    _, img_plain = fwd(impl="plain")
+    _, img_strided = fwd(inline=False)
+    m = img.mean((0, 1))
+    rel_plain = ((m - img_plain.mean((0, 1))).abs()
+                 / img_plain.mean((0, 1))).max().item()
+    rel_strided = ((m - img_strided.mean((0, 1))).abs()
+                   / img_strided.mean((0, 1))).max().item()
+    fwd_sec = sorted(fwd_secs)[2]
+    emit({"phase": "inline_render", "card": card, "size": [W, H],
+          "spp": SPP, "launches": fwd_launches, "seconds_runs": fwd_secs,
+          "seconds_median": fwd_sec,
+          "mpaths_per_s": R * SPP / fwd_sec / 1e6,
+          "means": m.tolist(), "max_rel_diff_plain": rel_plain,
+          "max_rel_diff_strided": rel_strided,
+          "tolerance": "each channel mean within 1% of the plain path's and "
+                       "of the strided route's"})
+    check(fwd_launches["inline"] == 1 and fwd_launches["sweep"] == 0
+          and fwd_launches["shade_strided"] == 0,
+          f"demo forward launched {fwd_launches}")
+    check(bool(torch.isfinite(img).all()), "non-finite demo image")
+    check(rel_plain <= 0.01 and rel_strided <= 0.01,
+          f"demo means differ: {rel_plain}, {rel_strided}")
+
+    # -- the fit: 120 steps of fit_scene on the card ------------------------
+    def err(a, b, mask):
+        return float((a.cpu() - b.cpu()).abs().numpy()[mask].max())
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = pt.fit_scene(scene0, cam, target, W, SPP, steps=STEPS)
+    fit_wall = time.perf_counter() - t0
+    fit_launches = counts()
+    losses = res.losses
+    step_sec = sorted(res.step_seconds)[len(res.step_seconds) // 2]
+    a0, a1 = (err(scene0.albedo, scene_true.albedo, scored),
+              err(res.scene.albedo, scene_true.albedo, scored))
+    c0, c1 = (err(scene0.center, scene_true.center, movable),
+              err(res.scene.center, scene_true.center, movable))
+    emit({"phase": "fit", "card": card, "size": [W, H], "spp": SPP,
+          "steps": STEPS, "loss_first": losses[0], "loss_last": losses[-1],
+          "loss_min": min(losses), "loss_step10": losses[10],
+          "step_seconds_median": step_sec,
+          "step_seconds_first": res.step_seconds[0], "wall_s": fit_wall,
+          "mpaths_per_s": R * SPP / step_sec / 1e6,
+          "albedo_err": [a0, a1], "center_err": [c0, c1],
+          "launches": fit_launches,
+          "launches_per_step": {k: v / STEPS
+                                for k, v in fit_launches.items()},
+          "checks": "losses finite; step 10 < 0.75 x step 0; albedo error "
+                    "shrinks; center error < 1.3 x its start"})
+    check(bool(np.isfinite(losses).all()), "non-finite fit loss")
+    check(losses[10] < 0.75 * losses[0], f"fit loss {losses[:11]}")
+    check(a1 < a0, f"albedo error {a0} -> {a1}")
+    check(c1 < 1.3 * c0, f"center error {c0} -> {c1}")
+    check(all(fit_launches[k] > 0 for k in
+              ("sweep_masked", "record_shade", "replay_bwd_fused", "inline")),
+          f"fit launched {fit_launches}")
+    rep = [pt.fit_scene(scene0, cam, target, W, SPP, steps=3).losses
+           for _ in range(2)]
+    check(rep[0] == rep[1], f"two 3-step fits differ: {rep}")
+
+    # -- the fit's per-bounce replay route (K7b) ----------------------------
+    reset_counts()
+    res_b = pt.fit_scene(scene0, cam, target, W, SPP, steps=2,
+                         render_kwargs={"replay_fused": False})
+    b_launches = counts()
+    emit({"phase": "fit_replay_step", "card": card, "steps": 2,
+          "launches": b_launches, "losses": res_b.losses,
+          "losses_default_route": rep[0][:2], "repeat_fits_bitwise": True})
+    check(b_launches["replay_bwd_step"] > 0
+          and b_launches["replay_bwd_fused"] == 0,
+          f"replay_fused=False fit launched {b_launches}")
+
+    # -- kernels against plain through the fit, 64x36 spp 2 ----------------
+    w3, h3 = 64, 36
+    target3 = pt.render_radiance(scene_true, cam, w3, 2, image_height=h3,
+                                 seed=0, persistent=False,
+                                 recorded_fused=True)
+    t0 = time.perf_counter()
+    fk = pt.fit_scene(scene0, cam, target3, w3, 2, steps=3).losses
+    sec_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fp = pt.fit_scene(scene0, cam, target3, w3, 2, steps=3,
+                      render_kwargs={"impl": "plain"}).losses
+    sec_p = time.perf_counter() - t0
+    rel_fit = max(abs(a - b) / abs(b) for a, b in zip(fk, fp))
+    emit({"phase": "fit_vs_plain", "card": card, "size": [w3, h3], "spp": 2,
+          "steps": 3, "losses_kernels": fk, "losses_plain": fp,
+          "max_rel_diff": rel_fit, "seconds_kernels": sec_k,
+          "seconds_plain": sec_p, "tolerance": "each loss within 1e-4 "
+                                               "relative"})
+    check(rel_fit <= 1e-4, f"fit losses differ by {rel_fit}")
+
+    # -- one fit step under the profiler ------------------------------------
+    emit({"phase": "fit_profile", "card": card, "size": [W, H], "spp": SPP,
+          **profile_call(lambda: pt.fit_scene(scene0, cam, target, W, SPP,
+                                              steps=1))})
+
+    # -- times at the demo's shapes (CUDA events) and bounds ----------------
+    live_st, slot_t = [st2.clone()], torch.empty((GK.N_REC, R), device=dev)
+    carry = [cot2.clone()]
+    out9 = torch.empty((9, R), device=dev)
+    zero9 = [torch.zeros((9, R), device=dev)]
+    fns = {
+        "record_shade": lambda: GK.record_shade_step(
+            t2, attrs2, live_st[0], slot_t, seed32, 2),
+        "record_shade_plain": lambda: GK.record_shade_step_ref(
+            t2, attrs2, live_st[0], slot_t, seed32, 2),
+        "replay_bwd_step": lambda: GK.replay_bwd_step(
+            rec[2], g3, carry[0], seed32, 2, out=out9),
+        "replay_bwd_step_plain": lambda: GK.replay_bwd_step_ref(
+            rec[2], g3, carry[0], seed32, 2, out=out9),
+        "replay_bwd_fused": lambda: GK.replay_bwd_fused(rec, g3, zero9[0],
+                                                        seed32),
+        "replay_bwd_fused_plain": lambda: GK.replay_bwd_fused_ref(
+            rec, g3, zero9[0], seed32),
+        "inline": lambda: K8.trace_inline(sc0, o8, d8, seed8, DEPTH),
+        "inline_plain": lambda: K8.trace_inline_ref(sc0, o8, d8, seed8,
+                                                    DEPTH),
+    }
+    setups = {"record_shade": lambda: live_st[0].copy_(st2),
+              "replay_bwd_step": lambda: carry[0].copy_(cot2),
+              "replay_bwd_fused": lambda: zero9[0].zero_()}
+    dev_ms, call = {}, {}
+    for name, fn in fns.items():
+        plain_fn = name.endswith("_plain")
+        setup = setups.get(name.removesuffix("_plain"))
+        n = 5 if plain_fn else 50
+        dev_ms[name] = device_ms(fn, n, setup=setup, sleep_cycles=(
+            3_000_000_000 if plain_fn else 100_000_000))
+        call[name] = call_ms(fn, n, setup=setup)
+    stats = {}
+    K8.trace_inline_ref(sc0, o8, d8, seed8, DEPTH, stats=stats)
+    lane_bounces = sum(stats["live"])
+    n_sph = sc0.n_spheres
+    # Bytes counted from this run's alive flags: a live lane or slot moves
+    # all its words; a dead one reads its flag and writes what the kernel
+    # writes for it (K7a: a zero 21-word slot; K7b, K7c: 9 zero rows).
+    live_rec = rec[:, 10].view(torch.int32) != 0
+    live_slot2 = int(live_rec[2].sum())
+    live_slots = int(live_rec.sum())
+    lanes_c = int(live_rec.any(0).sum())
+    bounds = {
+        # every lane's flag; live: 12 state words, t and attrs in, the
+        # 21-word slot and 13 state words out; dead: the zero slot out.
+        "record_shade": bound(
+            R * 4 + (R - live2) * GK.N_REC * 4
+            + live2 * ((12 + 1 + 10) + (GK.N_REC + 13)) * 4,
+            live2 * (SHADE_OPS + ADVANCE_OPS)),
+        # every lane's flag; live: 20 more slot words, 3 radiance
+        # cotangents and the carry in, the carry and 9 rows out; dead: 9
+        # zero rows out.
+        "replay_bwd_step": bound(
+            R * 4 + (R - live_slot2) * 9 * 4
+            + live_slot2 * ((20 + 3 + 9) + (9 + 9)) * 4,
+            live_slot2 * ADJOINT_OPS),
+        # lanes with a live slot: 3 radiance cotangents and the carry in,
+        # the carry out; every slot's flag; live slots: 20 more words in,
+        # 9 rows out; dead slots: 9 zero rows out.
+        "replay_bwd_fused": bound(
+            lanes_c * (3 + 9 + 9) * 4 + DEPTH * R * 4
+            + (DEPTH * R - live_slots) * 9 * 4
+            + live_slots * (20 + 9) * 4,
+            live_slots * ADJOINT_OPS),
+        # rays in, radiance out, the sphere table once; the sweep and shade
+        # of every bounce a lane runs.
+        "inline": bound(L8 * (6 + 3) * 4 + 11 * n_sph * 4,
+                        lane_bounces * (SWEEP_RAY_OPS
+                                        + SWEEP_SPHERE_OPS * n_sph
+                                        + SHADE_OPS + ADVANCE_OPS)),
+    }
+    emit({"phase": "fit_kernel_times", "card": card, "device_ms": dev_ms,
+          "call_ms": call, "bounds": bounds,
+          "shapes": "record_shade: bounce 2 of the demo's first pass "
+                    "(22 400 lanes); replay_bwd_step: slot 2; "
+                    "replay_bwd_fused: the whole 16-slot walk; inline: the "
+                    "demo at spp 8 (179 200 lanes, 8 spheres)",
+          "inline_lane_bounces": lane_bounces})
+
+    pkg, tpu = "raytracingweekend_jl_tpu_torch/csrc", \
+        "raytracingweekend_jl_tpu/ops/pallas"
+    rows = [("record_shade", "record_shade.cu", "grad_kernel.py:73",
+             max(err_a_inj, err_a_ph), fit_launches),
+            ("replay_bwd_step", "replay_bwd.cu", "grad_kernel.py:411",
+             max(err_b_inj, err_b_ph), b_launches),
+            ("replay_bwd_fused", "replay_bwd.cu", "grad_kernel.py:520",
+             max(err_c_inj, err_c_ph), fit_launches),
+            ("inline", "inline.cu", "inline_kernel.py:94",
+             max(err8_inj, err8_ph), fit_launches)]
+    out = []
+    for nm, src, tpu_at, e, launched in rows:
+        row = kernel_row(nm, f"{pkg}/{src}", f"{tpu}/{tpu_at}", e,
+                         dev_ms[nm], dev_ms[nm + "_plain"], bounds[nm])
+        row["launches"] = launched[nm]
+        out.append(row)
+    return out, dev_ms, call
 
 
 def main() -> int:
@@ -589,11 +1175,13 @@ def main() -> int:
     check(bad_inj <= limit, f"K2 (injected u9): {bad_inj} lanes outside")
     check(bad_philox <= limit, f"K2 (Philox): {bad_philox} lanes outside")
 
-    # -- 4. in-kernel Philox against the plain path: 4 spheres, 256x144x64 ----
+    # -- 4. in-kernel Philox against the plain path: 4 spheres, 256x144x64,
+    # the strided route pinned (the image is small enough for K8) -----------
     s4, c4 = pt.scene_4_spheres(device=dev), pt.t_default_cam(device=dev)
-    img_k = pt.render_radiance(s4, c4, 256, 64, seed=2, device=dev)
+    img_k = pt.render_radiance(s4, c4, 256, 64, seed=2, device=dev,
+                               inline=False)
     img_p = pt.render_radiance(s4, c4, 256, 64, seed=2, device=dev,
-                               impl="plain")
+                               impl="plain", inline=False)
     mk, mp = img_k.mean((0, 1)), img_p.mean((0, 1))
     rel4 = ((mk - mp).abs() / mp).max().item()
     emit({"phase": "philox_render_vs_plain", "scene": "4_spheres",
@@ -608,14 +1196,14 @@ def main() -> int:
     flag_cam = pt.t_cam1()
     pt.render(flag_scene, flag_cam, W, SPP, persistent=True, device="cuda")
     torch.cuda.synchronize()  # warm-up: first-call allocations and loads
-    K1.launches = 0
-    K2.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     img = pt.render(flag_scene, flag_cam, W, SPP, persistent=True,
                     device="cuda")
     torch.cuda.synchronize()
     sec_k = time.perf_counter() - t0
-    launches = {"sweep": K1.launches, "shade_strided": K2.launches}
+    launches = {k: v for k, v in counts().items()
+                if k in ("sweep", "shade_strided")}
 
     def timed(**kw):
         t0 = time.perf_counter()
@@ -691,19 +1279,35 @@ def main() -> int:
     for row in grad_rows:
         row["launches"] = grad_launches[row["name"]]
 
-    pkg = "raytracingweekend_jl_tpu_torch"
-    emit({"kernels": [
-        {"name": "sweep", "route": "cuda", "source": f"{pkg}/csrc/sweep.cu",
-         "replaces": "raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py:55",
-         "launches": launches["sweep"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "shade_strided", "route": "cuda",
-         "source": f"{pkg}/csrc/shade_strided.cu",
-         "replaces": "raytracingweekend_jl_tpu/ops/pallas/shade_kernel.py:380",
-         "launches": launches["shade_strided"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        *grad_rows,
-    ]})
+    # -- 10-11. the inverse-rendering slice: K7 and K8, then fit_scene -----
+    fit_rows, fit_dev_ms, fit_call_ms = fit_slice_phases(dev, card)
+
+    # -- the kernels line: every ported kernel, with its bound -------------
+    n_rays, n_sph = rays_f.shape[1], spheres.shape[0]
+    n_active = int((state0[1][5] != 0).sum())
+    # K1: rays and table in, t and idx out; every ray against every sphere.
+    k1_bound = bound(n_rays * (24 + 8) + 16 * n_sph,
+                     n_rays * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS * n_sph))
+    # K2: per lane the float and int state, t, attrs and the current
+    # strip's 3 words in; the state and the strip's words out; the camera
+    # constants once.
+    k2_bound = bound(n_lanes * ((12 + 7 + 1 + 10 + 3) + (12 + 7 + 3)) * 4
+                     + 21 * 4, n_active * (SHADE_OPS + ADVANCE_OPS))
+    pkg, tpu = "raytracingweekend_jl_tpu_torch/csrc", \
+        "raytracingweekend_jl_tpu/ops/pallas"
+    fwd_rows = [kernel_row("sweep", f"{pkg}/sweep.cu",
+                           f"{tpu}/intersect_kernel.py:55", k1_err, k1_ms,
+                           k1_plain_ms, k1_bound),
+                kernel_row("shade_strided", f"{pkg}/shade_strided.cu",
+                           f"{tpu}/shade_kernel.py:380", k2_err, k2_ms,
+                           k2_plain_ms, k2_bound)]
+    fwd_rows[0]["launches"] = launches["sweep"]
+    fwd_rows[1]["launches"] = launches["shade_strided"]
+    rows = fwd_rows + grad_rows + fit_rows
+    for row in rows:
+        check(row["launches"] > 0, f"{row['name']} never launched on its "
+                                   "main path")
+    emit({"kernels": rows})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

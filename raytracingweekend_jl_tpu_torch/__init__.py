@@ -1,20 +1,26 @@
 """raytracingweekend_jl_tpu_torch — the PyTorch/CUDA port of
 ``raytracingweekend_jl_tpu``.
 
-Two main paths run end to end, each through hand-written CUDA kernels for
-Hopper built from ``csrc/`` at first use:
+Three main paths run end to end on the card, each through hand-written
+CUDA kernels for Hopper built from ``csrc/`` at first use:
 
-- the flagship forward render: ``render(scene, cam, width, spp,
-  device="cuda")`` goes through the strided persistent integrator (the
-  sphere sweep K1 and the strided shade step K2);
-- the flagship gradient step: ``render_grads(scene, cam, target, width,
-  spp, device="cuda")`` goes through the persistent-record kernel pair (the
-  masked sweep K3, the record step K4, the fused replay K5, and the
-  per-slot replay K6 for lean records).
+- the forward render: ``render(scene, cam, width, spp)`` goes through the
+  strided persistent integrator (the sphere sweep K1 and the strided shade
+  step K2), or for a small full image through one launch of the inline
+  kernel K8;
+- the gradient step: ``render_grads(scene, cam, target, width, spp)`` goes
+  through the persistent-record kernel pair from 2^17 pixels (the masked
+  sweep K3, the record step K4, the fused replay K5, and the per-slot
+  replay K6 for lean records), and below through the fixed-depth pair (K3,
+  the record step K7a, the fused replay K7c, or the per-bounce replay K7b);
+- the inverse-rendering fit: ``fit_scene(scene0, cam, target, width, spp)``
+  takes Adam steps on the gradient step's albedo gradients and SPSA probe
+  renders for the centers.
 
-On the CPU the same paths run the kernels' plain PyTorch versions. Module
-names follow the JAX package so each counterpart is easy to find; this
-package never imports JAX.
+Every entry point runs on the card unless the caller passes
+``device="cpu"``, and raises without CUDA. On the CPU the same paths run the
+kernels' plain PyTorch versions. Module names follow the JAX package so each
+counterpart is easy to find; this package never imports JAX.
 """
 
 from .scene import (Scene, make_scene, trim_scene, scene_from_numpy, sphere,
@@ -27,7 +33,10 @@ from .render import (render, render_radiance, render_tile_sum,
                      image_height_for, pixel_coords)
 from .grad import (render_loss, render_grads, SceneGrads, check_grads_sane,
                    GradSanityError, sgd_inverse_render_step, DIFF_FIELDS)
+from .optimize import FitResult, fit_scene, movable_mask
 from .ops.persist_grad import trace_recorded_persist, persist_dropped_paths
+from .ops.fused_grad import trace_recorded_fused
+from .ops.cuda.inline_kernel import trace_inline
 from .ops.integrator import (persistent_render_sum_strided, skycolor,
                              DEFAULT_MAX_DEPTH)
 from .ops.intersect import intersect_spheres, HitResult, DEFAULT_TMIN

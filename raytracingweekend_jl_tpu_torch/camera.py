@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import rng
 from .ops.vecmath import normalize
 from .ops.sampling import unit_disk_points
 
@@ -102,6 +103,27 @@ def get_rays(cam: Camera, s: torch.Tensor, t: torch.Tensor,
     disk = unit_disk_points(s.shape, generator=generator, dtype=s.dtype,
                             device=s.device)
     return make_rays(cam, s, t, disk)
+
+
+def sample_pass_rays(cam: Camera, u: torch.Tensor, v: torch.Tensor,
+                     seed: int, s0: int, spp: int, f32_w: float,
+                     f32_h: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Camera rays ``(origin, direction)`` [spp * n_pix, 3] of one sample
+    pass: global samples ``s0 .. s0 + spp - 1`` of the pixels at film
+    coordinates ``u``/``v`` [n_pix], sample-major. The jitter and lens draws
+    come from generators keyed by ``(seed, purpose, s0)``; global sample 0
+    is centered (src/render.jl:30-35)."""
+    device = u.device
+    n_pix = u.shape[0]
+    sid = s0 + torch.arange(spp, device=device).repeat_interleave(n_pix)
+    jit = torch.rand((spp * n_pix, 2), device=device,
+                     generator=rng.generator(seed, rng.PIXEL_JITTER, s0,
+                                             device=device))
+    scale = torch.tensor([1.0 / f32_w, 1.0 / f32_h], dtype=torch.float32,
+                         device=device)
+    jit = torch.where((sid == 0)[:, None], torch.zeros_like(jit), jit * scale)
+    return get_rays(cam, u.repeat(spp) + jit[:, 0], v.repeat(spp) + jit[:, 1],
+                    generator=rng.generator(seed, rng.LENS, s0, device=device))
 
 
 # Canonical camera fixtures (reference: src/proto/proto.jl:17-22).

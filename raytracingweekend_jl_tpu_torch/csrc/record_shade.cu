@@ -1,0 +1,112 @@
+// K7a: one bounce of the fixed-depth record (the forward of the small-image
+// gradient path) for Hopper (sm_90a).
+//
+// Replaces the TPU kernel raytracingweekend_jl_tpu/ops/pallas/grad_kernel.py
+// :: _record_shade_kernel (launched by record_shade_step). The plain PyTorch
+// version is raytracingweekend_jl_tpu_torch/ops/cuda/grad_kernel.py ::
+// record_shade_step_ref.
+//
+// What it computes, per lane: the bounce after the masked sweep. It writes
+// slot `bounce` of the residual record (the bounce's inputs o, d, T, the hit
+// distance t, the alive flag, the winner's 10 attributes), shades the bounce
+// (shade_core.cuh: a miss banks T * sky(d) into the radiance), and advances
+// a hit: o = p, d = the material's scatter direction, T = T * albedo. The
+// new alive flag is the hit mask: a miss or a dead lane is done, and a path
+// still alive after the last bounce reads black.
+//
+// Dead lanes: the TPU kernel skipped a (64, 128) block whose lanes were all
+// dead, passed its state through and wrote af = 0 into the record. Here the
+// same contract holds per lane: a dead lane passes its state through and
+// writes a zero record slot (af = 0, which is all the replay reads of it).
+//
+// State and record are updated in place, as the TPU kernel aliased its state
+// and record inputs to its outputs. The alive flag is stored bit for bit in
+// a float plane (plane 12 of the state, plane 10 of the record), as K4 keeps
+// its flag word.
+//
+// What bounds it on the card: memory traffic. A live lane reads ~96 bytes
+// (state, hit distance, attributes) and writes ~136 (state and 21 record
+// words); a dead lane reads its flag and writes the zero slot. At bounce 2
+// of the inverse demo (22 400 lanes, 9 295 live) one launch moves ~3.3 MB,
+// ~1 us of HBM time, so the launch itself costs more than the work.
+//
+// Design: one thread per lane, [plane, lane] layout so a warp's accesses are
+// one coalesced segment per plane. Draws: 5 uniforms, Philox4x32-10 keyed by
+// (seed, bounce) with the lane as the counter, so the replay kernels redraw
+// exactly these numbers at any launch shape; or read from `u5` when given.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "philox.cuh"
+#include "shade_core.cuh"
+
+__global__ void record_shade_kernel(const float* __restrict__ t_in,
+                                    const float* __restrict__ attrs,
+                                    float* __restrict__ st,
+                                    float* __restrict__ rec,
+                                    const float* __restrict__ u5, int n_lanes,
+                                    uint32_t seed, uint32_t bounce) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_lanes) return;
+  const size_t n = n_lanes;
+  if (__float_as_int(st[12 * n + i]) == 0) {
+#pragma unroll
+    for (int p = 0; p < 21; ++p) rec[p * n + i] = 0.0f;
+    return;
+  }
+
+  float ox = st[0 * n + i], oy = st[1 * n + i], oz = st[2 * n + i];
+  float dx = st[3 * n + i], dy = st[4 * n + i], dz = st[5 * n + i];
+  float tx = st[6 * n + i], ty = st[7 * n + i], tz = st[8 * n + i];
+  float rx = st[9 * n + i], ry = st[10 * n + i], rz = st[11 * n + i];
+
+  float u[5];
+  if (u5) {
+#pragma unroll
+    for (int j = 0; j < 5; ++j) u[j] = u5[j * n + i];
+  } else {
+    rtw_uniforms<5>(seed, bounce, (uint32_t)i, u);
+  }
+  const float t = t_in[i];
+  float a[10];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) a[j] = attrs[j * n + i];
+
+  // Residual record: this bounce's inputs.
+  rec[0 * n + i] = ox; rec[1 * n + i] = oy; rec[2 * n + i] = oz;
+  rec[3 * n + i] = dx; rec[4 * n + i] = dy; rec[5 * n + i] = dz;
+  rec[6 * n + i] = tx; rec[7 * n + i] = ty; rec[8 * n + i] = tz;
+  rec[9 * n + i] = t;
+  rec[10 * n + i] = __int_as_float(1);
+#pragma unroll
+  for (int j = 0; j < 10; ++j) rec[(11 + j) * n + i] = a[j];
+
+  const RtwShade s = rtw_shade_core(u, t, a, ox, oy, oz, dx, dy, dz, tx, ty,
+                                    tz, true, rx, ry, rz);
+  if (s.hitm) {
+    ox = s.px; oy = s.py; oz = s.pz;
+    dx = s.ndx; dy = s.ndy; dz = s.ndz;
+    tx = tx * a[4]; ty = ty * a[5]; tz = tz * a[6];
+  }
+  st[0 * n + i] = ox; st[1 * n + i] = oy; st[2 * n + i] = oz;
+  st[3 * n + i] = dx; st[4 * n + i] = dy; st[5 * n + i] = dz;
+  st[6 * n + i] = tx; st[7 * n + i] = ty; st[8 * n + i] = tz;
+  st[9 * n + i] = rx; st[10 * n + i] = ry; st[11 * n + i] = rz;
+  st[12 * n + i] = __int_as_float(s.hitm ? 1 : 0);
+}
+
+// t [R] f32, attrs [10, R] f32; st [13, R] f32 (o, d, T, radiance, alive
+// flag bits) is updated in place; rec points at one record slot [21, R],
+// written. u5 [5, R] f32 may be NULL (in-kernel Philox).
+extern "C" int rtw_record_shade(const float* t, const float* attrs, float* st,
+                                float* rec, const float* u5, int n_lanes,
+                                unsigned int seed, unsigned int bounce,
+                                void* stream) {
+  if (n_lanes <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (n_lanes + threads - 1) / threads;
+  record_shade_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      t, attrs, st, rec, u5, n_lanes, seed, bounce);
+  return (int)cudaGetLastError();
+}

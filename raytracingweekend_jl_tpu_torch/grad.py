@@ -7,12 +7,12 @@ events (closest-hit winner, material, reflect-or-refract coin, front face)
 are replayed as constants. Silhouette terms are not estimated (interior
 gradients only).
 
-The port runs one gradient integrator, the reference's device default: the
-persistent-record kernel pair with tail compaction at (44, 16) and strict
-NaN-poisoning of dropped paths (``ops/persist_grad.py``), through the CUDA
-kernels on a card and through their plain versions on the CPU. The
-reference's small-image default (the fixed-depth pair, K7) is not ported,
-so small images take the persistent pair too.
+The port runs the reference's two device defaults, on every device: images
+of 2^17 pixels or more take the persistent-record kernel pair with tail
+compaction at (44, 16) and strict NaN-poisoning of dropped paths
+(``ops/persist_grad.py``), smaller ones the fixed-depth record/replay pair
+(``ops/fused_grad.py``). A card runs the CUDA kernels, the CPU (only when
+asked for with ``device="cpu"``) their plain versions.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 
 from .camera import Camera
 from .ops.persist_grad import default_n_iters, persist_record_bytes
-from .render import render_radiance
+from .render import _resolve_device, render_radiance
 from .scene import Scene
 
 #: Fields of :class:`Scene` that are differentiable parameters.
@@ -177,50 +177,41 @@ def plan_pass_memory(kwargs: dict, n_pix: int, n_samples: int,
     return kwargs
 
 
-def _resolve_port_path(kwargs: dict, n_pix: int) -> None:
-    """The port's selection: the reference's device default on every device
-    (the CPU runs the same path through the kernels' plain versions). Its
-    small-image default, the fixed-depth pair, is not ported: an auto pick
-    of it becomes the persistent default; an explicit one raises."""
-    if kwargs.get("recorded_fused"):
-        raise NotImplementedError(
-            "recorded_fused needs the fixed-depth record/replay kernels (TPU "
-            "ops/pallas/grad_kernel.py, K7), not ported yet; use "
-            "recorded_persist")
-    resolve_grad_path(kwargs, n_pix, "cuda")
-    if kwargs.pop("recorded_fused", False):
-        depth = kwargs.get("max_depth", 16)
-        kwargs["recorded_persist"] = (8, None, (max(-(-44 * depth // 16), 8),
-                                                16))
-        kwargs.setdefault("persist_strict", True)
-
-
 def render_loss(scene: Scene, cam: Camera, target: torch.Tensor,
                 image_width: int, n_samples: int,
                 loss_fn: Callable | None = None, **kwargs) -> torch.Tensor:
     """Scalar loss of a differentiable render against ``target`` [H, W, 3]
     (linear radiance): the mean squared error unless ``loss_fn(img,
     target)`` is given. Gradients reach every scene tensor that requires
-    them. ``kwargs`` go to :func:`render.render_radiance` (``device``,
-    ``seed``, ``max_depth``, ``impl``, ``stats``, the path flags);
-    ``pixel_chunk`` is picked to keep the records inside the device's
-    memory."""
+    them. ``kwargs`` go to :func:`render.render_radiance` (``device``, the
+    card unless ``"cpu"``; ``seed``, ``max_depth``, ``impl``, ``stats``, the
+    path flags); ``pixel_chunk`` is picked to keep the records inside the
+    device's memory."""
     ih = kwargs.pop("image_height", None)
     if ih is not None and ih != target.shape[0]:
         raise ValueError(f"image_height={ih} conflicts with "
                          f"target height {target.shape[0]}")
     n_pix = target.shape[0] * image_width
-    _resolve_port_path(kwargs, n_pix)
-    device = kwargs.get("device") or scene.device
+    # The reference's device default on every device (the CPU runs the same
+    # pairs through the kernels' plain versions): the persistent-record pair
+    # from 2^17 pixels, the fixed-depth pair below.
+    resolve_grad_path(kwargs, n_pix, "cuda")
+    device = _resolve_device(kwargs.get("device"))
     persist = kwargs.get("recorded_persist")
-    if kwargs["recorded"] and persist and "pixel_chunk" not in kwargs:
-        s_p, n_it = persist[0], persist[1]
-        depth = kwargs.get("max_depth", 16)
-        n_it = default_n_iters(s_p, depth) if n_it is None else n_it
+    depth = kwargs.get("max_depth", 16)
+    if kwargs["recorded"] and "pixel_chunk" not in kwargs:
+        if persist:
+            s_p, n_it = persist[0], persist[1]
+            n_it = default_n_iters(s_p, depth) if n_it is None else n_it
+            bprb = max((21 * 4 + 4) * n_it // (s_p * depth), 1)
+            soft_cap = 1 << 21
+        else:
+            bprb = (_FUSED_BYTES_PER_RAY_BOUNCE
+                    if kwargs.get("recorded_fused") else None)
+            soft_cap = 1 << 20
         kwargs["pixel_chunk"] = auto_pixel_chunk(
             n_pix, depth, budget=record_hbm_budget(device),
-            bytes_per_ray_bounce=max((21 * 4 + 4) * n_it // (s_p * depth), 1),
-            soft_cap=1 << 21)
+            bytes_per_ray_bounce=bprb, soft_cap=soft_cap)
     plan_pass_memory(kwargs, n_pix, n_samples, device=device)
     img = render_radiance(scene, cam, image_width, n_samples,
                           image_height=target.shape[0], persistent=False,

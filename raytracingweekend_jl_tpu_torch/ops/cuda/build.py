@@ -61,6 +61,18 @@ _SIGNATURES = {
     # gs[3S,W], dattr[9,W], u5[5,W] or NULL, W, S, seed, iteration, stream
     "rtw_persist_replay_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U,
                                 _P],
+    # t[R], attrs[10,R], st[13,R], rec slot[21,R], u5[5,R] or NULL, R,
+    # seed, bounce, stream
+    "rtw_record_shade": [_P, _P, _P, _P, _P, _I, _U, _U, _P],
+    # rec[K,21,R], g3[3,R], cot[9,R], dattr[K,9,R], u5[K,5,R] or NULL, R, K,
+    # seed, stream
+    "rtw_replay_bwd_fused": [_P, _P, _P, _P, _P, _I, _I, _U, _P],
+    # rec slot[21,R], g3[3,R], cot[9,R], dattr[9,R], u5[5,R] or NULL, R,
+    # seed, bounce, stream
+    "rtw_replay_bwd_step": [_P, _P, _P, _P, _P, _I, _U, _U, _P],
+    # rays[6,R], spheres[11,N], rad[3,R], u5[depth,5,R] or NULL, R, N,
+    # max_depth, tmin, seed, stream
+    "rtw_inline": [_P, _P, _P, _P, _I, _I, _I, _F, _U, _P],
 }
 
 
@@ -148,3 +160,17 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().rtw_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+
+
+def check_arg(what: str, x, dtype, shape, device) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a launcher takes."""
+    if x.device != device:
+        raise ValueError(f"{what}: tensor on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{what}: must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{what}: must be {tuple(shape)}, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")

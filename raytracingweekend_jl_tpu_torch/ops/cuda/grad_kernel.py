@@ -1,12 +1,19 @@
-"""The bounce adjoint and the attribute contraction of the gradient path.
+"""The fixed-depth record/replay kernels (K7), the bounce adjoint and the
+attribute contraction of the gradient path.
 
 Counterparts of ``raytracingweekend_jl_tpu/ops/pallas/grad_kernel.py``:
 
+- :func:`record_shade_step` is K7a, ``_record_shade_kernel``
+  (csrc/record_shade.cu): one bounce of the fixed-depth record.
+- :func:`replay_bwd_step` is K7b, ``_replay_bwd_kernel``, and
+  :func:`replay_bwd_fused` is K7c, ``_replay_bwd_fused_kernel``
+  (csrc/replay_bwd.cu): the replay of one recorded bounce, and of the whole
+  reverse walk in one launch.
 - :func:`bounce_adjoint` is ``_bounce_adjoint``, the hand-written adjoint of
   one recorded bounce that every replay kernel runs. Its CUDA form is the
   ``__device__`` function of ``csrc/bounce_adjoint.cuh``, which the replay
-  kernels K5 and K6 call; this is its plain version, expression for
-  expression.
+  kernels K5, K6, K7b and K7c call; this is its plain version, expression
+  for expression.
 - :func:`dattr_contract` is ``_dattr_contract``: it sums the per-lane
   attribute cotangent rows onto the spheres. The JAX package ran it as an
   exact bf16-split one-hot matrix product on the TPU's matrix unit. Here it
@@ -15,6 +22,23 @@ Counterparts of ``raytracingweekend_jl_tpu/ops/pallas/grad_kernel.py``:
   the same bits whatever the order of the card's threads.
 - :func:`base_seed` is ``_base_seed``: the 32-bit key word of the record
   and replay draws.
+
+Layout of the fixed-depth record (every tensor contiguous, lanes last):
+
+- the state ``st`` float32 [13, R]: origin xyz, direction xyz, throughput
+  rgb, radiance rgb, and the alive flag stored bit for bit
+  (``st[12].view(torch.int32)``, 1 or 0);
+- a record slot float32 [21, R]: the bounce's o, d, T, t, the alive flag
+  bit for bit (``slot[10].view(torch.int32)``), then the winner's 10
+  attributes; the record is [max_depth, 21, R], bounce-major.
+
+Draws: 5 uniforms per lane and bounce, Philox4x32-10 keyed by ``(seed,
+bounce)`` with the lane as the counter (:func:`rng.philox_uniforms`), in the
+record kernel and again in the replay kernels; or injected (``u5`` [5, R],
+``u5_all`` [max_depth, 5, R]).
+
+Each K7 wrapper runs its plain version on CPU tensors, and on CUDA tensors
+launches its kernel or raises; each counts its launches.
 """
 
 from __future__ import annotations
@@ -23,7 +47,20 @@ import math
 
 import torch
 
-from .shade_kernel import _rsqrt, gauss3
+from ... import rng
+from ..intersect import BIG
+from . import build
+from .shade_kernel import _rsqrt, gauss3, shade_core
+
+#: Launches of K7a, K7b and K7c since the last reset (incremented only where
+#: the kernel is launched).
+record_launches = 0
+replay_step_launches = 0
+replay_fused_launches = 0
+
+#: Planes of the fixed-depth state and of one record slot.
+N_STATE = 13
+N_REC = 21
 
 
 def base_seed(seed: int) -> int:
@@ -248,6 +285,181 @@ def bounce_adjoint(u5, vals, g3, cots, hitm, missm):
     gr = gr + scl * arr
     return ((go_x, go_y, go_z, gd_x, gd_y, gd_z, gTx, gTy, gTz),
             (gc_x, gc_y, gc_z, gr, gA_r, gA_g, gA_b, gfz, gir))
+
+
+# ---------------------------------------------------------------------------
+# K7a: one bounce of the fixed-depth record
+# ---------------------------------------------------------------------------
+
+def record_shade_step_ref(t, attrs, st, rec_slot, seed: int, bounce: int,
+                          u5: torch.Tensor | None = None) -> None:
+    """Plain PyTorch K7a: one bounce after the masked sweep, updating the
+    state ``st`` [13, R] in place and writing ``rec_slot`` [21, R].
+
+    A live lane records its inputs (o, d, T, t, alive, the winner's ``attrs``
+    [10, R]), banks ``T * sky(d)`` on a miss and advances on a hit; its new
+    alive flag is the hit mask. A dead lane keeps its state and writes a zero
+    record. ``u5`` [5, R] injects the uniforms; without it they are
+    :func:`rng.philox_uniforms` of ``(seed, bounce)``, the kernel's own
+    draws."""
+    if u5 is None:
+        u5 = rng.philox_uniforms(seed, bounce, t.shape[0], 5, device=t.device)
+    alive = st[12].view(torch.int32) != 0
+    ox, oy, oz, dx, dy, dz, tx, ty, tz, rx, ry, rz = st[0:12].unbind(0)
+    rx, ry, rz, hitm, _, px, py, pz, ndx, ndy, ndz = shade_core(
+        u5, t, attrs, ox, oy, oz, dx, dy, dz, tx, ty, tz, alive, rx, ry, rz)
+    zero = torch.zeros_like(t)
+    rec10 = torch.stack([ox, oy, oz, dx, dy, dz, tx, ty, tz, t])
+    rec_slot[0:10] = torch.where(alive, rec10, zero)
+    rec_slot[10].view(torch.int32).copy_(alive.to(torch.int32))
+    rec_slot[11:21] = torch.where(alive, attrs, zero)
+    w = torch.where
+    st[0:12] = torch.stack([
+        w(hitm, px, ox), w(hitm, py, oy), w(hitm, pz, oz),
+        w(hitm, ndx, dx), w(hitm, ndy, dy), w(hitm, ndz, dz),
+        w(hitm, tx * attrs[4], tx), w(hitm, ty * attrs[5], ty),
+        w(hitm, tz * attrs[6], tz), rx, ry, rz])
+    st[12].view(torch.int32).copy_(hitm.to(torch.int32))
+
+
+def record_shade_step(t, attrs, st, rec_slot, seed: int, bounce: int,
+                      u5: torch.Tensor | None = None) -> None:
+    """K7a: one record bounce in place (arguments as
+    :func:`record_shade_step_ref`). CPU tensors run the plain version."""
+    global record_launches
+    if st.device.type == "cpu":
+        return record_shade_step_ref(t, attrs, st, rec_slot, seed, bounce, u5)
+    dev = st.device
+    if dev.type != "cuda":
+        raise ValueError(f"record_shade_step: unsupported device {dev}")
+    R = st.shape[1] if st.dim() == 2 else -1
+    f32 = torch.float32
+    for name, x, shape in (("t", t, (R,)), ("attrs", attrs, (10, R)),
+                           ("st", st, (N_STATE, R)),
+                           ("rec_slot", rec_slot, (N_REC, R))):
+        build.check_arg(f"record_shade_step: {name}", x, f32, shape, dev)
+    if u5 is not None:
+        build.check_arg("record_shade_step: u5", u5, f32, (5, R), dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.rtw_record_shade(
+            t.data_ptr(), attrs.data_ptr(), st.data_ptr(), rec_slot.data_ptr(),
+            None if u5 is None else u5.data_ptr(), R, base_seed(seed),
+            bounce & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "record_shade_step")
+    record_launches += 1
+
+
+# ---------------------------------------------------------------------------
+# K7b / K7c: the fixed-depth replay
+# ---------------------------------------------------------------------------
+
+def replay_bwd_step_ref(rec_slot, g3, cot, seed: int, bounce: int,
+                        u5: torch.Tensor | None = None,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch K7b: the adjoint of one recorded bounce ``rec_slot``
+    [21, R]. ``g3`` [3, R] is the radiance cotangent, ``cot`` [9, R] the
+    carried cotangent of the bounce's outputs, replaced in place by that of
+    its inputs. Returns the winner-attribute cotangent rows [9, R] (written
+    to ``out`` when given). A dead slot (alive flag 0) passes the carry
+    through and gives zero rows. ``u5`` as in :func:`record_shade_step_ref`.
+    """
+    if u5 is None:
+        u5 = rng.philox_uniforms(seed, bounce, rec_slot.shape[1], 5,
+                                 device=rec_slot.device)
+    alive = rec_slot[10].view(torch.int32) != 0
+    hit = rec_slot[9] < BIG
+    cot9, dattr9 = bounce_adjoint(
+        u5, tuple(rec_slot[0:10]) + tuple(rec_slot[11:21]), tuple(g3),
+        tuple(cot), hit & alive, ~hit & alive)
+    cot.copy_(torch.where(alive, torch.stack(cot9), cot))
+    d = torch.where(alive, torch.stack(dattr9), torch.zeros_like(cot))
+    if out is None:
+        return d
+    out.copy_(d)
+    return out
+
+
+def replay_bwd_fused_ref(rec, g3, cot, seed: int,
+                         u5_all: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch K7c: the reverse walk of the whole record ``rec``
+    [K, 21, R], newest bounce first, updating ``cot`` [9, R] in place (the
+    carry before the newest bounce, then after bounce 0). Returns the rows
+    [K, 9, R]. ``u5_all`` [K, 5, R] injects the uniforms."""
+    dattr = torch.empty((rec.shape[0], 9, rec.shape[2]), dtype=torch.float32,
+                        device=rec.device)
+    for b in reversed(range(rec.shape[0])):
+        replay_bwd_step_ref(rec[b], g3, cot, seed, b,
+                            None if u5_all is None else u5_all[b],
+                            out=dattr[b])
+    return dattr
+
+
+def _check_replay(what, g3, cot, dev) -> int:
+    R = cot.shape[1] if cot.dim() == 2 else -1
+    build.check_arg(f"{what}: g3", g3, torch.float32, (3, R), dev)
+    build.check_arg(f"{what}: cot", cot, torch.float32, (9, R), dev)
+    return R
+
+
+def replay_bwd_step(rec_slot, g3, cot, seed: int, bounce: int,
+                    u5: torch.Tensor | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """K7b: one reverse bounce (arguments as :func:`replay_bwd_step_ref`).
+    CPU tensors run the plain version."""
+    global replay_step_launches
+    if cot.device.type == "cpu":
+        return replay_bwd_step_ref(rec_slot, g3, cot, seed, bounce, u5, out)
+    dev = cot.device
+    if dev.type != "cuda":
+        raise ValueError(f"replay_bwd_step: unsupported device {dev}")
+    R = _check_replay("replay_bwd_step", g3, cot, dev)
+    f32 = torch.float32
+    build.check_arg("replay_bwd_step: rec_slot", rec_slot, f32, (N_REC, R),
+                    dev)
+    if u5 is not None:
+        build.check_arg("replay_bwd_step: u5", u5, f32, (5, R), dev)
+    if out is None:
+        out = torch.empty((9, R), dtype=f32, device=dev)
+    build.check_arg("replay_bwd_step: out", out, f32, (9, R), dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.rtw_replay_bwd_step(
+            rec_slot.data_ptr(), g3.data_ptr(), cot.data_ptr(), out.data_ptr(),
+            None if u5 is None else u5.data_ptr(), R, base_seed(seed),
+            bounce & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "replay_bwd_step")
+    replay_step_launches += 1
+    return out
+
+
+def replay_bwd_fused(rec, g3, cot, seed: int,
+                     u5_all: torch.Tensor | None = None) -> torch.Tensor:
+    """K7c: the whole reverse walk in one launch (arguments as
+    :func:`replay_bwd_fused_ref`). CPU tensors run the plain version."""
+    global replay_fused_launches
+    if cot.device.type == "cpu":
+        return replay_bwd_fused_ref(rec, g3, cot, seed, u5_all)
+    dev = cot.device
+    if dev.type != "cuda":
+        raise ValueError(f"replay_bwd_fused: unsupported device {dev}")
+    R = _check_replay("replay_bwd_fused", g3, cot, dev)
+    K = rec.shape[0] if rec.dim() == 3 else -1
+    f32 = torch.float32
+    build.check_arg("replay_bwd_fused: rec", rec, f32, (K, N_REC, R), dev)
+    if u5_all is not None:
+        build.check_arg("replay_bwd_fused: u5_all", u5_all, f32, (K, 5, R),
+                        dev)
+    dattr = torch.empty((K, 9, R), dtype=f32, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.rtw_replay_bwd_fused(
+            rec.data_ptr(), g3.data_ptr(), cot.data_ptr(), dattr.data_ptr(),
+            None if u5_all is None else u5_all.data_ptr(), R, K,
+            base_seed(seed), torch.cuda.current_stream().cuda_stream)
+    build.check(err, "replay_bwd_fused")
+    replay_fused_launches += 1
+    return dattr
 
 
 def dattr_contract(dattr: torch.Tensor, idx: torch.Tensor,

@@ -149,16 +149,7 @@ def persist_record_step_ref(t, attrs, strips, sf, si, rad, rec_slot,
     rad.copy_(torch.where(active, rad2, rad))
 
 
-def _check(what, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{what}: tensor on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{what}: must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{what}: must be {tuple(shape)}, "
-                         f"got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{what}: must be contiguous")
+_check = build.check_arg
 
 
 def persist_record_step(t, attrs, strips, sf, si, rad, rec_slot, seed: int,

@@ -1,0 +1,492 @@
+"""The port's fixed-depth record/replay gradient trace against the JAX
+package.
+
+- The plain versions of the record step (K7a), the per-bounce replay (K7b)
+  and the whole-walk replay (K7c) against the JAX Pallas kernels in
+  interpret mode, on the same planes and injected uniforms.
+- The whole trace and its VJP against ``trace_recorded_fused(...,
+  interpret=True)`` fed the same uniforms (``_u5_for``); finite differences
+  of the port's own program (Philox draws); the gradient step on a
+  draw-free scene against the JAX package's ``render_grads``; the route
+  pick below and above 2^17 pixels.
+- Card-only: the CUDA kernels K7a, K7b and K7c against their plain versions.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import raytracingweekend_jl_tpu as rtw
+import raytracingweekend_jl_tpu_torch as pt
+from raytracingweekend_jl_tpu import grad as jgrad
+from raytracingweekend_jl_tpu import rng as jrng
+from raytracingweekend_jl_tpu.camera import get_rays as jget_rays
+from raytracingweekend_jl_tpu.ops.pallas import grad_kernel as JG
+from raytracingweekend_jl_tpu.render import pixel_coords as jpixel_coords
+from raytracingweekend_jl_tpu_torch import grad as G
+from raytracingweekend_jl_tpu_torch.ops import fused_grad as FG
+from raytracingweekend_jl_tpu_torch.ops.cuda import grad_kernel as GK
+from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K
+from raytracingweekend_jl_tpu_torch.ops.materials import (attr_mat,
+                                                          fetch_attr_planes)
+# One intra-op torch thread per test module (an autouse fixture).
+from test_torch_scene_camera import _one_torch_thread  # noqa: F401
+
+# The module (the package's ``render`` attribute is the function).
+R = importlib.import_module("raytracingweekend_jl_tpu_torch.render")
+
+FIELDS = ("center", "radius", "albedo", "fuzz", "ir")
+#: Lanes of one (64, 128) block of the JAX layout.
+LANES = 8192
+SEED = 77
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def mixed_scene():
+    """All three materials: Lambertian, ground, fuzzy metal, glass."""
+    return rtw.make_scene([
+        rtw.lambertian((0, 0, -1), 0.5, (0.7, 0.3, 0.3)),
+        rtw.lambertian((0, -100.5, -1), 100.0, (0.8, 0.8, 0.0)),
+        rtw.metal((1, 0, -1), 0.5, (0.8, 0.6, 0.2), 0.3),
+        rtw.dielectric((-1, 0, -1), 0.5, 1.5),
+    ], pad_to=4)
+
+
+SCENES = {
+    # name: (JAX scene builder, JAX camera builder)
+    "4_spheres": (rtw.scene_4_spheres, rtw.t_default_cam),
+    "diel_spheres_hollow": (rtw.scene_diel_spheres_hollow,
+                            rtw.hollow_glass_cam),
+    "random_spheres": (lambda: rtw.scene_random_spheres(seed=1), rtw.t_cam1),
+}
+
+
+def camera_rays(cam, W=32, H=18, seed=7):
+    """Camera rays as numpy and the JAX trace key."""
+    u, v = jpixel_coords(W, H)
+    key = jax.random.PRNGKey(seed)
+    o, d = jget_rays(cam, u, v, jrng.purpose_key(key, jrng.LENS))
+    return (np.array(o), np.array(d),
+            jrng.purpose_key(key, jrng.SCATTER_DIR))
+
+
+def padded_state(o, d, n=LANES):
+    """The port's state [13, n]: the rays in the first lanes, the rest dead
+    (the JAX layout's padding)."""
+    st = FG.start_state(torch.from_numpy(o), torch.from_numpy(d))
+    out = torch.zeros((GK.N_STATE, n))
+    out[:, :st.shape[1]] = st
+    out[6:9, st.shape[1]:] = 1.0
+    return out
+
+
+def alive_of(planes):
+    return planes[-1].view(torch.int32) if planes.shape[0] == GK.N_STATE \
+        else planes[10].view(torch.int32)
+
+
+def jplanes(x, int_plane=None):
+    """Port planes [k, n] (or [K, k, n]) as the JAX layout: a tuple of k
+    [rows, 128] (or [K, rows, 128]) arrays, plane ``int_plane`` int32."""
+    lead = x.shape[:-2]
+    out = []
+    for p in range(x.shape[-2]):
+        a = x[..., p, :]
+        a = a.view(torch.int32) if p == int_plane else a
+        out.append(jnp.asarray(a.numpy().reshape(*lead, -1, 128)))
+    return tuple(out)
+
+
+def flat(planes):
+    """JAX planes back to numpy [k, n] (float32 bits for int planes)."""
+    return np.stack([np.asarray(p).reshape(-1) if p.dtype != jnp.int32 else
+                     np.asarray(p).reshape(-1).view(np.float32)
+                     for p in planes])
+
+
+def close_share(a, b, tol):
+    """Share of lanes (last axis) whose planes are all within ``tol *
+    max(1, |b|)``, and the largest absolute difference."""
+    a, b = np.asarray(a), np.asarray(b)
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    err = np.abs(a - b)
+    ok = (err <= tol * np.maximum(1.0, np.abs(b))).all(0)
+    return ok.mean(), float(err.max())
+
+
+def mid_trace(name, bounces=1):
+    """The plain record run ``bounces`` bounces into the scene's 32x18
+    camera rays (uniforms from a numpy seed): ``(scene, state, spheres,
+    amat, gen)``."""
+    scene_fn, cam_fn = SCENES[name]
+    scene = pt.trim_scene(pt.scene_from_numpy(scene_fn()))
+    o, d, _ = camera_rays(cam_fn())
+    st = padded_state(o, d)
+    spheres, amat = K.sphere_consts(scene), attr_mat(scene)
+    gen = np.random.default_rng(5)
+    rec = torch.zeros((GK.N_REC, LANES))
+    for b in range(bounces):
+        t, idx = K.sweep_masked_ref(st[0:6], alive_of(st), spheres)
+        u5 = torch.from_numpy(gen.random((5, LANES), dtype=np.float32))
+        GK.record_shade_step_ref(t, fetch_attr_planes(idx, amat), st, rec,
+                                 SEED, b, u5)
+    return scene, st, spheres, amat, gen
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_record_step_matches_jax(name):
+    # One record bounce (bounce 1, after one bounce of the plain record)
+    # through the plain K7a and the JAX record kernel in interpret mode on
+    # the same t, attributes and uniforms. The alive flags are identical;
+    # the record of every live lane holds its inputs bit for bit (a dead
+    # lane records af = 0 and, here, zeros: the replay reads only af
+    # there); the state is within 1e-5 * max(1, |x|) on every lane and
+    # within 1e-6 * max(1, |x|) on >= 99.9% of the 8 192 lanes (measured:
+    # 100%, 100%, 99.94%, max difference 2.3e-6; bit-equal on 97% of lanes,
+    # as XLA contracts FMA in the hit point).
+    scene, st, spheres, amat, gen = mid_trace(name)
+    t, idx = K.sweep_masked_ref(st[0:6], alive_of(st), spheres)
+    attrs = fetch_attr_planes(idx, amat)
+    u5 = torch.from_numpy(gen.random((5, LANES), dtype=np.float32))
+    st_p, rec_p = st.clone(), torch.zeros((GK.N_REC, LANES))
+    GK.record_shade_step_ref(t, attrs, st_p, rec_p, SEED, 1, u5)
+
+    rec0 = tuple(jnp.zeros((2, LANES // 128, 128),
+                           jnp.int32 if p == 10 else jnp.float32)
+                 for p in range(GK.N_REC))
+    st_j, rec_j = JG.record_shade_step(
+        jplanes(st, 12), rec0, jnp.asarray(t.numpy().reshape(-1, 128)),
+        list(jplanes(attrs)), 1, SEED, interpret=True,
+        u5=jnp.asarray(u5.numpy().reshape(5, -1, 128)))
+    st_j, slot_j = flat(st_j), flat(tuple(r[1] for r in rec_j))
+    live = alive_of(st).numpy() != 0
+    assert live.sum() > 100
+    assert np.array_equal(st_p[12].numpy().view(np.int32),
+                          st_j[12].view(np.int32))
+    assert np.array_equal(rec_p[10].numpy().view(np.int32),
+                          slot_j[10].view(np.int32))
+    assert np.array_equal(rec_p.numpy()[:, live], slot_j[:, live])
+    assert (rec_p.numpy()[:, ~live] == 0).all()
+    share, err = close_share(st_p[:12].numpy(), st_j[:12], 1e-5)
+    assert share == 1.0, (share, err)
+    share, err = close_share(st_p[:12].numpy(), st_j[:12], 1e-6)
+    assert share >= 0.999, (share, err)
+
+
+def _replay_inputs(name, gen_seed=9):
+    scene, st, spheres, amat, gen = mid_trace(name)
+    t, idx = K.sweep_masked_ref(st[0:6], alive_of(st), spheres)
+    u5 = torch.from_numpy(gen.random((5, LANES), dtype=np.float32))
+    slot = torch.zeros((GK.N_REC, LANES))
+    GK.record_shade_step_ref(t, fetch_attr_planes(idx, amat), st.clone(),
+                             slot, SEED, 1, u5)
+    g = np.random.default_rng(gen_seed)
+    g3 = torch.from_numpy(g.normal(size=(3, LANES)).astype(np.float32))
+    cot = torch.from_numpy(g.normal(size=(9, LANES)).astype(np.float32))
+    return slot, u5, g3, cot
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_replay_step_matches_jax(name):
+    # One reverse bounce through the plain K7b and the JAX per-bounce replay
+    # kernel (interpret mode) on the same record slot, uniforms, radiance
+    # cotangent and carried cotangent: carry and attribute rows within
+    # 1e-5 * max(1, |x|) on >= 99.9% of the 8 192 lanes (measured: 100%,
+    # 100%, 99.99%; max difference 2.4e-4 on a cotangent of magnitude
+    # ~30). Dead lanes pass the carry through exactly.
+    slot, u5, g3, cot = _replay_inputs(name)
+    cot_p = cot.clone()
+    d_p = GK.replay_bwd_step_ref(slot, g3, cot_p, SEED, 1, u5)
+    cot_j, d_j = JG.replay_bwd_step(
+        jplanes(cot), tuple(r[None] for r in jplanes(slot, 10)), jplanes(g3),
+        0, SEED, interpret=True, u5=jnp.asarray(u5.numpy().reshape(5, -1,
+                                                                   128)))
+    for a, b in ((cot_p, flat(cot_j)), (d_p, flat(d_j))):
+        share, err = close_share(a.numpy(), b, 1e-5)
+        assert share >= 0.999, (share, err)
+    dead = alive_of(slot).numpy() == 0
+    assert torch.equal(cot_p[:, dead], cot[:, dead])
+    assert (d_p[:, dead] == 0).all()
+
+
+def _record(name, K_=4):
+    """``K_`` plain record bounces from the camera rays: the record
+    [K_, 21, n], its winners and the injected uniforms [K_, 5, n]."""
+    scene_fn, cam_fn = SCENES[name]
+    scene = pt.trim_scene(pt.scene_from_numpy(scene_fn()))
+    o, d, _ = camera_rays(cam_fn())
+    st = padded_state(o, d)
+    spheres, amat = K.sphere_consts(scene), attr_mat(scene)
+    gen = np.random.default_rng(3)
+    u5_all = torch.from_numpy(gen.random((K_, 5, LANES), dtype=np.float32))
+    rec = torch.zeros((K_, GK.N_REC, LANES))
+    for b in range(K_):
+        t, idx = K.sweep_masked_ref(st[0:6], alive_of(st), spheres)
+        GK.record_shade_step_ref(t, fetch_attr_planes(idx, amat), st, rec[b],
+                                 SEED, b, u5_all[b])
+    return rec, u5_all
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_replay_fused_matches_jax_and_the_step_route(name):
+    # The whole 4-bounce reverse walk: the plain K7c against the JAX fused
+    # replay kernel (interpret mode, carry starting at zero) within
+    # 1e-5 * max(1, |x|) on >= 99.9% of lanes (measured: 100%, 100%,
+    # 99.93%); and within
+    # the port, K7c's plain version against K7b's slot by slot: bitwise.
+    rec, u5_all = _record(name)
+    g3 = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(3, LANES)).astype(np.float32))
+    cot_p = torch.zeros((9, LANES))
+    d_p = GK.replay_bwd_fused_ref(rec, g3, cot_p, SEED, u5_all)
+    cot_j, d_j = JG.replay_bwd_fused(
+        jplanes(rec, 10), jplanes(g3), SEED, interpret=True,
+        u5_all=jnp.asarray(u5_all.numpy().reshape(4, 5, -1, 128)))
+    d_j = np.stack([np.asarray(p).reshape(4, -1) for p in d_j], axis=1)
+    for a, b in ((cot_p, flat(cot_j)), (d_p, d_j)):
+        share, err = close_share(a.numpy(), b, 1e-5)
+        assert share >= 0.999, (share, err)
+    cot_s = torch.zeros((9, LANES))
+    d_s = torch.empty_like(d_p)
+    for b in reversed(range(4)):
+        GK.replay_bwd_step_ref(rec[b], g3, cot_s, SEED, b, u5_all[b],
+                               out=d_s[b])
+    assert torch.equal(cot_s, cot_p) and torch.equal(d_s, d_p)
+
+
+def _cos_ratio(a, b):
+    a = np.asarray(a, np.float64).ravel()
+    b = np.asarray(b, np.float64).ravel()
+    na, nb = np.linalg.norm(a), np.linalg.norm(b)
+    if na == nb == 0:
+        return 1.0, 1.0
+    return a @ b / (na * nb), na / nb
+
+
+def test_trace_and_vjp_match_jax():
+    # The port's autograd trace (plain versions) against the JAX package's
+    # trace_recorded_fused(interpret=True) and jax.vjp on the mixed scene,
+    # 32x18 rays, depth 8, the same uniforms (_u5_for). Radiance within
+    # atol 2e-5 + rtol 1e-5 (measured max 2.9e-6); per scene field and for
+    # the ray origins cosine >= 0.9999 and norm ratio within 1e-3
+    # (measured: cosines >= 0.9999999995, ratios within 2.1e-5); the direction
+    # gradients compared in the plane normal to the ray, as the JAX
+    # package's own test does.
+    scene_j = mixed_scene()
+    o, d, tk = camera_rays(rtw.default_camera())
+    R_ = o.shape[0]
+    rows = LANES // 128
+    g_out = np.random.default_rng(0).normal(size=(R_, 3)).astype(np.float32)
+
+    def f(sc, oo, dd):
+        return JG.trace_recorded_fused(sc, oo, dd, tk, 8, 1e-4, True)
+
+    rad_j, vjp = jax.vjp(f, scene_j, jnp.asarray(o), jnp.asarray(d))
+    gs_j, go_j, gd_j = vjp(jnp.asarray(g_out))
+
+    scene = pt.scene_from_numpy(scene_j, requires_grad=True)
+    ot = torch.from_numpy(o).requires_grad_(True)
+    dt = torch.from_numpy(d).requires_grad_(True)
+    u5_fn = lambda b, n: torch.from_numpy(np.array(
+        JG._u5_for(tk, b, rows)).reshape(5, -1)[:, :n])
+    rad = pt.trace_recorded_fused(scene, ot, dt, 123, 8, 1e-4, u5_fn=u5_fn)
+    rad.backward(torch.from_numpy(g_out))
+    np.testing.assert_allclose(rad.detach().numpy(), np.asarray(rad_j),
+                               atol=2e-5, rtol=1e-5)
+    for fld in FIELDS:
+        cos, ratio = _cos_ratio(getattr(scene, fld).grad,
+                                getattr(gs_j, fld))
+        assert cos >= 0.9999 and abs(ratio - 1) <= 1e-3, (fld, cos, ratio)
+    cos, ratio = _cos_ratio(ot.grad, go_j)
+    assert cos >= 0.9999 and abs(ratio - 1) <= 1e-3, ("origin", cos, ratio)
+    proj = lambda g: g - (g * d).sum(-1, keepdims=True) * d
+    cos, ratio = _cos_ratio(proj(dt.grad.numpy()), proj(np.asarray(gd_j)))
+    assert cos >= 0.9999 and abs(ratio - 1) <= 1e-3, ("direction", cos, ratio)
+    assert scene.mat.grad is None and not scene.mat.requires_grad
+
+
+@pytest.mark.parametrize("replay_fused", [True, False])
+def test_fd_self_consistency_albedo(replay_fused):
+    # The port's own program with its Philox draws (record and replay draw
+    # the same numbers at any lane count): the VJP in albedo[0, 0] against
+    # central differences at eps 1e-2 (radiance is polynomial in albedo)
+    # within 3e-2 relative, as the JAX package's test holds its kernel pair.
+    scene_j = mixed_scene()
+    o, d, _ = camera_rays(rtw.default_camera())
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    scene = pt.scene_from_numpy(scene_j, requires_grad=True)
+
+    def loss(sc):
+        r = pt.trace_recorded_fused(sc, o, d, 99, 8, 1e-4,
+                                    replay_fused=replay_fused)
+        return (r * r).mean()
+
+    loss(scene).backward()
+    g_ad = float(scene.albedo.grad[0, 0])
+
+    def loss_at(delta):
+        alb = scene.albedo.detach().clone()
+        alb[0, 0] += delta
+        with torch.no_grad():
+            return float(loss(pt.scene_from_numpy(scene_j)._replace(
+                albedo=alb)))
+
+    g_fd = (loss_at(1e-2) - loss_at(-1e-2)) / 2e-2
+    assert abs(g_ad) > 0
+    np.testing.assert_allclose(g_ad, g_fd, rtol=3e-2, atol=1e-6)
+
+
+def _mirror_world():
+    """Fuzz-0 metal spheres under an aperture-0 camera: at one sample per
+    pixel no random number reaches the render."""
+    scene = rtw.make_scene([
+        rtw.metal((0, -100.5, -1), 100.0, (0.8, 0.8, 0.8), 0.0),
+        rtw.metal((0, 0, -1.2), 0.5, (0.9, 0.5, 0.3), 0.0),
+        rtw.metal((1.1, 0.1, -1), 0.45, (0.3, 0.7, 0.9), 0.0),
+        rtw.metal((-1.0, 0.0, -1.1), 0.4, (0.6, 0.6, 0.2), 0.0),
+    ])
+    return scene, rtw.default_camera((0, 0.3, 0.5), (0, 0, -1))
+
+
+def test_render_grads_fused_matches_jax_on_a_draw_free_scene():
+    # The whole step through the public entry points: the JAX package's CPU
+    # recorded path against the port's fixed-depth pair on the same
+    # deterministic paths. Loss within 1e-5 relative (measured 9.2e-7);
+    # center, radius and albedo gradients with cosine >= 0.999 and norm
+    # ratio within 1% (measured: cosines >= 0.99999997, ratios within
+    # 2.1e-4).
+    scene_j, cam_j = _mirror_world()
+    target = np.full((18, 32, 3), 0.4, np.float32)
+    lj, gj = jgrad.render_grads(scene_j, cam_j, jnp.asarray(target), 32, 1,
+                                recorded=True)
+    scene = pt.scene_from_numpy(scene_j)
+    lp, gp = pt.render_grads(scene, pt.camera_from_numpy(cam_j),
+                             torch.from_numpy(target), 32, 1,
+                             recorded_fused=True, device="cpu")
+    assert abs(float(lp) - float(lj)) <= 1e-5 * abs(float(lj))
+    for fld in ("center", "radius", "albedo"):
+        assert getattr(gp, fld).shape == getattr(scene, fld).shape
+        cos, ratio = _cos_ratio(getattr(gp, fld), getattr(gj, fld))
+        assert cos >= 0.999 and abs(ratio - 1) <= 0.01, (fld, cos, ratio)
+
+
+@pytest.mark.parametrize("n_pix,fused", [(64 * 36, True), (200 * 112, True),
+                                         ((1 << 17) - 1, True),
+                                         (1 << 17, False),
+                                         (1920 * 1080, False)])
+def test_default_route_by_image_size(n_pix, fused):
+    # Below 2^17 pixels the default is the fixed-depth pair, from 2^17 the
+    # persistent pair with (44, 16) compaction and strict poisoning, as the
+    # JAX package picks on its device.
+    kw = {}
+    G.resolve_grad_path(kw, n_pix, "cuda")
+    assert kw == jgrad.resolve_grad_path({}, n_pix, "tpu")
+    assert bool(kw.get("recorded_fused")) is fused
+    assert (kw.get("recorded_persist") is None) is fused
+
+
+def test_small_image_step_runs_the_fixed_depth_pair(monkeypatch):
+    # render_grads at 64x36 with no path flags traces every pass through
+    # trace_recorded_fused (not the persistent pair), with a finite, sane
+    # gradient, and replay_fused=False gives the same gradients bit for bit
+    # (the plain versions replay slot by slot either way).
+    calls = {"fused": 0, "persist": 0}
+    real_fused, real_persist = R.trace_recorded_fused, R.trace_recorded_persist
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(R, "trace_recorded_fused", spy("fused", real_fused))
+    monkeypatch.setattr(R, "trace_recorded_persist",
+                        spy("persist", real_persist))
+    scene, cam = pt.scene_4_spheres(), pt.t_default_cam()
+    target = torch.full((36, 64, 3), 0.3)
+    loss, g = pt.render_grads(scene, cam, target, 64, 2, seed=1,
+                              max_depth=6, device="cpu")
+    assert calls == {"fused": 2, "persist": 0}
+    pt.check_grads_sane(g, loss)
+    assert (g.albedo[:4] != 0).any()
+    loss2, g2 = pt.render_grads(scene, cam, target, 64, 2, seed=1,
+                                max_depth=6, device="cpu", replay_fused=False)
+    assert torch.equal(loss, loss2)
+    assert all(torch.equal(getattr(g, f), getattr(g2, f)) for f in FIELDS)
+
+
+def test_fused_wrappers_run_plain_on_the_cpu():
+    # On CPU tensors the K7 wrappers run their plain versions and count no
+    # launch; the trace through impl="kernels" needs a CUDA device.
+    rec, u5_all = _record("4_spheres", K_=2)
+    g3 = torch.ones((3, LANES))
+    before = (GK.record_launches, GK.replay_step_launches,
+              GK.replay_fused_launches)
+    a = GK.replay_bwd_fused(rec, g3, torch.zeros((9, LANES)), SEED, u5_all)
+    b = GK.replay_bwd_fused_ref(rec, g3, torch.zeros((9, LANES)), SEED,
+                                u5_all)
+    assert torch.equal(a, b)
+    cot = torch.zeros((9, LANES))
+    assert torch.equal(GK.replay_bwd_step(rec[1], g3, cot, SEED, 1,
+                                          u5_all[1]),
+                       GK.replay_bwd_step_ref(rec[1], g3, torch.zeros(
+                           (9, LANES)), SEED, 1, u5_all[1]))
+    assert before == (GK.record_launches, GK.replay_step_launches,
+                      GK.replay_fused_launches)
+    o = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        pt.trace_recorded_fused(pt.scene_2_spheres(), o, o, 0, impl="kernels")
+
+
+@pytest.mark.cuda
+def test_fixed_depth_kernels_match_plain_on_card(cuda_device):
+    # K3 + K7a over a 6-bounce record of the mixed scene at 256x128 rays,
+    # then K7b slot by slot and K7c over the whole walk, against the plain
+    # versions on the same inputs (injected and Philox draws): alive flags
+    # identical, floats within 1e-6 * max(1, |x|) for the record step and
+    # 1e-5 * max(1, |x|) for the replay, on >= 99.99% / 99.9% of lanes.
+    dev = cuda_device
+    scene = pt.scene_from_numpy(mixed_scene(), device=dev)
+    o, d, _ = camera_rays(rtw.default_camera(), 256, 128, seed=3)
+    st = FG.start_state(torch.from_numpy(o).to(dev),
+                        torch.from_numpy(d).to(dev))
+    n = st.shape[1]
+    spheres, amat = K.sphere_consts(scene), attr_mat(scene)
+    g = torch.Generator(device=dev).manual_seed(1)
+    rec = torch.zeros((6, GK.N_REC, n), device=dev)
+    for b in range(6):
+        t, idx = K.sweep_masked(st[0:6], st[12].view(torch.int32), spheres)
+        attrs = fetch_attr_planes(idx, amat)
+        for u5 in (torch.rand((5, n), generator=g, device=dev), None):
+            sk, sr = st.clone(), st.clone()
+            rk, rr = torch.zeros_like(rec[b]), torch.zeros_like(rec[b])
+            GK.record_shade_step(t, attrs, sk, rk, SEED, b, u5)
+            GK.record_shade_step_ref(t, attrs, sr, rr, SEED, b, u5)
+            assert torch.equal(sk[12], sr[12]) and torch.equal(rk[10], rr[10])
+            share, err = close_share(torch.cat([sk, rk]).cpu(),
+                                     torch.cat([sr, rr]).cpu(), 1e-6)
+            assert share >= 0.9999, (b, share, err)
+        GK.record_shade_step(t, attrs, st, rec[b], SEED, b)
+    g3 = torch.randn((3, n), generator=g, device=dev)
+    outs = []
+    for fused in (GK.replay_bwd_fused, GK.replay_bwd_fused_ref):
+        cot = torch.zeros((9, n), device=dev)
+        outs.append((fused(rec, g3, cot, SEED), cot))
+    for a, b in zip(*outs):
+        share, err = close_share(a.cpu(), b.cpu(), 1e-5)
+        assert share >= 0.999, (share, err)
+    cot = torch.zeros((9, n), device=dev)
+    d_s = torch.empty((6, 9, n), device=dev)
+    for b in reversed(range(6)):
+        GK.replay_bwd_step(rec[b], g3, cot, SEED, b, out=d_s[b])
+    assert torch.equal(d_s, outs[0][0]) and torch.equal(cot, outs[0][1])

@@ -19,6 +19,8 @@ from raytracingweekend_jl_tpu_torch import grad as G
 from raytracingweekend_jl_tpu_torch.render import pick_samples_per_pass
 from raytracingweekend_jl_tpu_torch.ops import persist_grad as PG
 from raytracingweekend_jl_tpu_torch.ops.cuda.grad_kernel import dattr_contract
+# One intra-op torch thread per test module (an autouse fixture).
+from test_torch_scene_camera import _one_torch_thread  # noqa: F401
 
 FLAGSHIP = 1920 * 1080
 GIB = 2 ** 30
@@ -141,8 +143,10 @@ def _mirror_world():
 
 def test_render_grads_matches_jax_on_a_draw_free_scene():
     # The whole step through the public entry points: the JAX package's
-    # default CPU integrator against the port's persistent-record path on
-    # the same deterministic paths. Loss within 1e-5 relative; center,
+    # default CPU integrator against the port's persistent-record path
+    # (pinned: 32x18 defaults to the fixed-depth pair, which
+    # test_torch_fused_grad.py holds to the same check) on the same
+    # deterministic paths. Loss within 1e-5 relative; center,
     # radius and albedo gradients with cosine >= 0.999 and norm ratio
     # within 1%, in the caller's padded shapes. (The fuzz gradient at fuzz
     # 0 is the drawn unit vector's projection, so the two generators' draws
@@ -152,7 +156,9 @@ def test_render_grads_matches_jax_on_a_draw_free_scene():
     lj, gj = jgrad.render_grads(scene_j, cam_j, jnp.asarray(target), 32, 1)
     scene = pt.scene_from_numpy(scene_j)
     lp, gp = pt.render_grads(scene, pt.camera_from_numpy(cam_j),
-                             torch.from_numpy(target), 32, 1)
+                             torch.from_numpy(target), 32, 1, device="cpu",
+                             recorded_persist=(8, None, (44, 16)),
+                             persist_strict=True)
     assert abs(float(lp) - float(lj)) <= 1e-5 * abs(float(lj))
     for f in ("center", "radius", "albedo"):
         a = getattr(gp, f).numpy().astype(np.float64).ravel()
@@ -164,10 +170,11 @@ def test_render_grads_matches_jax_on_a_draw_free_scene():
 
 
 def test_render_grads_small_image_is_finite_and_untrimmed():
-    # 64x36 (below 2^17 pixels) takes the persistent-record path with the
-    # device default's strict (44, 16) compaction; the gradients are finite
-    # and sane, in the caller's untrimmed shapes, zero on padding spheres;
-    # render_loss gives the same loss.
+    # 64x36 pinned to the persistent-record path with the large-image
+    # default's strict (44, 16) compaction (below 2^17 pixels the default is
+    # the fixed-depth pair); the gradients are finite and sane, in the
+    # caller's untrimmed shapes, zero on padding spheres; render_loss gives
+    # the same loss.
     scene = pt.make_scene([pt.lambertian((0, 0, -1), 0.5, (0.7, 0.3, 0.3)),
                            pt.lambertian((0, -100.5, -1), 100.0,
                                          (0.8, 0.8, 0.0)),
@@ -175,10 +182,13 @@ def test_render_grads_small_image_is_finite_and_untrimmed():
                            pt.dielectric((-1, 0, -1), 0.5, 1.5)])
     assert scene.n_spheres == 128
     cam = pt.default_camera()
-    target = pt.render_radiance(scene, cam, 64, 1, seed=4)
+    target = pt.render_radiance(scene, cam, 64, 1, seed=4, device="cpu")
     bad = scene._replace(albedo=torch.clamp(scene.albedo * 0.8, 0, 1))
     stats = {}
-    loss, g = pt.render_grads(bad, cam, target, 64, 1, seed=5, stats=stats)
+    pin = dict(recorded_persist=(8, None, (44, 16)), persist_strict=True,
+               device="cpu")
+    loss, g = pt.render_grads(bad, cam, target, 64, 1, seed=5, stats=stats,
+                              **pin)
     pt.check_grads_sane(g, loss)
     assert stats["dropped"] == 0 and stats["lanes"] == [8192]
     assert len(stats["phase1_counts"][0]) == 44
@@ -188,7 +198,7 @@ def test_render_grads_small_image_is_finite_and_untrimmed():
         assert (x[4:] == 0).all()
     assert (g.albedo[:3] != 0).all() and float(loss) > 0
     with torch.no_grad():
-        again = pt.render_loss(bad, cam, target, 64, 1, seed=5)
+        again = pt.render_loss(bad, cam, target, 64, 1, seed=5, **pin)
     assert torch.equal(again, loss)
 
 
@@ -201,7 +211,8 @@ def test_strict_default_poisons_loss_and_gradients():
     cam = pt.camera_from_numpy(_mirror_world()[1])
     target = torch.zeros((18, 32, 3))
     loss, g = pt.render_grads(scene, cam, target, 32, 1,
-                              recorded_persist=(8, 3), persist_strict=True)
+                              recorded_persist=(8, 3), persist_strict=True,
+                              device="cpu")
     assert torch.isnan(loss)
     assert all(torch.isnan(getattr(g, f)[:8]).all() for f in pt.DIFF_FIELDS)
     assert all((getattr(g, f)[8:] == 0).all() for f in pt.DIFF_FIELDS)
@@ -226,7 +237,7 @@ def test_check_grads_sane_names_the_field(field):
         pt.check_grads_sane(pt.SceneGrads(**bad))
 
 
-@pytest.mark.parametrize("kw", [{"recorded_fused": True}, {"remat": True},
+@pytest.mark.parametrize("kw", [{"recorded": True}, {"remat": True},
                                 {"recorded": False},
                                 {"recorded_stage": (4, 8)},
                                 {"recorded_persist": (8, None),
@@ -235,7 +246,8 @@ def test_unported_gradient_integrators_raise(kw):
     scene = pt.scene_from_numpy(_mirror_world()[0])
     cam = pt.camera_from_numpy(_mirror_world()[1])
     with pytest.raises(NotImplementedError):
-        pt.render_loss(scene, cam, torch.zeros((18, 32, 3)), 32, 1, **kw)
+        pt.render_loss(scene, cam, torch.zeros((18, 32, 3)), 32, 1,
+                       device="cpu", **kw)
 
 
 def test_fused_step_and_twin_canary_raise():
@@ -296,8 +308,9 @@ def test_sgd_step_moves_against_the_gradient():
     scene = pt.scene_from_numpy(_mirror_world()[0])
     cam = pt.camera_from_numpy(_mirror_world()[1])
     target = torch.full((18, 32, 3), 0.4)
-    loss, g = pt.render_grads(scene, cam, target, 32, 1)
-    loss2, new = pt.sgd_inverse_render_step(scene, cam, target, 32, 1, lr=0.5)
+    loss, g = pt.render_grads(scene, cam, target, 32, 1, device="cpu")
+    loss2, new = pt.sgd_inverse_render_step(scene, cam, target, 32, 1, lr=0.5,
+                                            device="cpu")
     assert torch.equal(loss, loss2)
     for f in pt.DIFF_FIELDS:
         assert torch.equal(getattr(new, f),

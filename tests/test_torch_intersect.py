@@ -13,6 +13,8 @@ from raytracingweekend_jl_tpu.ops.pallas.intersect_kernel import (
     intersect_spheres_pallas)
 from raytracingweekend_jl_tpu.scene import trim_scene as jtrim
 from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K
+# One intra-op torch thread per test module (an autouse fixture).
+from test_torch_scene_camera import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -35,6 +35,8 @@ from raytracingweekend_jl_tpu_torch.ops.cuda import persist_grad_kernel as PK
 from raytracingweekend_jl_tpu_torch.ops.cuda.grad_kernel import bounce_adjoint
 from raytracingweekend_jl_tpu_torch.ops.materials import (attr_mat,
                                                           fetch_attr_planes)
+# One intra-op torch thread per test module (an autouse fixture).
+from test_torch_scene_camera import _one_torch_thread  # noqa: F401
 
 S, DEPTH = 4, 8
 FIELDS = ("center", "radius", "albedo", "fuzz", "ir")

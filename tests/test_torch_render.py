@@ -23,6 +23,8 @@ from raytracingweekend_jl_tpu_torch.ops.integrator import (
     persistent_render_sum_strided)
 from raytracingweekend_jl_tpu_torch.render import (strided_k_for,
                                                    strided_sample_groups_for)
+# One intra-op torch thread per test module (an autouse fixture).
+from test_torch_scene_camera import _one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "goldens",
@@ -97,11 +99,13 @@ def test_render_matches_jax_statistically():
     a = np.asarray(rtw.render_radiance(rtw.scene_4_spheres(), rtw.t_default_cam(),
                                        W, spp, seed=0, persistent=True))
     b = pt.render_radiance(pt.scene_4_spheres(), pt.t_default_cam(), W, spp,
-                           seed=11, generator=torch.Generator().manual_seed(5))
+                           seed=11, generator=torch.Generator().manual_seed(5),
+                           device="cpu", inline=False)
     d = (b.numpy() - a).reshape(-1, 3)
     se = d.std(0) / np.sqrt(d.shape[0])
     assert (np.abs(d.mean(0)) < 3 * se).all(), (d.mean(0), se)
-    small = dict(seed=11, generator=torch.Generator().manual_seed(5))
+    small = dict(seed=11, generator=torch.Generator().manual_seed(5),
+                 device="cpu", inline=False)
     img = pt.render(pt.scene_4_spheres(), pt.t_default_cam(), 16, 2, **small)
     small["generator"] = torch.Generator().manual_seed(5)
     lin = pt.render_radiance(pt.scene_4_spheres(), pt.t_default_cam(), 16, 2,
@@ -111,10 +115,13 @@ def test_render_matches_jax_statistically():
 
 def test_chunked_and_sample_grouped_renders_agree():
     # pixel_chunk tiles run the strided path per contiguous chunk and a small
-    # image folds samples into groups (k = 1); both estimate the same image.
+    # image pinned to the strided route folds samples into groups (k = 1);
+    # both estimate the same image.
     scene, cam = pt.scene_2_spheres(), pt.t_default_cam()
-    full = pt.render_radiance(scene, cam, 64, 8, seed=1)
-    chunked = pt.render_radiance(scene, cam, 64, 8, seed=1, pixel_chunk=1000)
+    full = pt.render_radiance(scene, cam, 64, 8, seed=1, device="cpu",
+                              inline=False)
+    chunked = pt.render_radiance(scene, cam, 64, 8, seed=1, pixel_chunk=1000,
+                                 device="cpu")
     assert strided_sample_groups_for(64 * 36, 8) == 8
     assert full.shape == chunked.shape == (36, 64, 3)
     d = (full - chunked).reshape(-1, 3)
@@ -132,10 +139,17 @@ def test_strided_dispatch_helpers_match_jax():
 
 @pytest.mark.parametrize("route", ["inline", "non_contiguous", "fixed_depth"])
 def test_unported_routes_raise(route):
+    # The non-contiguous tile (K9) and the fixed-depth forward wavefront
+    # raise; the inline route (K8) is ported and renders.
     scene, cam = pt.scene_2_spheres(), pt.t_default_cam()
     kw = dict(inline=route == "inline",
               persistent=route != "fixed_depth")
     n_pix = 100 if route == "non_contiguous" else 64 * 36
+    if route == "inline":
+        out = pt.render_tile_sum(scene, cam, n_pix, 0, 1, 0, 16, 1e-4, 64.0,
+                                 36.0, **kw)
+        assert out.shape == (n_pix, 3) and torch.isfinite(out).all()
+        return
     with pytest.raises(NotImplementedError):
         pt.render_tile_sum(scene, cam, n_pix, 0, 1, 0, 16, 1e-4, 64.0, 36.0,
                            **kw)
@@ -149,12 +163,24 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
                   device="cuda")
 
 
+def test_default_device_is_the_card(monkeypatch):
+    # With no device argument every entry point asks for the card: without
+    # CUDA it raises instead of rendering on the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene, cam = pt.scene_2_spheres(), pt.t_default_cam()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.render(scene, cam, 16, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.render_grads(scene, cam, torch.zeros((9, 16, 3)), 16, 1)
+    assert torch.isfinite(pt.render(scene, cam, 16, 1, device="cpu")).all()
+
+
 def test_float64_render_raises():
     # Only float32 is ported; a float64 scene must not run silently in
     # float32.
     with pytest.raises(NotImplementedError):
         pt.render(pt.scene_2_spheres(dtype=torch.float64),
-                  pt.t_default_cam(dtype=torch.float64), 16, 1)
+                  pt.t_default_cam(dtype=torch.float64), 16, 1, device="cpu")
 
 
 def test_port_imports_no_jax():
@@ -164,7 +190,8 @@ def test_port_imports_no_jax():
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
             "for m in ('grad', 'ops.persist_grad', 'ops.cuda.grad_kernel',\n"
-            "          'ops.cuda.persist_grad_kernel'):\n"
+            "          'ops.cuda.persist_grad_kernel', 'optimize',\n"
+            "          'ops.fused_grad', 'ops.inline', 'ops.cuda.inline_kernel'):\n"
             "    assert p.__name__ + '.' + m in sys.modules, m\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('raytracingweekend_jl_tpu.')]\n"
@@ -176,17 +203,19 @@ def test_port_imports_no_jax():
 
 @pytest.mark.cuda
 def test_render_kernels_match_plain_on_card(cuda_device):
-    # The public entry point on the card through K1 and K2, against the same
+    # The public entry point on the card through K1 and K2 (the strided
+    # route pinned: 256x144 would take the inline route), against the same
     # render through the plain versions: both counters move and every
     # channel mean agrees within 1%.
     from raytracingweekend_jl_tpu_torch.ops.cuda import (intersect_kernel,
                                                           shade_kernel)
     scene, cam = pt.scene_4_spheres(), pt.t_default_cam()
     intersect_kernel.launches = shade_kernel.launches = 0
-    a = pt.render_radiance(scene, cam, 256, 16, device=cuda_device, seed=3)
+    a = pt.render_radiance(scene, cam, 256, 16, device=cuda_device, seed=3,
+                           inline=False)
     assert intersect_kernel.launches > 0 and shade_kernel.launches > 0
     b = pt.render_radiance(scene, cam, 256, 16, device=cuda_device, seed=3,
-                           impl="plain")
+                           impl="plain", inline=False)
     assert torch.isfinite(a).all()
     ma, mb = a.mean((0, 1)), b.mean((0, 1))
     assert ((ma - mb).abs() <= 0.01 * mb).all()

@@ -17,6 +17,8 @@ from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K
 from raytracingweekend_jl_tpu_torch.ops.cuda import shade_kernel as S
 from raytracingweekend_jl_tpu_torch.ops.materials import (attr_mat,
                                                           fetch_attr_planes)
+# One intra-op torch thread per test module (an autouse fixture).
+from test_torch_scene_camera import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture
