@@ -1,18 +1,24 @@
 """raytracingweekend_jl_tpu_torch — the PyTorch/CUDA port of
 ``raytracingweekend_jl_tpu``.
 
-Three main paths run end to end on the card, each through hand-written
-CUDA kernels for Hopper built from ``csrc/`` at first use:
+Its main paths run end to end on the card, each through hand-written CUDA
+kernels for Hopper built from ``csrc/`` at first use:
 
-- the forward render: ``render(scene, cam, width, spp)`` goes through the
-  strided persistent integrator (the sphere sweep K1 and the strided shade
-  step K2), or for a small full image through one launch of the inline
-  kernel K8;
+- the default render: ``render(scene, cam, width, spp)`` traces sample
+  passes through the fixed-depth wavefront ``trace`` (the sphere sweep K1,
+  or K10, the sweep fused with the winner's attribute fetch, with
+  ``fused_attrs=True``), differentiably, as the JAX package's default does;
+- the forward-only render, ``persistent=True``: the strided persistent
+  integrator (K1 and the strided shade step K2), for a small image one
+  launch of the inline kernel K8, and for a non-contiguous tile the
+  pixel-pinned integrator (K1 and the pinned shade step K9);
 - the gradient step: ``render_grads(scene, cam, target, width, spp)`` goes
   through the persistent-record kernel pair from 2^17 pixels (the masked
   sweep K3, the record step K4, the fused replay K5, and the per-slot
   replay K6 for lean records), and below through the fixed-depth pair (K3,
   the record step K7a, the fused replay K7c, or the per-bounce replay K7b);
+  ``recorded=False, remat=True`` takes the remat twin instead, autograd
+  through ``trace`` with each bounce recomputed;
 - the inverse-rendering fit: ``fit_scene(scene0, cam, target, width, spp)``
   takes Adam steps on the gradient step's albedo gradients and SPSA probe
   renders for the centers.
@@ -32,13 +38,18 @@ from .camera import (Camera, default_camera, make_rays, get_rays,
 from .render import (render, render_radiance, render_tile_sum,
                      image_height_for, pixel_coords)
 from .grad import (render_loss, render_grads, SceneGrads, check_grads_sane,
-                   GradSanityError, sgd_inverse_render_step, DIFF_FIELDS)
+                   GradSanityError, sgd_inverse_render_step, twin_ad_canary,
+                   DIFF_FIELDS)
 from .optimize import FitResult, fit_scene, movable_mask
 from .ops.persist_grad import trace_recorded_persist, persist_dropped_paths
 from .ops.fused_grad import trace_recorded_fused
 from .ops.cuda.inline_kernel import trace_inline
-from .ops.integrator import (persistent_render_sum_strided, skycolor,
+from .ops.integrator import (trace, trace_compacted, trace_occupancy,
+                             persistent_render_sum,
+                             persistent_render_sum_fused,
+                             persistent_render_sum_strided, skycolor,
                              DEFAULT_MAX_DEPTH)
+from .ops.materials import ScatterResult, scatter
 from .ops.intersect import intersect_spheres, HitResult, DEFAULT_TMIN
 from .ops.vecmath import (dot, squared_length, normalize, reflect, refract,
                           reflectance, gamma2_encode, NEAR_ZERO_EPS)

@@ -180,6 +180,98 @@ extern "C" int rtw_sweep_masked(const float* rays, const int* alive,
   return (int)cudaGetLastError();
 }
 
+// K10: the closest-hit sweep fused with the fetch of the winner's attributes.
+//
+// Replaces the TPU kernel raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py
+// :: _sweep_fetch_kernel (launched by _sweep_fetch_forward), the
+// `fused_attrs=True` route of the fixed-depth wavefront.
+//
+// What it computes: K1's (t, idx), with K1's expressions in K1's order, so t
+// and idx are K1's bit for bit; then the winner's 10 attributes in
+// materials.attr_mat column order (center xyz, radius, albedo rgb, fuzz, ir,
+// mat as a float). A miss writes (BIG, 0) and ten zeros, the TPU kernel's
+// raw outputs; the wrapper applies the miss defaults.
+//
+// What bounds it: as K1, arithmetic (~20 flops per ray and sphere); it
+// writes 40 more bytes per ray than K1.
+//
+// Design: the TPU carried ten running selects per sphere because its vector
+// unit had no gather. Here the loop is K1's, and after it one thread reads
+// its winner's row from the attribute table staged in shared memory beside
+// the sphere table (56 bytes per sphere, 27 KB for the flagship's 488): the
+// same function with ten fewer live registers in the loop.
+__global__ void sweep_fetch_kernel(const float* __restrict__ rays,
+                                   const float4* __restrict__ spheres,
+                                   const float* __restrict__ amat,
+                                   int n_rays, int n_spheres, float tmin,
+                                   float* __restrict__ t_out,
+                                   int* __restrict__ idx_out,
+                                   float* __restrict__ attrs_out) {
+  extern __shared__ float4 sph[];
+  float* sattr = reinterpret_cast<float*>(sph + n_spheres);
+  for (int s = threadIdx.x; s < n_spheres; s += blockDim.x) sph[s] = spheres[s];
+  for (int j = threadIdx.x; j < 10 * n_spheres; j += blockDim.x)
+    sattr[j] = amat[j];
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  const size_t n = n_rays;
+  const float ox = rays[i], oy = rays[n + i], oz = rays[2 * n + i];
+  const float dx = rays[3 * n + i], dy = rays[4 * n + i],
+              dz = rays[5 * n + i];
+
+  const float od = ox * dx + oy * dy + oz * dz;
+  const float oo = ox * ox + oy * oy + oz * oz;
+
+  float best_t = RTW_BIG;
+  int best_i = 0;
+#pragma unroll 8
+  for (int s = 0; s < n_spheres; ++s) {
+    const float4 c4 = sph[s];
+    const float cd = c4.x * dx + c4.y * dy + c4.z * dz;
+    const float oc = c4.x * ox + c4.y * oy + c4.z * oz;
+    const float hb = od - cd;
+    const float c = oo - 2.0f * oc + c4.w;
+    const float disc = hb * hb - c;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float r1 = -hb - sq;
+    const float t = r1 >= tmin ? r1 : -hb + sq;
+    if (disc > 0.0f && t >= tmin && t < best_t) {
+      best_t = t;
+      best_i = s;
+    }
+  }
+  t_out[i] = best_t;
+  idx_out[i] = best_i;
+  const bool hit = best_t < RTW_BIG;
+  const float* row = sattr + 10 * best_i;
+#pragma unroll
+  for (int j = 0; j < 10; ++j) attrs_out[j * n + i] = hit ? row[j] : 0.0f;
+}
+
+// rays: [6, n_rays] f32 planes; spheres: [n, 4] f32 rows (cx, cy, cz, ck);
+// amat: [n, 10] f32 rows (materials.attr_mat); attrs: [10, n_rays] f32.
+extern "C" int rtw_sweep_fetch(const float* rays, const float* spheres,
+                               const float* amat, int n_rays, int n_spheres,
+                               float tmin, float* t_out, int* idx_out,
+                               float* attrs_out, void* stream) {
+  if (n_rays <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (n_rays + threads - 1) / threads;
+  const size_t smem = (size_t)n_spheres * (sizeof(float4) + 10 * sizeof(float));
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sweep_fetch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sweep_fetch_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      rays, reinterpret_cast<const float4*>(spheres), amat, n_rays, n_spheres,
+      tmin, t_out, idx_out, attrs_out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* rtw_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

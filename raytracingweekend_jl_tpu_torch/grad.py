@@ -11,8 +11,12 @@ The port runs the reference's two device defaults, on every device: images
 of 2^17 pixels or more take the persistent-record kernel pair with tail
 compaction at (44, 16) and strict NaN-poisoning of dropped paths
 (``ops/persist_grad.py``), smaller ones the fixed-depth record/replay pair
-(``ops/fused_grad.py``). A card runs the CUDA kernels, the CPU (only when
-asked for with ``device="cpu"``) their plain versions.
+(``ops/fused_grad.py``). ``recorded=False, remat=True`` (or ``recorded=False``
+alone) takes the remat twin instead: autograd through the fixed-depth
+wavefront ``ops/integrator.trace`` with each bounce recomputed in the
+backward (``remat=False`` keeps every bounce; ``fused_attrs=True`` sweeps
+through K10). A card runs the CUDA kernels, the CPU (only when asked for
+with ``device="cpu"``) their plain versions.
 """
 
 from __future__ import annotations
@@ -270,11 +274,48 @@ def check_grads_sane(grads: SceneGrads, loss=None,
 
 def twin_ad_canary(scene: Scene, cam: Camera, width: int = 256,
                    n_samples: int = 8, **kwargs) -> None:
-    """The reference cross-checks the kernel pair against its remat XLA
-    transpose here; that twin is not ported."""
-    raise NotImplementedError(
-        "twin_ad_canary compares against the remat XLA transpose "
-        "(recorded=False, remat=True), which is not ported yet")
+    """Cheap corruption cross-check (reference: ``grad.twin_ad_canary``):
+    the gradients of the default (kernel-pair) route and of the remat twin
+    (``recorded=False, remat=True``: autograd through the fixed-depth
+    wavefront) on a small configuration. The two share no backward code
+    and draw different numbers, so the check is noise-robust: per-field L2
+    norms within 4x and the albedo cosine above 0.5. ``kwargs`` (``device``,
+    ``max_depth``, ...) reach both twins; the path flags and the seed only
+    the first. Raises :class:`GradSanityError` on disagreement."""
+    target = render_radiance(scene, cam, width, 1, seed=123,
+                             device=kwargs.get("device"))
+    bad = scene._replace(albedo=torch.clamp(scene.albedo * 0.8, 0, 1))
+    shared = {k: v for k, v in kwargs.items()
+              if k not in ("recorded", "remat", "recorded_fused",
+                           "recorded_persist", "recorded_stage", "seed")}
+    rec_kw = {k: v for k, v in kwargs.items() if k != "seed"}
+    _, g_rec = render_grads(bad, cam, target, width, n_samples, seed=5,
+                            **rec_kw)
+    _, g_ref = render_grads(bad, cam, target, width, n_samples, seed=5,
+                            recorded=False, remat=True, **shared)
+    check_grads_sane(g_rec)
+    check_grads_sane(g_ref)
+    for name in SceneGrads._fields:
+        a = getattr(g_rec, name).detach().cpu().to(torch.float64).ravel()
+        b = getattr(g_ref, name).detach().cpu().to(torch.float64).ravel()
+        na, nb = float(a.norm()), float(b.norm())
+        if nb < 1e-9 and na < 1e-9:
+            continue
+        ratio = na / max(nb, 1e-12)
+        if not (0.25 < ratio < 4.0):
+            raise GradSanityError(
+                f"twin-AD canary: grad[{name}] recorded-vs-remat norm ratio "
+                f"{ratio:.3g} (want 0.25-4) — kernel-pair gradients look "
+                "corrupted")
+        if name == "albedo":
+            # Direction only where the loss has signal (the canary perturbs
+            # albedo); the other fields are noise at canary spp.
+            cos = float(a @ b) / max(na * nb, 1e-24)
+            if cos < 0.5:
+                raise GradSanityError(
+                    f"twin-AD canary: grad[albedo] recorded-vs-remat cosine "
+                    f"{cos:.3f} (want >0.5) — kernel-pair gradients look "
+                    "corrupted")
 
 
 def sgd_inverse_render_step(scene: Scene, cam: Camera, target: torch.Tensor,

@@ -46,6 +46,13 @@ _SIGNATURES = {
     # seed, iteration, stream
     "rtw_shade_strided": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _U, _U, _P],
+    # rays[6,R], spheres[N,4], amat[N,10], R, N, tmin, t[R], idx[R],
+    # attrs[10,R], stream
+    "rtw_sweep_fetch": [_P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
+    # fstate[12,R], istate[3,R], t[R], attrs[10,R], u[R], v[R], cam[21],
+    # u9[9,R] or NULL, R, last_sample, max_depth, seed, iteration, stream
+    "rtw_shade_pinned": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
+                         _P],
     # rays[6,W], alive[W], spheres[N,4], W, N, tmin, t[W], idx[W], stream
     "rtw_sweep_masked": [_P, _P, _P, _I, _I, _F, _P, _P, _P],
     # t[W], attrs[10,W], strips[6S,W], sf[9,W], si[3,W], rad[3S,W],

@@ -467,32 +467,36 @@ def dattr_contract(dattr: torch.Tensor, idx: torch.Tensor,
     """Sum per-lane attribute cotangent rows onto the spheres:
     ``out[s, j] = sum over (k, w) with idx[k, w] == s of dattr[k, j, w]``.
 
-    ``dattr`` [K, 9, W] float32 (K record slots), ``idx`` [K, W] int32
-    winner indices; returns ``[n, 9]`` float32. Deterministic on every
-    device: lanes are stable-sorted by sphere, each field is scaled by a
-    power of two so that every partial sum fits 62 bits, rounded to int64
-    and prefix-summed exactly, and each sphere's segment is a difference of
-    two prefix sums. A value's rounding error is at most the field's largest
-    magnitude times 2^-(61 - ceil(log2(K*W + 1))), 2^-37 at the flagship's
-    ~1.2e7 lanes per phase. A field with a non-finite value comes out
-    NaN for every sphere, as the JAX package's matrix product gives."""
+    ``dattr`` [K, F, W] float32 or float64 (K record slots, F fields: 9 for
+    the attribute rows center, radius, albedo, fuzz, ir), ``idx`` [K, W]
+    int32 winner indices; returns ``[n, F]`` in ``dattr``'s type.
+    Deterministic on every device: lanes are stable-sorted by sphere, each
+    field is scaled by a power of two so that every partial sum fits 62
+    bits, rounded to int64 and prefix-summed exactly, and each sphere's
+    segment is a difference of two prefix sums. A value's rounding error is
+    at most the field's largest magnitude times 2^-(61 - ceil(log2(K*W +
+    1))), 2^-37 at the flagship's ~1.2e7 lanes per phase. A field with a
+    non-finite value comes out NaN for every sphere, as the JAX package's
+    matrix product gives. The scales stay on the device: no host sync."""
     device = dattr.device
+    n_f = dattr.shape[1]
     keys = idx.reshape(-1).to(torch.int64)
     m = keys.numel()
-    out = torch.zeros((9, n), dtype=torch.float64, device=device)
+    out = torch.zeros((n_f, n), dtype=torch.float64, device=device)
     if m == 0:
-        return out.T.to(torch.float32)
+        return out.T.to(dattr.dtype)
     keys, perm = torch.sort(keys, stable=True)
     bounds = torch.searchsorted(
         keys, torch.arange(n + 1, dtype=torch.int64, device=device))
-    rows = dattr.transpose(0, 1).reshape(9, m)
+    rows = dattr.transpose(0, 1).reshape(n_f, m)
     bits = 61 - math.ceil(math.log2(m + 1))
-    for j in range(9):
+    one = torch.ones((), dtype=torch.float64, device=device)
+    for j in range(n_f):
         v = rows[j][perm].to(torch.float64)
         finite = torch.isfinite(v)
         v = torch.where(finite, v, torch.zeros_like(v))
         _, e = torch.frexp(v.abs().max())
-        scale = 2.0 ** (bits - int(e))
+        scale = torch.ldexp(one, bits - e)
         q = torch.round(v * scale).to(torch.int64)
         cs = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
                         torch.cumsum(q, 0)])
@@ -500,4 +504,4 @@ def dattr_contract(dattr: torch.Tensor, idx: torch.Tensor,
         col = seg.to(torch.float64) / scale
         out[j] = torch.where(finite.all(), col,
                              torch.full_like(col, float("nan")))
-    return out.T.to(torch.float32).contiguous()
+    return out.T.to(dattr.dtype).contiguous()

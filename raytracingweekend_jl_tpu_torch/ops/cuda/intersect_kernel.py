@@ -1,10 +1,21 @@
-"""K1 — the closest-hit sphere sweep — and K3 — its occupancy-masked form —
-(csrc/sweep.cu) with their plain versions.
+"""K1 — the closest-hit sphere sweep —, K3 — its occupancy-masked form —
+and K10 — the sweep fused with the winner's attribute fetch — (csrc/sweep.cu)
+with their plain versions and the differentiable sweeps of the fixed-depth
+wavefront.
 
 Counterparts of ``raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py``
-``_sweep_kernel`` (forward only) and ``_sweep_masked_kernel``. :func:`sweep`
-and :func:`sweep_masked` launch the CUDA kernels on CUDA tensors and run
-:func:`sweep_ref` and :func:`sweep_masked_ref` on CPU tensors; nothing else.
+``_sweep_kernel``, ``_sweep_masked_kernel`` and ``_sweep_fetch_kernel``.
+:func:`sweep`, :func:`sweep_masked` and :func:`sweep_fetch` launch the CUDA
+kernels on CUDA tensors and run :func:`sweep_ref`, :func:`sweep_masked_ref`
+and :func:`sweep_fetch_ref` on CPU tensors; nothing else.
+
+:func:`intersect_spheres_kernel` and :func:`intersect_fetch_kernel` (the
+reference's ``intersect_spheres_pallas`` and ``intersect_fetch_pallas``)
+wrap K1 and K10 in ``torch.autograd.Function`` s whose backward is the
+reference's implicit differentiation at the winner (``_sweep_bwd``,
+``_sweep_fetch_bwd``): plain PyTorch, as the reference's backward is XLA
+code, with every sum onto the sphere rows through the ordered contraction
+(``grad_kernel.dattr_contract``).
 """
 
 from __future__ import annotations
@@ -12,8 +23,10 @@ from __future__ import annotations
 import torch
 
 from ...scene import Scene
-from ..intersect import DEFAULT_TMIN, BIG
+from ..intersect import DEFAULT_TMIN, BIG, HitResult
+from ..materials import attr_mat
 from . import build
+from .grad_kernel import dattr_contract
 
 #: Number of K1 launches since the last reset (incremented only where the
 #: kernel is launched).
@@ -21,6 +34,9 @@ launches = 0
 
 #: Number of K3 launches since the last reset.
 masked_launches = 0
+
+#: Number of K10 launches since the last reset.
+fetch_launches = 0
 
 
 def sphere_consts(scene: Scene) -> torch.Tensor:
@@ -146,3 +162,169 @@ def sweep_masked(rays: torch.Tensor, alive: torch.Tensor,
     build.check(err, "sweep_masked")
     masked_launches += 1
     return t, idx
+
+
+def sweep_fetch_ref(rays: torch.Tensor, spheres: torch.Tensor,
+                    amat: torch.Tensor, tmin: float = DEFAULT_TMIN
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K10: :func:`sweep_ref`, then the winner's row of
+    ``amat`` [N, 10] (``materials.attr_mat``) as ``[10, R]`` planes, zeros
+    on a miss (the kernel's raw outputs; the wrappers apply the miss
+    defaults)."""
+    t, idx = sweep_ref(rays, spheres, tmin)
+    rows = amat.T[:, idx.long()]
+    return t, idx, torch.where(t < BIG, rows, torch.zeros_like(rows))
+
+
+def sweep_fetch(rays: torch.Tensor, spheres: torch.Tensor, amat: torch.Tensor,
+                tmin: float = DEFAULT_TMIN
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K10: :func:`sweep` of ``rays`` [6, R] against ``spheres`` [N, 4] plus
+    the winner's 10 attributes ``[10, R]`` from ``amat`` [N, 10] (zeros on a
+    miss).
+
+    CPU tensors run :func:`sweep_fetch_ref`. CUDA tensors launch the kernel
+    on the current stream; anything the kernel does not take raises."""
+    global fetch_launches
+    if rays.device.type == "cpu" and spheres.device.type == "cpu" \
+            and amat.device.type == "cpu":
+        return sweep_fetch_ref(rays, spheres, amat, tmin)
+    _check_sweep_args("sweep_fetch", rays, spheres)
+    n_rays, n_sph = rays.shape[1], spheres.shape[0]
+    build.check_arg("sweep_fetch: amat", amat, torch.float32, (n_sph, 10),
+                    rays.device)
+    if n_sph * 56 > 227 * 1024:
+        raise ValueError(f"sweep_fetch: {n_sph} spheres exceed the kernel's "
+                         f"shared-memory tables (max {227 * 1024 // 56})")
+    t = torch.empty(n_rays, dtype=torch.float32, device=rays.device)
+    idx = torch.empty(n_rays, dtype=torch.int32, device=rays.device)
+    attrs = torch.empty((10, n_rays), dtype=torch.float32, device=rays.device)
+    lib = build.load()
+    with torch.cuda.device(rays.device):
+        err = lib.rtw_sweep_fetch(
+            rays.data_ptr(), spheres.data_ptr(), amat.data_ptr(), n_rays,
+            n_sph, float(tmin), t.data_ptr(), idx.data_ptr(), attrs.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "sweep_fetch")
+    fetch_launches += 1
+    return t, idx, attrs
+
+
+# ---------------------------------------------------------------------------
+# The differentiable sweeps (K1 and K10 with the reference's VJPs)
+# ---------------------------------------------------------------------------
+
+def _rays6(origin: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    return torch.cat([origin.T, direction.T]).to(torch.float32).contiguous()
+
+
+def _winner_scale(origin, direction, center, t, idx, g_t):
+    """The implicit derivative at the winner (``_sweep_bwd``): ``p = o +
+    t d - c`` and ``scale = g_t / (p . d)`` on hits with ``|p . d| >
+    1e-12``, else 0; ``t_safe`` is t on hits, else 0."""
+    hit = t < BIG
+    t_safe = torch.where(hit, t, torch.zeros_like(t))
+    p = origin + t_safe[:, None] * direction - center[idx.long()]
+    pd = (p * direction).sum(-1)
+    ok = hit & (pd.abs() > 1e-12)
+    denom = torch.where(ok, pd, torch.ones_like(pd))
+    scale = torch.where(ok, g_t / denom, torch.zeros_like(pd))
+    return hit, t_safe, p, scale
+
+
+class _Sweep(torch.autograd.Function):
+    """K1 (or ``sweep_ref``) forward; the reference's ``_sweep_bwd``."""
+
+    @staticmethod
+    def forward(ctx, origin, direction, center, radius, tmin, plain):
+        spheres = sphere_consts(Scene(center, radius, None, None, None, None))
+        run = sweep_ref if plain else sweep
+        t, idx = run(_rays6(origin, direction), spheres, tmin)
+        ctx.save_for_backward(origin, direction, center, radius, t, idx)
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, g_t, _g_idx):
+        origin, direction, center, radius, t, idx = ctx.saved_tensors
+        g_t = g_t.to(origin.dtype)
+        _, t_safe, p, scale = _winner_scale(origin, direction, center, t, idx,
+                                            g_t)
+        rows = torch.cat([scale[:, None] * p,
+                          (scale * radius[idx.long()])[:, None]], 1)
+        d_sph = dattr_contract(rows.T.unsqueeze(0), idx.unsqueeze(0),
+                               center.shape[0])
+        return (-scale[:, None] * p, -(scale * t_safe)[:, None] * p,
+                d_sph[:, 0:3], d_sph[:, 3], None, None)
+
+
+class _SweepFetch(torch.autograd.Function):
+    """K10 (or ``sweep_fetch_ref``) forward; the reference's
+    ``_sweep_fetch_bwd``: the implicit derivative at the winner plus the
+    attribute planes' cotangents, masked to hits, summed onto the winner's
+    rows."""
+
+    @staticmethod
+    def forward(ctx, origin, direction, center, radius, albedo, fuzz, ir, mat,
+                tmin, plain):
+        scene = Scene(center, radius, albedo, fuzz, ir, mat)
+        run = sweep_fetch_ref if plain else sweep_fetch
+        t, idx, attrs = run(_rays6(origin, direction), sphere_consts(scene),
+                            attr_mat(scene), tmin)
+        ctx.save_for_backward(origin, direction, center, radius, t, idx)
+        ctx.mark_non_differentiable(idx)
+        return t, idx, attrs
+
+    @staticmethod
+    def backward(ctx, g_t, _g_idx, g_attrs):
+        origin, direction, center, radius, t, idx = ctx.saved_tensors
+        dt = origin.dtype
+        g_t = g_t.to(dt)
+        hit, t_safe, p, scale = _winner_scale(origin, direction, center, t,
+                                              idx, g_t)
+        m = hit.to(dt)
+        g = g_attrs.to(dt) * m  # [10, R]; mat (row 9) gets none
+        rows = torch.cat([g[0:3] + (scale[:, None] * p).T,
+                          (g[3] + scale * radius[idx.long()])[None], g[4:9]])
+        d_sph = dattr_contract(rows.unsqueeze(0), idx.unsqueeze(0),
+                               center.shape[0])
+        return (-scale[:, None] * p, -(scale * t_safe)[:, None] * p,
+                d_sph[:, 0:3], d_sph[:, 3], d_sph[:, 4:7], d_sph[:, 7],
+                d_sph[:, 8], None, None, None)
+
+
+def intersect_spheres_kernel(origin: torch.Tensor, direction: torch.Tensor,
+                             scene: Scene, tmin: float = DEFAULT_TMIN,
+                             plain: bool = False) -> HitResult:
+    """Closest hits of rays ``origin``/``direction`` [R, 3] float32 through
+    K1 (``plain=True``, or CPU tensors: :func:`sweep_ref`), differentiable
+    w.r.t. the rays and the scene's centers and radii (reference:
+    ``intersect_spheres_pallas``)."""
+    t, idx = _Sweep.apply(origin, direction, scene.center, scene.radius,
+                          float(tmin), bool(plain))
+    return HitResult(t=t, index=idx, hit=t < BIG)
+
+
+def intersect_fetch_kernel(origin: torch.Tensor, direction: torch.Tensor,
+                           scene: Scene, tmin: float = DEFAULT_TMIN,
+                           plain: bool = False) -> tuple[HitResult, tuple]:
+    """K10: the hits of :func:`intersect_spheres_kernel` and the winners'
+    ``(center, radius, albedo, fuzz, ir, mat)`` rows that ``scatter`` takes,
+    with the reference's miss defaults (center 0, radius 0, albedo 1, fuzz 0,
+    ir 1, mat 0), differentiable w.r.t. the rays and the five fields
+    (reference: ``intersect_fetch_pallas``)."""
+    t, idx, a = _SweepFetch.apply(origin, direction, scene.center,
+                                  scene.radius, scene.albedo, scene.fuzz,
+                                  scene.ir, scene.mat, float(tmin),
+                                  bool(plain))
+    hit = t < BIG
+    a = a.T.to(origin.dtype)  # [R, 10]
+    h1 = hit[:, None]
+    attrs = (torch.where(h1, a[:, 0:3], torch.zeros_like(a[:, 0:3])),
+             torch.where(hit, a[:, 3], torch.zeros_like(a[:, 3])),
+             torch.where(h1, a[:, 4:7], torch.ones_like(a[:, 4:7])),
+             torch.where(hit, a[:, 7], torch.zeros_like(a[:, 7])),
+             torch.where(hit, a[:, 8], torch.ones_like(a[:, 8])),
+             torch.where(hit, a[:, 9], torch.zeros_like(a[:, 9])).to(
+                 torch.int32))
+    return HitResult(t=t, index=idx, hit=hit), attrs

@@ -20,6 +20,14 @@ State layout (all ``[planes, n_lanes]``, contiguous, updated in place):
 
 :func:`shade_strided_step` launches the CUDA kernel on CUDA tensors and runs
 :func:`shade_strided_step_ref` on CPU tensors; nothing else.
+
+K9 — one pixel-pinned persistent iteration (csrc/shade_pinned.cu), the
+counterpart of ``_shade_kernel`` with ``_shade_math`` — keeps one lane per
+pixel: :func:`shade_and_regen` launches it on CUDA tensors and runs
+:func:`shade_and_regen_ref` on CPU tensors. Its state (``[planes, R]``,
+contiguous, updated in place): ``fstate`` float32 [12] (origin, direction,
+throughput, the pixel's radiance sum) and ``istate`` int32 [3] (bounce,
+sample, active).
 """
 
 from __future__ import annotations
@@ -35,8 +43,12 @@ from . import build
 #: kernel is launched).
 launches = 0
 
+#: Number of K9 launches since the last reset.
+pinned_launches = 0
+
 N_FSTATE = 12
 N_ISTATE = 7
+N_PINNED_ISTATE = 3
 
 _TWO_PI = np.float32(2.0 * np.pi)
 _QP = np.float32(np.pi / 4)
@@ -340,3 +352,129 @@ def shade_strided_step(fstate: torch.Tensor, istate: torch.Tensor,
             iteration & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
     build.check(err, "shade_strided_step")
     launches += 1
+
+
+# ---------------------------------------------------------------------------
+# K9: one pixel-pinned persistent iteration
+# ---------------------------------------------------------------------------
+
+def shade_and_regen_ref(fstate: torch.Tensor, istate: torch.Tensor,
+                        t: torch.Tensor, attrs: torch.Tensor,
+                        film_u: torch.Tensor, film_v: torch.Tensor,
+                        cam: torch.Tensor, seed: int, iteration: int,
+                        last_sample: int, max_depth: int,
+                        u9: torch.Tensor | None = None) -> None:
+    """Plain PyTorch K9, updating ``fstate`` [12, R] and ``istate`` [3, R]
+    in place (reference: ``shade_and_regen`` / ``_shade_math``).
+
+    ``t`` [R] and ``attrs`` [10, R] are the sweep's winner distance and
+    attributes; ``film_u``/``film_v`` [R] the lanes' pixel coordinates;
+    ``cam`` the [21] camera constants. A live hit continues while its bounce
+    count stays below ``max_depth``; a lane whose ray missed or ran out of
+    depth starts its pixel's next sample (jittered unless its id is 0,
+    thin-lens origin) while the id stays ``<= last_sample``, else goes
+    idle. ``u9`` [9, R] injects the uniforms; without it they are
+    :func:`rng.philox_uniforms` of ``(seed, iteration)``, the kernel's own."""
+    n = t.shape[0]
+    if u9 is None:
+        u9 = rng.philox_uniforms(seed, iteration, n, 9, device=t.device)
+    ox, oy, oz, dx, dy, dz, tx, ty, tz, rx, ry, rz = fstate.unbind(0)
+    bo, sa, ac = istate.unbind(0)
+    active = ac != 0
+    zero = torch.zeros_like(t)
+    one = torch.ones_like(t)
+
+    rx, ry, rz, hitm, miss, px, py, pz, ndx, ndy, ndz = shade_core(
+        u9, t, attrs, ox, oy, oz, dx, dy, dz, tx, ty, tz, active, rx, ry, rz)
+
+    # Continue bouncing: the reference's 0/1 blend of origin and direction.
+    newb = bo + 1
+    cont = hitm & (newb < max_depth)
+    exhausted = hitm & ~cont
+    cf = cont.to(torch.float32)
+    ncf = 1.0 - cf
+    ox, oy, oz = cf * px + ncf * ox, cf * py + ncf * oy, cf * pz + ncf * oz
+    dx, dy, dz = cf * ndx + ncf * dx, cf * ndy + ncf * dy, cf * ndz + ncf * dz
+    tx = torch.where(cont, tx * attrs[4], tx)
+    ty = torch.where(cont, ty * attrs[5], ty)
+    tz = torch.where(cont, tz * attrs[6], tz)
+    bo = torch.where(cont, newb, bo)
+
+    # Regenerate: the same pixel's next sample, in place.
+    need = miss | exhausted
+    nxt = sa + 1
+    can = need & (nxt <= last_sample)
+    inv_w, inv_h = cam[19], cam[20]
+    centered = nxt == 0
+    ju = torch.where(centered, zero, u9[5] * inv_w)
+    jv = torch.where(centered, zero, u9[6] * inv_h)
+    s_f = film_u + ju
+    t_f = film_v + jv
+    da, db = _concentric(u9[7], u9[8])
+    rdx, rdy = cam[18] * da, cam[18] * db
+    offx = rdx * cam[12] + rdy * cam[15]
+    offy = rdx * cam[13] + rdy * cam[16]
+    offz = rdx * cam[14] + rdy * cam[17]
+    gox, goy, goz = cam[0] + offx, cam[1] + offy, cam[2] + offz
+    gdx = cam[3] + s_f * cam[6] + t_f * cam[9] - cam[0] - offx
+    gdy = cam[4] + s_f * cam[7] + t_f * cam[10] - cam[1] - offy
+    gdz = cam[5] + s_f * cam[8] + t_f * cam[11] - cam[2] - offz
+    gno = _rsqrt(gdx * gdx + gdy * gdy + gdz * gdz)
+    gdx, gdy, gdz = gdx * gno, gdy * gno, gdz * gno
+    canf = can.to(torch.float32)
+    ncanf = 1.0 - canf
+    ox, oy, oz = (canf * gox + ncanf * ox, canf * goy + ncanf * oy,
+                  canf * goz + ncanf * oz)
+    dx, dy, dz = (canf * gdx + ncanf * dx, canf * gdy + ncanf * dy,
+                  canf * gdz + ncanf * dz)
+    tx = torch.where(can, one, tx)
+    ty = torch.where(can, one, ty)
+    tz = torch.where(can, one, tz)
+    bo = torch.where(can, torch.zeros_like(bo), bo)
+    sa = torch.where(can, nxt, sa)
+    active = (active & ~need) | can
+
+    fstate.copy_(torch.stack([ox, oy, oz, dx, dy, dz, tx, ty, tz, rx, ry, rz]))
+    istate.copy_(torch.stack([bo, sa, active.to(torch.int32)]))
+
+
+def shade_and_regen(fstate: torch.Tensor, istate: torch.Tensor,
+                    t: torch.Tensor, attrs: torch.Tensor,
+                    film_u: torch.Tensor, film_v: torch.Tensor,
+                    cam: torch.Tensor, seed: int, iteration: int,
+                    last_sample: int, max_depth: int,
+                    u9: torch.Tensor | None = None) -> None:
+    """K9: one pixel-pinned iteration, in place (arguments as
+    :func:`shade_and_regen_ref`).
+
+    CPU tensors run :func:`shade_and_regen_ref`. CUDA tensors launch the
+    kernel on the current stream; anything it does not take raises."""
+    global pinned_launches
+    if fstate.device.type == "cpu":
+        return shade_and_regen_ref(fstate, istate, t, attrs, film_u, film_v,
+                                   cam, seed, iteration, last_sample,
+                                   max_depth, u9)
+    dev = fstate.device
+    if dev.type != "cuda":
+        raise ValueError(f"shade_and_regen: unsupported device {dev}")
+    n = t.shape[0] if t.dim() == 1 else -1
+    f32, i32 = torch.float32, torch.int32
+    for name, x, dtype, shape in (
+            ("fstate", fstate, f32, (N_FSTATE, n)),
+            ("istate", istate, i32, (N_PINNED_ISTATE, n)),
+            ("t", t, f32, (n,)), ("attrs", attrs, f32, (10, n)),
+            ("film_u", film_u, f32, (n,)), ("film_v", film_v, f32, (n,)),
+            ("cam", cam, f32, (21,))):
+        build.check_arg(f"shade_and_regen: {name}", x, dtype, shape, dev)
+    if u9 is not None:
+        build.check_arg("shade_and_regen: u9", u9, f32, (9, n), dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.rtw_shade_pinned(
+            fstate.data_ptr(), istate.data_ptr(), t.data_ptr(),
+            attrs.data_ptr(), film_u.data_ptr(), film_v.data_ptr(),
+            cam.data_ptr(), None if u9 is None else u9.data_ptr(), n,
+            int(last_sample), int(max_depth), seed & 0xFFFFFFFF,
+            iteration & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "shade_and_regen")
+    pinned_launches += 1

@@ -1,21 +1,31 @@
-"""Strided persistent path integrator — the counterpart of
-``raytracingweekend_jl_tpu.ops.integrator.persistent_render_sum_strided``.
+"""Path integrators — the counterparts of
+``raytracingweekend_jl_tpu.ops.integrator``.
 
-Each lane serves ``k`` pixels spaced ``n_lanes`` apart and, when a ray ends
-(sky or depth exhaustion), starts the next sample of its pixel in place, or
-folds the pixel into its strip buffer and switches to its next pixel. Every
-iteration is three steps:
+:func:`trace` is the fixed-depth wavefront: every bounce sweeps every ray of
+the batch, banks the sky on a ray's first miss and scatters the rest; it is
+differentiable (``remat=True`` recomputes each bounce in the backward). Its
+sweep is K1 (``cuda/intersect_kernel.intersect_spheres_kernel``) or, with
+``fused_attrs=True``, K10 (``intersect_fetch_kernel``), each with the
+reference's implicit-differentiation backward; float64 rays take the dot-form
+``intersect_spheres`` on any device.
 
-1. the closest-hit sweep;
-2. the winner-attribute fetch (a gather);
-3. the strided shade / scatter / regenerate / pixel-switch step.
+The persistent integrators pin lanes to pixels and start a pixel's next
+sample in place when its ray ends (sky or depth exhaustion):
 
-``impl`` picks how they run. ``"kernels"`` (the default for CUDA tensors)
-runs K1 (``cuda/intersect_kernel.sweep``) and K2
-(``cuda/shade_kernel.shade_strided_step``). ``"plain"`` (the default on the
-CPU, and selectable on a card for comparison) runs the dot-form
-``intersect_spheres`` and ``shade_strided_step_ref``, which is also what the
-reference package's CPU strided driver runs.
+- :func:`persistent_render_sum_strided`: each lane serves ``k`` pixels
+  spaced ``n_lanes`` apart and folds a finished pixel into its strip buffer;
+  its step is K2 (``cuda/shade_kernel.shade_strided_step``);
+- :func:`persistent_render_sum_fused`: one lane per pixel of any set of
+  film coordinates (a non-contiguous tile); its step is K9
+  (``cuda/shade_kernel.shade_and_regen``).
+
+Every persistent iteration is three steps: the closest-hit sweep, the
+winner-attribute fetch (a gather), and the shade / scatter / regenerate
+step. ``impl`` picks how they run. ``"kernels"`` (the default for CUDA
+tensors) runs K1 and the kernel step. ``"plain"`` (the default on the CPU,
+and selectable on a card for comparison) runs the dot-form
+``intersect_spheres`` and the step's plain version, which is also what the
+reference package's CPU persistent drivers run.
 """
 
 from __future__ import annotations
@@ -23,12 +33,14 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..camera import make_rays
 from ..scene import Scene
 from .. import rng
 from .intersect import DEFAULT_TMIN, intersect_spheres
-from .materials import attr_mat, fetch_attr_planes
+from .materials import (attr_mat, fetch_attr_planes, gather_sphere_attrs,
+                        positional_draws, scatter, slot_draws)
 from .sampling import concentric_disk_map, per_ray_uniforms
 from .cuda import intersect_kernel, shade_kernel
 
@@ -149,21 +161,29 @@ def init_strided_state(cam, n_pix: int, W: int, H: int, seed: int,
                         k * spg * max_depth + max_depth)
 
 
+def sweep_attr_planes(scene_tables: tuple, rays: torch.Tensor, tmin: float,
+                      impl: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sweep and fetch of one persistent iteration: ``(t [R], attrs
+    [10, R])`` of ``rays`` [6, R] through K1 and a gather (``"kernels"``) or
+    the dot-form sweep and a gather (``"plain"``). ``scene_tables`` =
+    (scene, sphere_consts [N,4], attr_mat [N,10])."""
+    scene, spheres, attrs_tab = scene_tables
+    if impl == "kernels":
+        t, idx = intersect_kernel.sweep(rays, spheres, tmin)
+    else:
+        hit = intersect_spheres(rays[0:3].T, rays[3:6].T, scene, tmin=tmin)
+        t, idx = hit.t.contiguous(), hit.index
+    return t, fetch_attr_planes(idx, attrs_tab)
+
+
 def strided_step(scene_tables: tuple, st: StridedState, cam_consts, seed: int,
                  it: int, sample_offset: int, max_depth: int, tmin: float,
                  impl: str, u9: torch.Tensor | None = None) -> None:
     """One iteration (sweep, fetch, strided step) on ``st``, in place.
     ``scene_tables`` = (scene, sphere_consts [N,4], attr_mat [N,10])."""
-    scene, spheres, attrs_tab = scene_tables
-    if impl == "kernels":
-        t, idx = intersect_kernel.sweep(st.fstate[0:6], spheres, tmin)
-        step = shade_kernel.shade_strided_step
-    else:
-        hit = intersect_spheres(st.fstate[0:3].T, st.fstate[3:6].T, scene,
-                                tmin=tmin)
-        t, idx = hit.t.contiguous(), hit.index
-        step = shade_kernel.shade_strided_step_ref
-    attrs = fetch_attr_planes(idx, attrs_tab)
+    t, attrs = sweep_attr_planes(scene_tables, st.fstate[0:6], tmin, impl)
+    step = (shade_kernel.shade_strided_step if impl == "kernels"
+            else shade_kernel.shade_strided_step_ref)
     step(st.fstate, st.istate, st.buf, t, attrs, cam_consts, st.geom, seed,
          it, sample_offset, max_depth, u9)
 
@@ -236,3 +256,361 @@ def persistent_render_sum_strided(
         strided_step(tables, st, cam_consts, seed32, it, sample_offset,
                      max_depth, tmin, impl, u9)
     return strided_result(st)
+
+
+# ---------------------------------------------------------------------------
+# The fixed-depth wavefront
+# ---------------------------------------------------------------------------
+
+def _pick_intersector(dtype, fused_attrs: bool, impl: str) -> Callable:
+    """The sweep of :func:`trace` as ``isect(origin, direction, scene, tmin)
+    -> (HitResult, attrs or None)`` (reference: ``_pick_intersector``):
+    float64 rays take the dot-form ``intersect_spheres`` on any device;
+    float32 rays K1 (or K10 with ``fused_attrs``), their plain versions with
+    ``impl="plain"``. Every variant is differentiable."""
+    if dtype == torch.float64:
+        return lambda o, d, scene, tmin: (
+            intersect_spheres(o, d, scene, tmin=tmin), None)
+    plain = impl == "plain"
+    if fused_attrs:
+        return lambda o, d, scene, tmin: intersect_kernel.intersect_fetch_kernel(
+            o, d, scene, tmin, plain)
+    return lambda o, d, scene, tmin: (
+        intersect_kernel.intersect_spheres_kernel(o, d, scene, tmin, plain),
+        None)
+
+
+def trace(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
+          seed: int, max_depth: int = DEFAULT_MAX_DEPTH,
+          tmin: float = DEFAULT_TMIN, remat: bool = False,
+          keyed: bool = False, fused_attrs: bool = False,
+          impl: str | None = None, draws: Callable | None = None,
+          remat_policy: str | None = None,
+          tile_skip: int = 0) -> torch.Tensor:
+    """Radiance ``[R, 3]`` of ``R`` rays ``origin``/``direction`` [R, 3]
+    (unit directions), differentiable w.r.t. the rays and the scene's
+    center, radius, albedo, fuzz and ir (reference: ``integrator.trace``).
+
+    Every bounce ``b`` of ``max_depth`` sweeps every ray; a ray that misses
+    for the first time banks ``T * sky(d)`` and dies; a live hit scatters
+    and multiplies its throughput. Draws: one shaped draw per bounce keyed
+    by ``(seed, bounce)`` (:func:`materials.positional_draws`), or with
+    ``keyed=True`` per-ray Philox draws keyed by ``(seed, bounce)`` with the
+    ray's slot as the counter (:func:`materials.slot_draws`, the draws of
+    the fixed-depth record kernel); the test hook ``draws(b, R) -> (u [R, 3],
+    xi [R])`` replaces both. ``remat=True`` checkpoints each bounce: the
+    backward keeps one bounce's inputs per bounce and recomputes the rest
+    (the draws are a pure function of ``(seed, bounce)``, so the recompute
+    redraws them exactly). ``tile_skip`` and ``remat_policy`` are not
+    ported."""
+    if tile_skip:
+        raise NotImplementedError(
+            "tile_skip (per-tile lax.cond skipping of dead ray tiles) is not "
+            "ported")
+    if remat_policy is not None:
+        raise NotImplementedError(
+            f"remat_policy={remat_policy!r} (a jax.checkpoint saving policy) "
+            "is not ported; remat=True recomputes everything")
+    dtype, dev = origin.dtype, origin.device
+    R = origin.shape[0]
+    impl = resolve_impl(impl, dev)
+    isect = _pick_intersector(dtype, fused_attrs, impl)
+    slots = torch.arange(R, dtype=torch.int32, device=dev) if keyed else None
+
+    def bounce(b, org, d, thr, rad, alive):
+        res, attrs = isect(org, d, scene, tmin)
+        miss_now = alive & ~res.hit
+        rad = rad + torch.where(miss_now[:, None], thr * skycolor(d),
+                                torch.zeros_like(thr))
+        # Finite t for every lane (the NaN-under-where guard).
+        t_safe = torch.where(res.hit, res.t, torch.ones_like(res.t))
+        if attrs is None:
+            attrs = gather_sphere_attrs(scene, res.index, dtype)
+        if draws is not None:
+            u, xi = draws(b, R)
+            u, xi = u.to(device=dev, dtype=dtype), xi.to(device=dev,
+                                                        dtype=dtype)
+        elif keyed:
+            u, xi = slot_draws(seed & 0xFFFFFFFF, b, slots, dtype)
+        else:
+            u, xi = positional_draws(seed, b, R, dtype, dev)
+        s = scatter(org, d, t_safe, attrs, u, xi)
+        live_hit = (alive & res.hit)[:, None]
+        return (torch.where(live_hit, s.origin, org),
+                torch.where(live_hit, s.direction, d),
+                torch.where(live_hit, thr * s.attenuation, thr), rad,
+                alive & res.hit)
+
+    state = (origin, direction, torch.ones((R, 3), dtype=dtype, device=dev),
+             torch.zeros((R, 3), dtype=dtype, device=dev),
+             torch.ones((R,), dtype=torch.bool, device=dev))
+    for b in range(max_depth):
+        if remat:
+            state = checkpoint(bounce, b, *state, use_reentrant=False)
+        else:
+            state = bounce(b, *state)
+    # Rays still alive after max_depth contribute black
+    # (src/ray_color.jl:15-17).
+    return state[3]
+
+
+# ---------------------------------------------------------------------------
+# The pixel-pinned persistent integrator (K9)
+# ---------------------------------------------------------------------------
+
+def pinned_start_rays(cam, u: torch.Tensor, v: torch.Tensor, seed: int,
+                      sample_offset: int, f32_w: float, f32_h: float,
+                      init_u4: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first camera rays ``(origin, direction)`` [R, 3] of the lanes at
+    film coordinates ``u``/``v`` [R]: 4 uniforms per lane (jitter, zero for
+    global sample 0, and a lens-disk point), Philox keyed by ``(seed's
+    PIXEL_JITTER stream, sample_offset)`` with the lane's slot as the
+    counter, i.e. keyed by (seed, slot, sample) as the reference keys them;
+    ``init_u4`` [R, 4] replaces them."""
+    R, dev = u.shape[0], u.device
+    if init_u4 is None:
+        key = rng.purpose_seed(seed, rng.PIXEL_JITTER) & 0xFFFFFFFF
+        init_u4 = rng.philox_uniforms(key, sample_offset, R, 4, device=dev).T
+    return _film_rays(cam, u, v, init_u4.to(device=dev, dtype=torch.float32),
+                      sample_offset == 0, f32_w, f32_h)
+
+
+def _film_rays(cam, u, v, u4, centred, f32_w: float, f32_h: float):
+    """Camera rays through film coordinates ``u``/``v`` [R], jittered by
+    ``u4[:, 0:2]`` pixels except where ``centred`` (a bool, or [R] bools),
+    with lens points from ``u4[:, 2:4]``."""
+    scale = torch.tensor([1.0 / f32_w, 1.0 / f32_h], dtype=u4.dtype,
+                         device=u4.device)
+    centred = torch.as_tensor(centred, device=u4.device).reshape(-1, 1)
+    jit_uv = torch.where(centred, torch.zeros_like(u4[:, 0:2]),
+                         u4[:, 0:2] * scale)
+    disk = concentric_disk_map(u4[:, 2:4] * 2.0 - 1.0)
+    return make_rays(cam, u + jit_uv[:, 0], v + jit_uv[:, 1], disk)
+
+
+def persistent_render_sum_fused(
+        scene: Scene, cam, u: torch.Tensor, v: torch.Tensor, seed: int,
+        n_samples: int, sample_offset: int = 0,
+        max_depth: int = DEFAULT_MAX_DEPTH, tmin: float = DEFAULT_TMIN,
+        f32_w: float = 0.0, f32_h: float = 0.0, impl: str | None = None,
+        init_u4: torch.Tensor | None = None,
+        rng_u9_fn: Callable[[int], torch.Tensor] | None = None
+) -> torch.Tensor:
+    """Radiance sums ``[R, 3]`` of ``n_samples`` samples (global ids from
+    ``sample_offset``) of the pixels at film coordinates ``u``/``v`` [R] of
+    a ``f32_w x f32_h`` image: one lane pinned to each pixel, which starts
+    its pixel's next sample in place when a ray ends (reference:
+    ``persistent_render_sum_fused``, the route of tiles that are neither the
+    whole image nor a contiguous pixel range).
+
+    Each iteration: the sweep, the fetch, and K9 (``"kernels"``) or its
+    plain version. The loop ends once no lane is active (checked every
+    ``ACTIVE_CHECK_EVERY`` iterations) or after ``n_samples * max_depth``
+    iterations. Float32 only. Draws: the first rays as
+    :func:`pinned_start_rays` (``init_u4`` replaces them); later iterations
+    Philox keyed by ``(persistent_seed(seed, sample_offset), iteration)``
+    with the lane as the counter, in the kernel, or ``rng_u9_fn(it)`` ->
+    [9, R]."""
+    device = scene.device
+    if cam.origin.device != device or u.device != device:
+        raise ValueError(f"scene on {device}, camera on {cam.origin.device}, "
+                         f"film coordinates on {u.device}: one device")
+    impl = resolve_impl(impl, device)
+    if scene.center.dtype != torch.float32:
+        raise NotImplementedError(
+            "only float32 renders take the pixel-pinned route (K9 and its "
+            f"state are float32); got {scene.center.dtype}")
+    R = u.shape[0]
+    if max_depth <= 0 or n_samples <= 0:
+        return torch.zeros((R, 3), dtype=torch.float32, device=device)
+    _check_film(f32_w, f32_h)
+    u = u.to(torch.float32).contiguous()
+    v = v.to(torch.float32).contiguous()
+    org, d = pinned_start_rays(cam, u, v, seed, sample_offset, f32_w, f32_h,
+                               init_u4)
+    fstate = torch.zeros((12, R), dtype=torch.float32, device=device)
+    fstate[0:3] = org.T
+    fstate[3:6] = d.T
+    fstate[6:9] = 1.0
+    istate = torch.zeros((3, R), dtype=torch.int32, device=device)
+    istate[1] = sample_offset
+    istate[2] = 1
+    cam_consts = shade_kernel.pack_camera_consts(cam, int(f32_w), int(f32_h),
+                                                 device=device)
+    tables = (scene, intersect_kernel.sphere_consts(scene), attr_mat(scene))
+    seed32 = rng.persistent_seed(seed, sample_offset)
+    last_sample = sample_offset + n_samples - 1
+    step = (shade_kernel.shade_and_regen if impl == "kernels"
+            else shade_kernel.shade_and_regen_ref)
+    for it in range(n_samples * max_depth):
+        if it % ACTIVE_CHECK_EVERY == 0 and not bool(istate[2].any()):
+            break
+        t, attrs = sweep_attr_planes(tables, fstate[0:6], tmin, impl)
+        u9 = None if rng_u9_fn is None else rng_u9_fn(it)
+        step(fstate, istate, t, attrs, u, v, cam_consts, seed32, it,
+             last_sample, max_depth, u9)
+    return fstate[9:12].T.contiguous()
+
+
+def _keyed_camera_rays(cam, u, v, key_cam: int, slots, sample_ids,
+                       f32_w: float, f32_h: float):
+    """Camera rays of samples ``sample_ids`` of the pixels at ``u``/``v``:
+    4 Philox uniforms per ray, counter (slot, block, sample, 0)."""
+    u4 = rng.philox_uniforms(key_cam, 0, slots.shape[0], 4, device=u.device,
+                             lanes=slots, coords=(sample_ids, 0)).T
+    return _film_rays(cam, u, v, u4.to(u.dtype), sample_ids == 0, f32_w,
+                      f32_h)
+
+
+@torch.no_grad()
+def persistent_render_sum(
+        scene: Scene, cam, u: torch.Tensor, v: torch.Tensor, seed: int,
+        n_samples: int, sample_offset: int = 0,
+        max_depth: int = DEFAULT_MAX_DEPTH, tmin: float = DEFAULT_TMIN,
+        f32_w: float = 0.0, f32_h: float = 0.0,
+        impl: str | None = None) -> torch.Tensor:
+    """Radiance sums ``[R, 3]`` of the pixel-pinned persistent wavefront in
+    plain PyTorch (reference: ``persistent_render_sum``, the XLA body that
+    :func:`persistent_render_sum_fused` fuses into K9): the same semantics,
+    with every draw keyed per ray so that it does not depend on how lanes
+    interleave their samples. Camera draws: Philox counter (slot, block,
+    sample, 0) under the seed's PIXEL_JITTER stream; scatter draws: counter
+    (slot, block, sample, bounce) under its SCATTER_DIR stream, a unit
+    vector by Box-Muller and a Schlick coin. The sweep is K1 on the card
+    (``impl="kernels"``), the dot form otherwise; any float type."""
+    _check_film(f32_w, f32_h)
+    dtype, dev = u.dtype, u.device
+    impl = resolve_impl(impl, dev)
+    R = u.shape[0]
+    if max_depth <= 0 or n_samples <= 0:
+        return torch.zeros((R, 3), dtype=dtype, device=dev)
+    isect = (_pick_intersector(dtype, False, impl) if impl == "kernels"
+             else lambda o, d, sc, t: (intersect_spheres(o, d, sc, tmin=t),
+                                       None))
+    key_cam = rng.purpose_seed(seed, rng.PIXEL_JITTER) & 0xFFFFFFFF
+    key_sc = rng.purpose_seed(seed, rng.SCATTER_DIR) & 0xFFFFFFFF
+    slots = torch.arange(R, dtype=torch.int64, device=dev)
+    sample_ids = torch.full((R,), sample_offset, dtype=torch.int64,
+                            device=dev)
+    org, d = _keyed_camera_rays(cam, u, v, key_cam, slots, sample_ids, f32_w,
+                                f32_h)
+    thr = torch.ones((R, 3), dtype=dtype, device=dev)
+    rad = torch.zeros((R, 3), dtype=dtype, device=dev)
+    bounces = torch.zeros((R,), dtype=torch.int64, device=dev)
+    active = torch.ones((R,), dtype=torch.bool, device=dev)
+    last_sample = sample_offset + n_samples - 1
+    for it in range(n_samples * max_depth):
+        if it % ACTIVE_CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        res, _ = isect(org, d, scene, tmin)
+        hit, miss = active & res.hit, active & ~res.hit
+        rad = rad + torch.where(miss[:, None], thr * skycolor(d),
+                                torch.zeros_like(thr))
+        t_safe = torch.where(res.hit, res.t, torch.ones_like(res.t))
+        un, xi = slot_draws(key_sc, 0, slots, dtype,
+                            coords=(sample_ids, bounces))
+        sc = scatter(org, d, t_safe, gather_sphere_attrs(scene, res.index,
+                                                         dtype), un, xi)
+        new_b = bounces + 1
+        cont = hit & (new_b < max_depth)
+        c1 = cont[:, None]
+        org = torch.where(c1, sc.origin, org)
+        d = torch.where(c1, sc.direction, d)
+        thr = torch.where(c1, thr * sc.attenuation, thr)
+        bounces = torch.where(cont, new_b, bounces)
+        # Regenerate: the same pixel's next sample, in place.
+        need = miss | (hit & ~cont)
+        nxt = sample_ids + 1
+        can = need & (nxt <= last_sample)
+        norg, nd = _keyed_camera_rays(cam, u, v, key_cam, slots, nxt, f32_w,
+                                      f32_h)
+        c1 = can[:, None]
+        org = torch.where(c1, norg, org)
+        d = torch.where(c1, nd, d)
+        thr = torch.where(c1, torch.ones_like(thr), thr)
+        bounces = torch.where(can, torch.zeros_like(bounces), bounces)
+        sample_ids = torch.where(can, nxt, sample_ids)
+        active = (active & ~need) | can
+    return rad
+
+
+# ---------------------------------------------------------------------------
+# The compacting wavefront (forward only) and its occupancy statistics
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def trace_compacted(scene: Scene, origin: torch.Tensor,
+                    direction: torch.Tensor, seed: int,
+                    max_depth: int = DEFAULT_MAX_DEPTH,
+                    tmin: float = DEFAULT_TMIN,
+                    impl: str | None = None) -> torch.Tensor:
+    """Forward-only radiance ``[R, 3]`` of :func:`trace` with ``keyed=True``,
+    sweeping only the live rays (reference: ``trace_compacted``).
+
+    Every bounce keeps the rays that hit (a boolean gather, in order) and
+    ends once none is left; the draws are keyed by the ray's slot, so each
+    ray follows the path it follows in ``trace(keyed=True)``. The reference
+    skips dead tiles and re-sorts every fourth bounce because its loop has
+    fixed shapes; eager PyTorch compacts every bounce for the price of the
+    gather. No gradient: use :func:`trace`."""
+    dtype, dev = origin.dtype, origin.device
+    R = origin.shape[0]
+    isect = _pick_intersector(dtype, False, resolve_impl(impl, dev))
+    rad = torch.zeros((R, 3), dtype=dtype, device=dev)
+    slots = torch.arange(R, dtype=torch.int32, device=dev)
+    org, d = origin, direction
+    thr = torch.ones((R, 3), dtype=dtype, device=dev)
+    for b in range(max_depth):
+        if slots.numel() == 0:
+            break
+        res, _ = isect(org, d, scene, tmin)
+        miss = ~res.hit
+        gone = slots[miss].long()
+        rad[gone] = rad[gone] + thr[miss] * skycolor(d[miss])
+        keep = res.hit
+        slots, org, d, thr = slots[keep], org[keep], d[keep], thr[keep]
+        attrs = gather_sphere_attrs(scene, res.index[keep], dtype)
+        u, xi = slot_draws(seed & 0xFFFFFFFF, b, slots, dtype)
+        s = scatter(org, d, res.t[keep], attrs, u, xi)
+        org, d, thr = s.origin, s.direction, thr * s.attenuation
+    return rad
+
+
+@torch.no_grad()
+def trace_occupancy(scene: Scene, origin: torch.Tensor,
+                    direction: torch.Tensor, seed: int,
+                    max_depth: int = DEFAULT_MAX_DEPTH,
+                    tmin: float = DEFAULT_TMIN, tile: int = 16384,
+                    impl: str | None = None,
+                    draws: Callable | None = None) -> tuple[list, list]:
+    """Per-bounce occupancy of the fixed-depth wavefront (reference:
+    ``trace_occupancy``): ``(alive_counts, active_tiles)``, each a list of
+    ``max_depth`` ints, the live rays entering bounce ``b`` and the tiles of
+    ``tile`` rays holding at least one of them. Positional draws, as
+    :func:`trace`, or the test hook ``draws(b, R)``."""
+    dtype, dev = origin.dtype, origin.device
+    R = origin.shape[0]
+    impl = resolve_impl(impl, dev)
+    isect = _pick_intersector(dtype, False, impl)
+    n_tiles = -(-R // tile)
+    alive = torch.ones((R,), dtype=torch.bool, device=dev)
+    org, d = origin, direction
+    counts, tiles = [], []
+    for b in range(max_depth):
+        counts.append(alive.sum())
+        padded = torch.zeros((n_tiles * tile,), dtype=torch.bool, device=dev)
+        padded[:R] = alive
+        tiles.append(padded.reshape(n_tiles, tile).any(1).sum())
+        res, _ = isect(org, d, scene, tmin)
+        t_safe = torch.where(res.hit, res.t, torch.ones_like(res.t))
+        u, xi = (positional_draws(seed, b, R, dtype, dev) if draws is None
+                 else draws(b, R))
+        s = scatter(org, d, t_safe, gather_sphere_attrs(scene, res.index,
+                                                        dtype), u, xi)
+        live_hit = (alive & res.hit)[:, None]
+        org = torch.where(live_hit, s.origin, org)
+        d = torch.where(live_hit, s.direction, d)
+        alive = alive & res.hit
+    return ([int(c) for c in torch.stack(counts).tolist()],
+            [int(c) for c in torch.stack(tiles).tolist()])

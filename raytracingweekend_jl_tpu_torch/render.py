@@ -10,27 +10,37 @@ The entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA they raise. On the CPU every route runs the kernels' plain
 PyTorch versions.
 
-Forward routes (``persistent=True``, the default), picked as the reference
-package picks them on its device:
+The default route (``persistent=False``, as in the reference package) traces
+sample passes through the fixed-depth wavefront ``ops/integrator.trace``:
+every bounce sweeps every ray through K1 (or K10 with ``fused_attrs=True``),
+and the image is differentiable (``remat=True`` recomputes each bounce in
+the backward). Float64 scenes and cameras render here too, through the
+dot-form sweep. The same pass loop runs the gradient kernel pairs that
+``grad.render_loss`` picks: the fixed-depth record/replay pair
+(``recorded_fused``, K3 and K7, ``ops/fused_grad.py``) or the
+persistent-record pair (``recorded_persist``, K3-K6, ``ops/persist_grad.py``).
 
-- a small full image (at most 65 536 pixels, or 131 072 with at most 64
-  spheres) renders in one launch of the inline kernel (K8,
-  ``ops/inline.py``);
-- every other contiguous full image or chunk takes the persistent strided
-  integrator (K1 and K2, ``ops/integrator.py``).
+Forward-only routes (``persistent=True``), picked as the reference package
+picks them on its device:
 
-The reference's pixel-pinned route for non-contiguous tiles
-(``shade_kernel._shade_kernel``, K9) raises ``NotImplementedError``.
+- a small image or tile without a ``pixel_start`` (at most 65 536 pixels,
+  or 131 072 with at most 64 spheres) renders in one launch of the inline
+  kernel (K8, ``ops/inline.py``);
+- a full image or a contiguous chunk (``pixel_start``) takes the persistent
+  strided integrator (K1 and K2);
+- any other tile, given by its film coordinates ``u``/``v``, takes the
+  pixel-pinned integrator (K1 and K9, ``persistent_render_sum_fused``).
 
-Differentiable routes (``persistent=False``, which ``grad.render_loss``
-picks) trace each sample pass through a kernel pair: the fixed-depth
-record/replay pair (``recorded_fused``, K3 and K7, ``ops/fused_grad.py``) or
-the persistent-record pair (``recorded_persist``, K3-K6,
-``ops/persist_grad.py``). The other gradient integrators raise
-``NotImplementedError``.
+``compact=True`` swaps the wavefront for the forward-only compacting one
+(``trace_compacted``: only live rays are swept, the draws keyed by slot).
+Not ported (they raise ``NotImplementedError``): the XLA recorded path
+(``recorded=True`` alone), ``recorded_stage``, ``remat_passes``,
+``tile_skip`` and ``remat_policy``.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -39,7 +49,9 @@ from . import rng
 from .camera import Camera, sample_pass_rays
 from .ops.fused_grad import trace_recorded_fused
 from .ops.inline import render_inline_sum
-from .ops.integrator import DEFAULT_MAX_DEPTH, persistent_render_sum_strided
+from .ops.integrator import (DEFAULT_MAX_DEPTH, persistent_render_sum_fused,
+                             persistent_render_sum_strided, trace,
+                             trace_compacted)
 from .ops.intersect import DEFAULT_TMIN
 from .ops.persist_grad import trace_recorded_persist
 from .ops.vecmath import gamma2_encode
@@ -115,49 +127,163 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _check_route(persistent: bool, recorded: bool = False,
+                 recorded_fused: bool = False, recorded_stage=None,
+                 recorded_persist=None, remat_passes: bool = False,
+                 tile_skip: int = 0, remat_policy: str | None = None) -> None:
+    """Raise for the routes that are not ported."""
+    if persistent:
+        return
+    what = None
+    if remat_passes:
+        what = ("remat_passes=True (recomputing each pass's record in the "
+                "backward); lower n_samples or raise the record budget")
+    elif recorded_stage is not None:
+        what = ("recorded_stage (ops/grad_trace.trace_recorded_staged); use "
+                "recorded_fused or recorded_persist")
+    elif tile_skip:
+        what = "tile_skip (per-tile skipping of dead rays in trace)"
+    elif remat_policy is not None:
+        what = f"remat_policy={remat_policy!r} (a jax.checkpoint policy)"
+    elif recorded and recorded_persist is None and not recorded_fused:
+        what = ("the XLA recorded path (ops/grad_trace.trace_recorded); the "
+                "differentiable routes are the default trace (remat or "
+                "not), recorded_fused and recorded_persist")
+    if what is not None:
+        raise NotImplementedError(f"{what} is not ported")
+
+
+def _pass_tracer(scene: Scene, max_depth: int, tmin: float,
+                 impl: str | None, *, remat: bool = False,
+                 fused_attrs: bool = False, compact: bool = False,
+                 recorded_fused: bool = False,
+                 recorded_persist: tuple | None = None,
+                 persist_strict: bool = False, replay_fused: bool = True,
+                 stats: dict | None = None) -> Callable:
+    """``trace(origin, direction, seed32) -> radiance [R, 3]`` of one sample
+    pass through the route the flags pick, in the reference's order: the
+    forward-only compacting wavefront with ``compact``; the
+    persistent-record pair when ``recorded_persist = (n_strips,
+    n_iters|None[, tail_compact[, rec_attrs]])`` is given; the fixed-depth
+    pair with ``recorded_fused``; else the fixed-depth wavefront ``trace``."""
+    if compact:
+        return lambda o, d, s: trace_compacted(scene, o, d, s, max_depth,
+                                               tmin, impl=impl)
+    if recorded_persist is not None:
+        p_strips, p_iters = recorded_persist[0], recorded_persist[1]
+        p_tc = recorded_persist[2] if len(recorded_persist) > 2 else None
+        p_rec_attrs = recorded_persist[3] if len(recorded_persist) > 3 \
+            else True
+        return lambda o, d, s: trace_recorded_persist(
+            scene, o, d, s, max_depth, tmin, p_strips, p_iters,
+            tail_compact=p_tc, rec_attrs=p_rec_attrs, strict=persist_strict,
+            impl=impl, stats=stats)
+    if recorded_fused:
+        return lambda o, d, s: trace_recorded_fused(
+            scene, o, d, s, max_depth, tmin, replay_fused=replay_fused,
+            impl=impl)
+    return lambda o, d, s: trace(scene, o, d, s, max_depth, tmin, remat=remat,
+                                 fused_attrs=fused_attrs, impl=impl)
+
+
+def render_tile_sum_traced(scene: Scene, cam: Camera, u: torch.Tensor,
+                           v: torch.Tensor, seed: int, n_samples: int,
+                           sample_offset: int, f32_w: float, f32_h: float,
+                           samples_per_pass: int, trace_fn: Callable
+                           ) -> torch.Tensor:
+    """Radiance *sum* ``[n_pix, 3]`` of the pixels at film coordinates
+    ``u``/``v`` [n_pix]: the reference's pass loop.
+
+    Pass ``p`` traces ``samples_per_pass`` samples of every pixel in one
+    wavefront, global samples from ``s0 = sample_offset + p *
+    samples_per_pass``, with the camera rays of
+    :func:`camera.sample_pass_rays`, through ``trace_fn(origin, direction,
+    seed32)`` (:func:`_pass_tracer`), whose draws are keyed by
+    ``purpose_seed(seed, SCATTER_DIR, s0)`` cut to 32 bits."""
+    spp = samples_per_pass
+    if n_samples % spp:
+        raise ValueError(f"samples_per_pass={spp} must divide "
+                         f"n_samples={n_samples}")
+    n_pix = u.shape[0]
+    acc = torch.zeros((n_pix, 3), dtype=u.dtype, device=u.device)
+    for p in range(n_samples // spp):
+        s0 = sample_offset + p * spp
+        origin, direction = sample_pass_rays(cam, u, v, seed, s0, spp, f32_w,
+                                             f32_h)
+        radiance = trace_fn(origin, direction,
+                            rng.purpose_seed(seed, rng.SCATTER_DIR, s0)
+                            & 0xFFFFFFFF)
+        acc = acc + radiance.reshape(spp, n_pix, 3).sum(0)
+    return acc
+
+
 def render_tile_sum(scene: Scene, cam: Camera, n_pix: int, seed: int,
                     n_samples: int, sample_offset: int, max_depth: int,
                     tmin: float, f32_w: float, f32_h: float,
-                    persistent: bool = True, pixel_start: int | None = None,
+                    persistent: bool = False, pixel_start: int | None = None,
                     impl: str | None = None,
                     generator: torch.Generator | None = None,
-                    inline: bool | None = None) -> torch.Tensor:
-    """Radiance *sum* ``[n_pix, 3]`` of ``n_samples`` samples for the
-    contiguous pixel range from ``pixel_start`` (``None`` = a full image),
-    on the scene's device.
+                    inline: bool | None = None, *,
+                    u: torch.Tensor | None = None,
+                    v: torch.Tensor | None = None,
+                    samples_per_pass: int = 1, **route) -> torch.Tensor:
+    """Radiance *sum* ``[n_pix, 3]`` of ``n_samples`` samples of one tile,
+    on the scene's device (reference: ``render.render_tile_sum``).
 
-    ``inline=None`` picks the route as the reference package does: a small
-    full image (:func:`inline_route_for`) takes the single-launch inline
-    kernel, everything else the strided integrator, with ``k`` and the
-    sample-group fold picked as the reference picks them. ``inline=False``
-    pins the strided route, ``inline=True`` the inline one. ``generator``
-    feeds the strided route's strip-0 draws; the inline route draws its
-    camera rays per sample pass (:func:`camera.sample_pass_rays`) and
-    refuses it."""
-    if not persistent:
-        raise NotImplementedError(
-            "the fixed-depth wavefront (persistent=False, ops/integrator.trace) "
-            "is not ported yet; use persistent=True")
+    The tile is the contiguous pixel range from ``pixel_start``, or the
+    whole image (``pixel_start=None``, ``n_pix == W * H``), or any set of
+    pixels given by their film coordinates ``u``/``v`` [n_pix].
+
+    ``persistent=False`` runs the pass loop (:func:`render_tile_sum_traced`)
+    with the route flags in ``route`` (``remat``, ``fused_attrs``,
+    ``recorded_fused``, ``recorded_persist``, ...). ``persistent=True``
+    routes as the reference package does: ``inline=None`` sends a small
+    tile without ``pixel_start`` to the single-launch inline kernel; a full
+    image or a ``pixel_start`` range takes the strided integrator, with
+    ``k`` and the sample-group fold picked as the reference picks them; any
+    other tile the pixel-pinned integrator (K9). ``inline=False`` skips the
+    inline route, ``inline=True`` forces it. ``generator`` feeds the
+    strided route's strip-0 draws and is refused elsewhere."""
     W, H = int(f32_w), int(f32_h)
     full_image = n_pix == W * H
-    if pixel_start is None and not full_image:
-        raise NotImplementedError(
-            "non-contiguous tiles need the pixel-pinned persistent kernel "
-            "(TPU ops/pallas/shade_kernel.py::_shade_kernel), not ported yet")
+    if u is None:
+        if pixel_start is None and not full_image:
+            raise ValueError(
+                f"a tile of {n_pix} of {W * H} pixels needs pixel_start "
+                "(a contiguous range) or its film coordinates u, v")
+        start = 0 if pixel_start is None else pixel_start
+        u, v = pixel_coords(W, H, dtype=cam.origin.dtype, device=scene.device)
+        u, v = u[start:start + n_pix], v[start:start + n_pix]
     if inline is None:
         inline = pixel_start is None and inline_route_for(n_pix,
                                                           scene.n_spheres)
+    strided = full_image or pixel_start is not None
+    if generator is not None and not (persistent and strided and not inline):
+        raise ValueError(
+            "generator feeds the strided route's strip-0 draws; the other "
+            "routes draw their camera rays from generators keyed by (seed, "
+            "purpose, sample): pass persistent=True, inline=False to use one")
+    if not persistent:
+        _check_route(False, **{k: route[k] for k in (
+            "recorded", "recorded_fused", "recorded_stage",
+            "recorded_persist", "remat_passes", "tile_skip",
+            "remat_policy") if k in route})
+        tracer = _pass_tracer(scene, max_depth, tmin, impl, **{
+            k: route[k] for k in ("remat", "fused_attrs", "compact",
+                                  "recorded_fused", "recorded_persist",
+                                  "persist_strict", "replay_fused", "stats")
+            if k in route})
+        return render_tile_sum_traced(scene, cam, u, v, seed, n_samples,
+                                      sample_offset, f32_w, f32_h,
+                                      samples_per_pass, tracer)
     if inline:
-        if generator is not None:
-            raise ValueError(
-                "generator feeds the strided route's strip-0 draws; the "
-                "inline route draws its camera rays from generators keyed by "
-                "(seed, purpose, sample): pass inline=False to use one")
-        start = 0 if pixel_start is None else pixel_start
-        u, v = pixel_coords(W, H, device=scene.device)
-        return render_inline_sum(
-            scene, cam, u[start:start + n_pix], v[start:start + n_pix], seed,
-            n_samples, sample_offset, max_depth, tmin, f32_w, f32_h, impl)
+        return render_inline_sum(scene, cam, u, v, seed, n_samples,
+                                 sample_offset, max_depth, tmin, f32_w,
+                                 f32_h, impl)
+    if not strided:
+        return persistent_render_sum_fused(scene, cam, u, v, seed, n_samples,
+                                           sample_offset, max_depth, tmin,
+                                           f32_w, f32_h, impl=impl)
     m = strided_sample_groups_for(n_pix, n_samples)
     k = (1 if m > 1 else
          (64 if n_pix >= 48 * STRIDED_MIN_LANES else strided_k_for(n_pix)))
@@ -167,127 +293,46 @@ def render_tile_sum(scene: Scene, cam: Camera, n_pix: int, seed: int,
         sample_groups=m, impl=impl, generator=generator)
 
 
-def _check_grad_route(recorded: bool, remat: bool, recorded_fused: bool,
-                      recorded_stage, recorded_persist, remat_passes: bool,
-                      persistent: bool) -> None:
-    """Raise for the gradient integrators that are not ported."""
-    if persistent:
-        return
-    if remat_passes:
-        raise NotImplementedError(
-            "remat_passes=True (recomputing each pass's record in the "
-            "backward) is not ported yet; lower n_samples or raise the "
-            "record budget")
-    if recorded_stage is not None:
-        raise NotImplementedError(
-            "recorded_stage (ops/grad_trace.trace_recorded_staged) is not "
-            "ported; use recorded_fused or recorded_persist")
-    if recorded_persist is None and not recorded_fused:
-        what = ("the remat XLA transpose and the sweep VJP _sweep_bwd"
-                if remat else
-                "the XLA recorded path (ops/grad_trace.trace_recorded)"
-                if recorded else
-                "the fixed-depth wavefront (ops/integrator.trace)")
-        raise NotImplementedError(
-            f"{what} is not ported yet; the differentiable routes are "
-            "recorded_fused (the fixed-depth kernel pair) and "
-            "recorded_persist (the persistent-record kernel pair)")
-
-
-def render_tile_sum_recorded(scene: Scene, cam: Camera, n_pix: int,
-                             pixel_start: int, seed: int, n_samples: int,
-                             sample_offset: int, max_depth: int, tmin: float,
-                             f32_w: float, f32_h: float,
-                             samples_per_pass: int,
-                             recorded_persist: tuple | None = None,
-                             persist_strict: bool = False,
-                             impl: str | None = None,
-                             stats: dict | None = None,
-                             replay_fused: bool = True) -> torch.Tensor:
-    """Differentiable radiance *sum* ``[n_pix, 3]`` of the contiguous pixel
-    range from ``pixel_start``: the reference's recorded pass loop.
-
-    Pass ``p`` traces ``samples_per_pass`` samples of every pixel in one
-    wavefront, global samples from ``s0 = sample_offset + p *
-    samples_per_pass``, with the camera rays of
-    :func:`camera.sample_pass_rays`. Its trace draws are keyed by
-    ``purpose_seed(seed, SCATTER_DIR, s0)``, cut to 32 bits. Each pass runs
-    the persistent-record pair when ``recorded_persist = (n_strips,
-    n_iters|None[, tail_compact[, rec_attrs]])`` is given, else the
-    fixed-depth pair (``replay_fused=False`` replays it bounce by
-    bounce)."""
-    device = scene.device
-    spp = samples_per_pass
-    if n_samples % spp:
-        raise ValueError(f"samples_per_pass={spp} must divide "
-                         f"n_samples={n_samples}")
-    W, H = int(f32_w), int(f32_h)
-    u, v = pixel_coords(W, H, device=device)
-    u = u[pixel_start:pixel_start + n_pix]
-    v = v[pixel_start:pixel_start + n_pix]
-    if recorded_persist is not None:
-        p_strips, p_iters = recorded_persist[0], recorded_persist[1]
-        p_tc = recorded_persist[2] if len(recorded_persist) > 2 else None
-        p_rec_attrs = recorded_persist[3] if len(recorded_persist) > 3 \
-            else True
-
-        def trace(origin, direction, seed32):
-            return trace_recorded_persist(
-                scene, origin, direction, seed32, max_depth, tmin, p_strips,
-                p_iters, tail_compact=p_tc, rec_attrs=p_rec_attrs,
-                strict=persist_strict, impl=impl, stats=stats)
-    else:
-        def trace(origin, direction, seed32):
-            return trace_recorded_fused(
-                scene, origin, direction, seed32, max_depth, tmin,
-                replay_fused=replay_fused, impl=impl)
-    acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
-    for p in range(n_samples // spp):
-        s0 = sample_offset + p * spp
-        origin, direction = sample_pass_rays(cam, u, v, seed, s0, spp, f32_w,
-                                             f32_h)
-        radiance = trace(origin, direction,
-                         rng.purpose_seed(seed, rng.SCATTER_DIR, s0)
-                         & 0xFFFFFFFF)
-        acc = acc + radiance.reshape(spp, n_pix, 3).sum(0)
-    return acc
-
-
 def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
                     n_samples: int = 1, *, image_height: int | None = None,
                     max_depth: int = DEFAULT_MAX_DEPTH,
                     tmin: float = DEFAULT_TMIN, seed: int = 0,
-                    pixel_chunk: int | None = None, persistent: bool = True,
+                    pixel_chunk: int | None = None, persistent: bool = False,
                     device=None, impl: str | None = None,
                     generator: torch.Generator | None = None,
                     inline: bool | None = None,
-                    recorded: bool = False, remat: bool = False,
-                    recorded_fused: bool = False,
+                    remat: bool = False, fused_attrs: bool = False,
+                    compact: bool = False,
+                    recorded: bool = False, recorded_fused: bool = False,
                     recorded_stage: tuple | None = None,
                     recorded_persist: tuple | None = None,
                     rays_per_pass: int | None = None,
                     remat_passes: bool = False,
                     persist_strict: bool = False,
                     replay_fused: bool = True,
+                    tile_skip: int = 0, remat_policy: str | None = None,
                     stats: dict | None = None) -> torch.Tensor:
     """Linear mean radiance ``[H, W, 3]`` (no gamma) on ``device``: the card
-    unless ``device="cpu"`` (the scene and camera move there). ``pixel_chunk``
-    renders contiguous chunks of that many pixels one after another, chunk
-    ``c`` with seed ``fold_in(seed, c)``. ``inline`` picks the forward route
-    (see :func:`render_tile_sum`); ``generator`` (single-chunk strided
-    renders only) supplies the strip-0 draws.
+    unless ``device="cpu"`` (the scene and camera move there), in the
+    camera's float type. Differentiable w.r.t. the scene on the default
+    route. ``pixel_chunk`` renders contiguous chunks of that many pixels one
+    after another, chunk ``c`` with seed ``fold_in(seed, c)``.
 
-    ``persistent=False`` with ``recorded_fused`` or ``recorded_persist``
-    renders differentiably (gradients reach the scene's tensors),
-    ``rays_per_pass`` samples merged per wavefront (see
-    :func:`pick_samples_per_pass`); ``replay_fused=False`` replays the
-    fixed-depth pair bounce by bounce; ``persist_strict`` NaN-poisons the
-    image and its gradients if the persistent pair drops any path;
-    ``stats`` (a dict) collects its dropped count and occupancy. The other
-    gradient integrators (``recorded_stage``, ``remat``, ``remat_passes``,
-    ``recorded`` alone) raise ``NotImplementedError``."""
-    _check_grad_route(recorded, remat, recorded_fused, recorded_stage,
-                      recorded_persist, remat_passes, persistent)
+    ``persistent=False`` (the default) traces sample passes, ``rays_per_pass``
+    samples merged per wavefront (see :func:`pick_samples_per_pass`),
+    through the fixed-depth wavefront ``trace`` (``remat``,
+    ``fused_attrs``; ``compact`` for the forward-only compacting
+    wavefront), or through a gradient kernel pair: ``recorded_fused``,
+    or ``recorded_persist`` with ``persist_strict`` (NaN-poisons the image
+    and its gradients if the pair drops a path) and ``stats`` (a dict
+    collecting its dropped count and occupancy); ``replay_fused=False``
+    replays the fixed-depth pair bounce by bounce. ``persistent=True`` takes
+    the forward-only routes of :func:`render_tile_sum` (``inline``;
+    ``generator``, single-chunk strided renders only, supplies the strip-0
+    draws). The routes of the module docstring's last paragraph raise
+    ``NotImplementedError``."""
+    _check_route(persistent, recorded, recorded_fused, recorded_stage,
+                 recorded_persist, remat_passes, tile_skip, remat_policy)
     device = _resolve_device(device)
     scene = trim_scene(scene.to(device))
     cam = cam.to(device)
@@ -301,6 +346,19 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
     if len(chunks) > 1 and generator is not None:
         raise ValueError("generator is for single-chunk renders; chunked "
                          "renders seed each chunk from fold_in(seed, c)")
+    if not persistent:
+        if generator is not None:
+            raise ValueError(
+                "generator feeds the strided route's strip-0 draws; pass "
+                "persistent=True, inline=False to use one")
+        tracer = _pass_tracer(scene, max_depth, tmin, impl, remat=remat,
+                              fused_attrs=fused_attrs, compact=compact,
+                              recorded_fused=recorded_fused,
+                              recorded_persist=recorded_persist,
+                              persist_strict=persist_strict,
+                              replay_fused=replay_fused, stats=stats)
+        u_all, v_all = pixel_coords(W, H, dtype=cam.origin.dtype,
+                                    device=device)
     pieces = []
     for c, (start, size) in enumerate(chunks):
         seed_c = seed if len(chunks) == 1 else rng.fold_in(seed, c)
@@ -312,10 +370,10 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
         else:
             spp_pass = 1 if rays_per_pass is None else \
                 pick_samples_per_pass(size, n_samples, rays_per_pass)
-            pieces.append(render_tile_sum_recorded(
-                scene, cam, size, start, seed_c, n_samples, 0, max_depth,
-                tmin, fw, fh, spp_pass, recorded_persist, persist_strict,
-                impl, stats, replay_fused))
+            pieces.append(render_tile_sum_traced(
+                scene, cam, u_all[start:start + size],
+                v_all[start:start + size], seed_c, n_samples, 0, fw, fh,
+                spp_pass, tracer))
     out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
     return (out / n_samples).reshape(H, W, 3)
 

@@ -110,14 +110,22 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
 
 
 def philox_uniforms(seed: int, iteration: int, n_lanes: int, n: int = 9,
-                    device="cpu") -> torch.Tensor:
+                    device="cpu", lanes: torch.Tensor | None = None,
+                    coords: tuple = (0, 0)) -> torch.Tensor:
     """``[n, n_lanes]`` float32 uniforms of one strided iteration: Philox
     keyed by ``(seed, iteration)``, counter ``(lane, block, 0, 0)``; uniform
-    ``j`` is word ``j % 4`` of block ``j // 4``. Independent of launch shape."""
-    lane = torch.arange(n_lanes, dtype=torch.int64, device=device)
+    ``j`` is word ``j % 4`` of block ``j // 4``. Independent of launch shape.
+    ``lanes`` ([n_lanes] integer ids) replaces the counters ``0..n_lanes-1``:
+    a ray keyed by its slot draws the same numbers wherever it sits.
+    ``coords`` (two ints or [n_lanes] integer tensors) fill the counter's
+    last two words, e.g. a ray's sample and bounce."""
+    lane = (torch.arange(n_lanes, dtype=torch.int64, device=device)
+            if lanes is None else lanes.to(torch.int64) & _M32)
     zero = torch.zeros_like(lane)
+    c2, c3 = ((zero + c if isinstance(c, int) else c.to(torch.int64)) & _M32
+              for c in coords)
     key = (seed & _M32, iteration & _M32)
     words = []
     for blk in range(-(-n // 4)):
-        words.extend(philox4x32((lane, zero + blk, zero, zero), key))
+        words.extend(philox4x32((lane, zero + blk, c2, c3), key))
     return torch.stack([bits_to_uniform(w) for w in words[:n]])

@@ -237,8 +237,9 @@ def test_check_grads_sane_names_the_field(field):
         pt.check_grads_sane(pt.SceneGrads(**bad))
 
 
-@pytest.mark.parametrize("kw", [{"recorded": True}, {"remat": True},
-                                {"recorded": False},
+@pytest.mark.parametrize("kw", [{"recorded": True},
+                                {"remat": True, "tile_skip": 64},
+                                {"recorded": False, "remat_policy": "dots"},
                                 {"recorded_stage": (4, 8)},
                                 {"recorded_persist": (8, None),
                                  "remat_passes": True}])
@@ -250,13 +251,27 @@ def test_unported_gradient_integrators_raise(kw):
                        device="cpu", **kw)
 
 
-def test_fused_step_and_twin_canary_raise():
+def test_fused_step_and_twin_canary_raise(monkeypatch):
+    # The fused record step (K11) is not ported and raises. The canary now
+    # runs (test_torch_trace.py) and raises GradSanityError when the kernel
+    # pair's gradients are corrupted: here its albedo gradient scaled by
+    # 1e6, as the JAX package's test_twin_ad_canary_catches_norm_blowup.
     scene = pt.scene_from_numpy(_mirror_world()[0])
     o = torch.zeros((4, 3))
     with pytest.raises(NotImplementedError, match="K11"):
         pt.trace_recorded_persist(scene, o, o, 0, fused_step=True)
-    with pytest.raises(NotImplementedError):
-        G.twin_ad_canary(scene, pt.camera_from_numpy(_mirror_world()[1]))
+    real = G.render_grads
+
+    def corrupted(*a, **k):
+        loss, g = real(*a, **k)
+        if k.get("recorded") is not False:
+            g = g._replace(albedo=g.albedo * 1e6)
+        return loss, g
+
+    monkeypatch.setattr(G, "render_grads", corrupted)
+    with pytest.raises(G.GradSanityError):
+        G.twin_ad_canary(scene, pt.camera_from_numpy(_mirror_world()[1]),
+                         width=32, n_samples=1, device="cpu")
 
 
 def test_dattr_contract_exact_deterministic_and_order_free():

@@ -233,7 +233,8 @@ def test_forward_route_pick(monkeypatch, W, H, scene_name, kw, route):
     scene = (pt.scene_4_spheres() if scene_name == "4_spheres"
              else pt.scene_random_spheres(seed=1))
     img = pt.render_radiance(scene, pt.t_default_cam(), W, 1,
-                             image_height=H, device="cpu", **kw)
+                             image_height=H, device="cpu", persistent=True,
+                             **kw)
     assert img.shape == (H, W, 3)
     assert set(taken) == {route}
 
@@ -244,9 +245,10 @@ def test_inline_refuses_a_generator():
     g = torch.Generator().manual_seed(1)
     with pytest.raises(ValueError, match="inline=False"):
         pt.render_radiance(pt.scene_2_spheres(), pt.t_default_cam(), 16, 1,
-                           device="cpu", generator=g)
+                           device="cpu", generator=g, persistent=True)
     img = pt.render_radiance(pt.scene_2_spheres(), pt.t_default_cam(), 16, 1,
-                             device="cpu", generator=g, inline=False)
+                             device="cpu", generator=g, persistent=True,
+                             inline=False)
     assert torch.isfinite(img).all()
 
 
@@ -255,9 +257,10 @@ def test_inline_render_agrees_with_the_strided_route():
     # every channel mean within 1% (measured: within 0.14%; 0.22% and
     # 0.30% at seeds 5 and 7).
     scene, cam = pt.scene_4_spheres(), pt.t_default_cam()
-    a = pt.render_radiance(scene, cam, 64, 8, seed=3, device="cpu")
+    a = pt.render_radiance(scene, cam, 64, 8, seed=3, device="cpu",
+                           persistent=True)
     b = pt.render_radiance(scene, cam, 64, 8, seed=3, device="cpu",
-                           inline=False)
+                           persistent=True, inline=False)
     ma, mb = a.mean((0, 1)), b.mean((0, 1))
     assert ((ma - mb).abs() <= 0.01 * mb).all(), (ma, mb)
 

@@ -100,12 +100,12 @@ def test_render_matches_jax_statistically():
                                        W, spp, seed=0, persistent=True))
     b = pt.render_radiance(pt.scene_4_spheres(), pt.t_default_cam(), W, spp,
                            seed=11, generator=torch.Generator().manual_seed(5),
-                           device="cpu", inline=False)
+                           device="cpu", persistent=True, inline=False)
     d = (b.numpy() - a).reshape(-1, 3)
     se = d.std(0) / np.sqrt(d.shape[0])
     assert (np.abs(d.mean(0)) < 3 * se).all(), (d.mean(0), se)
     small = dict(seed=11, generator=torch.Generator().manual_seed(5),
-                 device="cpu", inline=False)
+                 device="cpu", persistent=True, inline=False)
     img = pt.render(pt.scene_4_spheres(), pt.t_default_cam(), 16, 2, **small)
     small["generator"] = torch.Generator().manual_seed(5)
     lin = pt.render_radiance(pt.scene_4_spheres(), pt.t_default_cam(), 16, 2,
@@ -119,9 +119,9 @@ def test_chunked_and_sample_grouped_renders_agree():
     # both estimate the same image.
     scene, cam = pt.scene_2_spheres(), pt.t_default_cam()
     full = pt.render_radiance(scene, cam, 64, 8, seed=1, device="cpu",
-                              inline=False)
+                              persistent=True, inline=False)
     chunked = pt.render_radiance(scene, cam, 64, 8, seed=1, pixel_chunk=1000,
-                                 device="cpu")
+                                 device="cpu", persistent=True)
     assert strided_sample_groups_for(64 * 36, 8) == 8
     assert full.shape == chunked.shape == (36, 64, 3)
     d = (full - chunked).reshape(-1, 3)
@@ -137,15 +137,25 @@ def test_strided_dispatch_helpers_match_jax():
         assert strided_sample_groups_for(n_pix, spp) == jgroups_for(n_pix, spp)
 
 
-@pytest.mark.parametrize("route", ["inline", "non_contiguous", "fixed_depth"])
+@pytest.mark.parametrize("route", ["inline", "non_contiguous", "fixed_depth",
+                                   "remat_passes", "recorded_stage"])
 def test_unported_routes_raise(route):
-    # The non-contiguous tile (K9) and the fixed-depth forward wavefront
-    # raise; the inline route (K8) is ported and renders.
+    # The routes that are ported render through render_tile_sum: the inline
+    # route (K8), a non-contiguous tile given by its film coordinates (the
+    # pixel-pinned route, K9) and the fixed-depth wavefront (trace). Pass
+    # recomputation and the staged recorded path still raise.
     scene, cam = pt.scene_2_spheres(), pt.t_default_cam()
-    kw = dict(inline=route == "inline",
-              persistent=route != "fixed_depth")
+    u, v = pt.pixel_coords(64, 36)
+    kw = {"inline": dict(persistent=True, inline=True),
+          "non_contiguous": dict(persistent=True, inline=False,
+                                 u=u[:2300:23], v=v[:2300:23]),
+          "fixed_depth": dict(persistent=False),
+          "remat_passes": dict(persistent=False, recorded_fused=True,
+                               remat_passes=True),
+          "recorded_stage": dict(persistent=False,
+                                 recorded_stage=(4, 8))}[route]
     n_pix = 100 if route == "non_contiguous" else 64 * 36
-    if route == "inline":
+    if route in ("inline", "non_contiguous", "fixed_depth"):
         out = pt.render_tile_sum(scene, cam, n_pix, 0, 1, 0, 16, 1e-4, 64.0,
                                  36.0, **kw)
         assert out.shape == (n_pix, 3) and torch.isfinite(out).all()
@@ -176,11 +186,14 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_float64_render_raises():
-    # Only float32 is ported; a float64 scene must not run silently in
-    # float32.
-    with pytest.raises(NotImplementedError):
-        pt.render(pt.scene_2_spheres(dtype=torch.float64),
-                  pt.t_default_cam(dtype=torch.float64), 16, 1, device="cpu")
+    # The persistent routes are float32 only (their kernels and states are
+    # float32); a float64 scene must not run silently in float32 there. The
+    # fixed-depth default route renders float64 (test_torch_trace.py).
+    for inline in (True, False):
+        with pytest.raises(NotImplementedError):
+            pt.render(pt.scene_2_spheres(dtype=torch.float64),
+                      pt.t_default_cam(dtype=torch.float64), 16, 1,
+                      device="cpu", persistent=True, inline=inline)
 
 
 def test_port_imports_no_jax():
@@ -191,7 +204,8 @@ def test_port_imports_no_jax():
             "    importlib.import_module(m.name)\n"
             "for m in ('grad', 'ops.persist_grad', 'ops.cuda.grad_kernel',\n"
             "          'ops.cuda.persist_grad_kernel', 'optimize',\n"
-            "          'ops.fused_grad', 'ops.inline', 'ops.cuda.inline_kernel'):\n"
+            "          'ops.fused_grad', 'ops.inline', 'ops.cuda.inline_kernel',\n"
+            "          'ops.materials', 'ops.integrator'):\n"
             "    assert p.__name__ + '.' + m in sys.modules, m\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('raytracingweekend_jl_tpu.')]\n"
@@ -212,10 +226,10 @@ def test_render_kernels_match_plain_on_card(cuda_device):
     scene, cam = pt.scene_4_spheres(), pt.t_default_cam()
     intersect_kernel.launches = shade_kernel.launches = 0
     a = pt.render_radiance(scene, cam, 256, 16, device=cuda_device, seed=3,
-                           inline=False)
+                           persistent=True, inline=False)
     assert intersect_kernel.launches > 0 and shade_kernel.launches > 0
     b = pt.render_radiance(scene, cam, 256, 16, device=cuda_device, seed=3,
-                           impl="plain", inline=False)
+                           impl="plain", persistent=True, inline=False)
     assert torch.isfinite(a).all()
     ma, mb = a.mean((0, 1)), b.mean((0, 1))
     assert ((ma - mb).abs() <= 0.01 * mb).all()
