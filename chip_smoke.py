@@ -10,7 +10,11 @@ gradient step (``render_grads``), the inverse-rendering fit at the
 configuration of the JAX package's inverse demo (``fit_scene``, with its
 small-image gradient step and forward render), then the default ``render``
 through the fixed-depth wavefront, a non-contiguous tile through the
-pixel-pinned route, the remat gradient step and the twin-AD canary. It
+pixel-pinned route, the remat gradient step and the twin-AD canary, and
+last the flagship gradient step through the fused record step
+(``trace_recorded_persist(fused_step=True)``), the flagship render through
+the megakernel (``persistent_render_sum_mega``) and the cluster sweep
+(``intersect_spheres_grid``) on the flagship's rays in five lane orders. It
 times the kernels, the renders, the steps and the fit against the plain
 path. Each phase prints one JSON line; a failed
 check raises and the script exits non-zero without printing a result. The
@@ -75,27 +79,30 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 def _counted_modules() -> tuple:
     from raytracingweekend_jl_tpu_torch.ops.cuda import grad_kernel as GK
+    from raytracingweekend_jl_tpu_torch.ops.cuda import grid_kernel as K13
     from raytracingweekend_jl_tpu_torch.ops.cuda import inline_kernel as K8
     from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    from raytracingweekend_jl_tpu_torch.ops.cuda import mega_kernel as K12
     from raytracingweekend_jl_tpu_torch.ops.cuda import persist_grad_kernel as PK
     from raytracingweekend_jl_tpu_torch.ops.cuda import shade_kernel as K2
-    return K1, K2, PK, GK, K8
+    return K1, K2, PK, GK, K8, K12, K13
 
 
 def reset_counts() -> None:
     """Sets every kernel wrapper's launch count to 0."""
-    K1, K2, PK, GK, K8 = _counted_modules()
+    K1, K2, PK, GK, K8, K12, K13 = _counted_modules()
     K1.launches = K2.launches = K1.masked_launches = 0
     K1.fetch_launches = K2.pinned_launches = 0
     PK.record_launches = PK.replay_fused_launches = 0
-    PK.replay_step_launches = 0
+    PK.replay_step_launches = PK.record_fused_launches = 0
     GK.record_launches = GK.replay_step_launches = 0
     GK.replay_fused_launches = K8.launches = 0
+    K12.launches = K13.launches = 0
 
 
 def counts() -> dict:
     """Every kernel's launch count, by its name in the ``kernels`` line."""
-    K1, K2, PK, GK, K8 = _counted_modules()
+    K1, K2, PK, GK, K8, K12, K13 = _counted_modules()
     return {"sweep": K1.launches, "shade_strided": K2.launches,
             "sweep_masked": K1.masked_launches,
             "persist_record": PK.record_launches,
@@ -105,7 +112,9 @@ def counts() -> dict:
             "replay_bwd_step": GK.replay_step_launches,
             "replay_bwd_fused": GK.replay_fused_launches,
             "inline": K8.launches, "sweep_fetch": K1.fetch_launches,
-            "shade_pinned": K2.pinned_launches}
+            "shade_pinned": K2.pinned_launches,
+            "persist_record_fused": PK.record_fused_launches,
+            "mega": K12.launches, "grid_sweep": K13.launches}
 
 
 def call_ms(fn, n: int, setup=None) -> float:
@@ -202,8 +211,9 @@ def lanes_outside(close_pairs, rel: float, exact_pairs=()) -> tuple:
 def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
     """K3-K6 against their plain versions at the flagship's gradient shapes
     (spp 1, 8 strips, 262 144 lanes, a recorded 44-slot phase), and their
-    times. Returns their rows of the ``kernels`` line (launches unset) and
-    their ``device_ms`` and ``call_ms`` entries."""
+    times. Returns their rows of the ``kernels`` line (launches unset),
+    their ``device_ms`` and ``call_ms`` entries, and the record phase's
+    state before iteration 20 (for K11's checks)."""
     import torch
     import raytracingweekend_jl_tpu_torch as pt
     from raytracingweekend_jl_tpu_torch import rng
@@ -433,9 +443,11 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
              "persist_grad_kernel.py:665", k5_err),
             ("persist_replay_step", "persist_replay.cu",
              "persist_grad_kernel.py:542", k6_err)]
+    snap = dict(strips=strips, sf=sf20, si=si20, rad=rad20, seed=SEED,
+                spheres=spheres, amat=amat, depth=DEPTH, iteration=20)
     return [kernel_row(nm, f"{pkg}/{src}", f"{tpu}/{tpu_at}", err,
                        dev_ms[nm], dev_ms[nm + "_plain"], bounds[nm])
-            for nm, src, tpu_at, err in rows], dev_ms, call
+            for nm, src, tpu_at, err in rows], dev_ms, call, snap
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, bnd) -> dict:
@@ -1457,6 +1469,570 @@ def trace_slice_phases(dev, card, scene, cam, rays, lin_strided,
     return rows_out
 
 
+def _strided_perm(n: int, k: int):
+    """The strided route's lane order (``scripts/spatial_probe.py``): lane
+    ``l`` serves pixels ``l, l + n/k, ...``."""
+    import numpy as np
+    stride = n // k
+    idx = np.arange(n)
+    return np.argsort((idx % stride) * k + idx // stride, kind="stable")
+
+
+def _tile_perm(W: int, H: int, tw: int, th: int):
+    """Pixels reordered into ``tw x th`` image tiles
+    (``scripts/spatial_probe.py``)."""
+    import numpy as np
+    i, j = np.mgrid[0:H, 0:W]
+    key = ((i // th) * ((W + tw - 1) // tw) + (j // tw)) * (W * H) \
+        + (i % th) * tw + (j % tw)
+    return np.argsort(key.ravel(), kind="stable")
+
+
+def _bits(x):
+    """A tensor's bit pattern (floats as int32), for bitwise comparisons."""
+    import torch
+    return x.contiguous().view(torch.int32) if x.is_floating_point() else x
+
+
+def _bitwise_lanes(pairs, n: int):
+    """Per lane (last axis of length ``n``): any word of any pair differs."""
+    diffs = [(_bits(a).reshape(-1, n) != _bits(b).reshape(-1, n)).any(0)
+             for a, b in pairs]
+    for d in diffs[1:]:
+        diffs[0] |= d
+    return diffs[0]
+
+
+def _k13_vs_k1(o, d, center, radius, t13, i13, t1, i1, start=None,
+               tmin: float = 1e-4) -> dict:
+    """K13's hits against K1's on the same rays. Both evaluate the expanded
+    half-b quadratic in float32 from a ``ck`` rounded differently (float64
+    in ``build_grid``, float32 in ``sphere_consts``). Where the two pick the
+    same winner, t may differ by the quadratic's rounding: each lies within
+    4x its first-order bound of the exact root (``tests/test_torch_
+    intersect.py`` ``test_dot_form_sweep_matches_jax``), so the gap is held
+    within 4x the sum of the two bounds. Where they disagree on the hit or
+    the winner, the nearer of the two candidates must be a root that one
+    rounding of ``ck`` keeps and the other drops: a grazed sphere (float64
+    ``sqrt(disc)`` at most 5% of its radius) or, on a ray that leaves a
+    sphere (``start``, the index of that sphere per ray, -1 where the ray
+    leaves none), a root of that same sphere within 4x its bound of
+    ``tmin``. Returns the counts; ``differing_unexplained`` must be 0."""
+    import torch
+    f64 = torch.float64
+    o, d = o.to(f64), d.to(f64)
+    big = 3.0e38
+    h13, h1 = t13 < big, t1 < big
+    both = h13 & h1
+    same = both & (i13 == i1)
+    u = 2.0 ** -24
+
+    def first_order(idx, t):
+        c, r = center[idx.long()].to(f64), radius[idx.long()].to(f64)
+        ck = (c * c).sum(-1) - r * r
+        od, cd = (o * d).sum(-1), (c * d).sum(-1)
+        oc, oo = (o * c).sum(-1), (o * o).sum(-1)
+        hb = od - cd
+        disc = hb * hb - (oo - 2 * oc + ck)
+        return (u * (hb * hb + oo + 2 * oc.abs() + ck.abs()
+                     + 2 * (od.abs() + cd.abs()) * hb.abs())
+                / disc.clamp(min=1e-300).sqrt() + 2 * u * t.to(f64).abs())
+
+    gap = (t13.to(f64) - t1.to(f64)).abs() / (first_order(i13, t13)
+                                              + first_order(i1, t1))
+    rel = (t13 - t1).abs() / t1.abs().clamp(min=1e-30)
+    differ = (h13 != h1) | (both & (i13 != i1))
+    near13 = h13 & (~h1 | (t13 <= t1))
+    near, t_near = torch.where(near13, i13, i1), torch.where(near13, t13, t1)
+    oc = o - center[near.long()].to(f64)
+    b = (oc * d).sum(-1)
+    r = radius[near.long()].to(f64)
+    disc = b * b - ((oc * oc).sum(-1) - r * r)
+    grazed = differ & (disc.clamp(min=0).sqrt() <= 0.05 * r)
+    at_tmin = differ & ((t_near.to(f64) - tmin).abs()
+                        <= 4 * first_order(near, t_near)) & (
+        torch.zeros_like(differ) if start is None else near == start)
+    return {"rays_hit_differs_k1": int((h13 != h1).sum()),
+            "rays_idx_differs_k1": int((both & (i13 != i1)).sum()),
+            "differing_grazing": int(grazed.sum()),
+            "differing_root_at_tmin": int((at_tmin & ~grazed).sum()),
+            "differing_unexplained": int((differ & ~grazed & ~at_tmin).sum()),
+            "rays_t_outside_5e-5_k1": int((same & (rel > 5e-5)).sum()),
+            "t_max_rel_diff_k1": rel[same].max().item(),
+            "t_max_gap_over_rounding_bound": gap[same].max().item()}
+
+
+def last_kernel_phases(dev, card, snap, W: int = 1920, H: int = 1080,
+                       SPP: int = 4) -> list:
+    """The last three TPU kernels and their paths. K11 (the fused record
+    step) against its plain version and against the three-launch iteration
+    (K3, the gather, K4) at the K3/K4 shape, then the flagship gradient
+    step through ``trace_recorded_persist(fused_step=True)``; K12 (the
+    megakernel) against its plain version and the pinned iteration at K9's
+    shape, then the flagship render through ``persistent_render_sum_mega``;
+    K13 (the cluster sweep) against its plain version and K1 on the
+    flagship's camera and bounce-1 rays in the lane orders of
+    ``scripts/spatial_probe.py``. Returns the three rows of the ``kernels``
+    line with their main-path launches."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops import integrator as I
+    from raytracingweekend_jl_tpu_torch.ops import persist_grad as PG
+    from raytracingweekend_jl_tpu_torch.ops.cuda import grid_kernel as K13
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    from raytracingweekend_jl_tpu_torch.ops.cuda import mega_kernel as K12
+    from raytracingweekend_jl_tpu_torch.ops.cuda import persist_grad_kernel as PK
+    from raytracingweekend_jl_tpu_torch.ops.cuda import shade_kernel as K2
+    from raytracingweekend_jl_tpu_torch.ops.experimental import grid as GR
+    from raytracingweekend_jl_tpu_torch.ops.experimental import mega as MG
+    from raytracingweekend_jl_tpu_torch.ops.materials import fetch_attr_planes
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    long_sleep = 3_000_000_000
+    strips, spheres, amat = snap["strips"], snap["spheres"], snap["amat"]
+    SEED, DEPTH, IT = snap["seed"], snap["depth"], snap["iteration"]
+    lanes, n_sph = snap["sf"].shape[1], spheres.shape[0]
+    i32 = torch.int32
+
+    # -- K11 against its plain version and the three-launch iteration, at
+    # the K3/K4 row's shape: 262 144 lanes before iteration 20 ------------
+    def k11_run(fn, u5=None):
+        sf, si, rad = snap["sf"].clone(), snap["si"].clone(), snap["rad"].clone()
+        slot = torch.zeros((PK.N_REC, lanes), device=dev)
+        idx = torch.zeros(lanes, dtype=i32, device=dev)
+        fn(sf, si, rad, slot, idx, u5)
+        torch.cuda.synchronize()
+        return sf, si, rad, slot, idx
+
+    def fused(step):
+        return lambda sf, si, rad, slot, idx, u5: step(
+            strips, sf, si, rad, slot, idx, spheres, amat, SEED, IT, DEPTH,
+            1e-4, u5)
+
+    def three(sf, si, rad, slot, idx_out, u5=None):
+        t, idx = K1.sweep_masked(sf[0:6], si[2], spheres)
+        PK.persist_record_step(t, fetch_attr_planes(idx, amat), strips, sf,
+                               si, rad, slot, SEED, IT, DEPTH, u5)
+        idx_out.copy_(idx)
+
+    floats = [j for j in range(PK.N_REC) if j != 10]
+
+    def k11_compare(u5):
+        a = k11_run(fused(PK.persist_record_fused_step), u5)
+        b = k11_run(fused(PK.persist_record_fused_step_ref), u5)
+        return lanes_outside(
+            [(a[0], b[0]), (a[2], b[2]), (a[3][floats], b[3][floats])], 1e-6,
+            [(a[1], b[1]), (PK.flags_of(a[3]), PK.flags_of(b[3])),
+             (a[4], b[4])])
+
+    bad11_inj, err11_inj = k11_compare(torch.rand((5, lanes), generator=g,
+                                                  device=dev))
+    bad11_ph, err11_ph = k11_compare(None)
+    k11 = k11_run(fused(PK.persist_record_fused_step))
+    k3k4 = k11_run(three)
+    fl = PK.flags_of(k11[3])
+    hit = (fl & PK.F_HIT) != 0
+    diff = _bitwise_lanes([(k11[0], k3k4[0]), (k11[1], k3k4[1]),
+                           (k11[2], k3k4[2]), (k11[3][0:11], k3k4[3][0:11]),
+                           (k11[4], k3k4[4])], lanes)
+    diff |= hit & _bitwise_lanes([(k11[3][11:], k3k4[3][11:])], lanes)
+    miss_attrs_zero = bool((k11[3][11:, ~hit] == 0).all())
+    n_diff = int(diff.sum())
+    live = [snap["sf"].clone(), snap["si"].clone(), snap["rad"].clone()]
+    slot_t = torch.empty((PK.N_REC, lanes), device=dev)
+    idx_t = torch.empty(lanes, dtype=i32, device=dev)
+
+    def restore11():
+        for x, y in zip(live, (snap["sf"], snap["si"], snap["rad"])):
+            x.copy_(y)
+
+    k11_ms = device_ms(lambda: PK.persist_record_fused_step(
+        strips, *live, slot_t, idx_t, spheres, amat, SEED, IT, DEPTH, 1e-4),
+        20, setup=restore11)
+    k11_plain_ms = device_ms(lambda: PK.persist_record_fused_step_ref(
+        strips, *live, slot_t, idx_t, spheres, amat, SEED, IT, DEPTH, 1e-4),
+        3, setup=restore11, sleep_cycles=long_sleep)
+    three_ms = device_ms(lambda: three(*live, slot_t, idx_t), 20,
+                         setup=restore11)
+    del live, slot_t, idx_t
+    alive = snap["si"][2] != 0
+    n_live = int(alive.sum())
+    miss11 = int((alive & ~hit).sum())
+    regen11 = int(((fl & PK.F_REGEN) != 0).sum())
+    # every lane: its flag in, its winner out; a dead lane: a zero slot; a
+    # live lane: 9 + 2 state words in (its ray read once), the 21-word slot
+    # and 9 + 3 state words out; a miss banks 3 words, a regeneration reads
+    # 6 strip words; the two tables once. Live lanes: the sweep, the shade
+    # and the advance.
+    k11_bound = bound(
+        lanes * (4 + 4) + (lanes - n_live) * PK.N_REC * 4
+        + n_live * ((9 + 2) + (PK.N_REC + 9 + 3)) * 4 + miss11 * 3 * 4
+        + regen11 * 6 * 4 + n_sph * (16 + 40),
+        n_live * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS * n_sph + SHADE_OPS
+                  + ADVANCE_OPS))
+    emit({"phase": "k11", "card": card, "lanes": lanes, "strips": 8,
+          "iteration": IT, "live_lanes": n_live,
+          "lanes_outside_injected_u5": bad11_inj,
+          "max_abs_err_injected": err11_inj,
+          "lanes_outside_philox": bad11_ph, "max_abs_err_philox": err11_ph,
+          "lanes_differing_from_k3_gather_k4": n_diff,
+          "miss_lane_attrs_zero": miss_attrs_zero,
+          "device_ms": {"persist_record_fused": k11_ms,
+                        "persist_record_fused_plain": k11_plain_ms,
+                        "k3_gather_k4": three_ms},
+          "bound": k11_bound,
+          "tolerance": "against the plain version: int planes, flags and "
+                       "winners identical, float planes within "
+                       "1e-6*max(1,|x|), on >= 99.99% of lanes; against "
+                       "K3 + gather + K4 (Philox): every state, radiance "
+                       "and winner word, record planes 0-10 on every lane "
+                       "and the attribute planes on hit lanes bitwise "
+                       "equal; miss lanes record zero attributes"})
+    limit = int(1e-4 * lanes)
+    check(bad11_inj <= limit and bad11_ph <= limit,
+          f"K11: {bad11_inj} / {bad11_ph} lanes outside")
+    check(n_diff == 0 and miss_attrs_zero,
+          f"K11 differs from K3 + gather + K4 on {n_diff} lanes")
+
+    # -- the flagship gradient step through the fused record step ---------
+    flag_scene, flag_cam = pt.scene_random_spheres(seed=1), pt.t_cam1()
+    scene_f = pt.trim_scene(flag_scene.to(dev))
+    cam_f = flag_cam.to(dev)
+    u_px, v_px = pt.pixel_coords(W, H, device=dev)
+    o_c, d_c = pt.get_rays(cam_f, u_px, v_px,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    target_img = pt.render_radiance(flag_scene, flag_cam, W, 1, seed=123,
+                                    device=dev, persistent=True)
+    target = target_img.reshape(-1, 3)
+    bad = scene_f._replace(albedo=torch.clamp(scene_f.albedo * 0.8, 0, 1))
+
+    def fstep(fused_step, stats=None):
+        leaves = [getattr(bad, f).clone().requires_grad_()
+                  for f in pt.DIFF_FIELDS]
+        sc = bad._replace(**dict(zip(pt.DIFF_FIELDS, leaves)))
+        r = PG.trace_recorded_persist(sc, o_c, d_c, 77, 16, 1e-4, 8, None,
+                                      fused_step=fused_step, strict=True,
+                                      stats=stats)
+        loss = torch.mean((r - target) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return (loss.detach(), *grads)
+
+    def same(a, b):
+        return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+    bad_cpu = flag_scene._replace(
+        albedo=torch.clamp(flag_scene.albedo * 0.8, 0, 1))
+
+    def default_step():
+        out = pt.render_grads(bad_cpu, flag_cam, target_img, W, 1, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    fstep(True)  # warm-up
+    stats = {}
+    reset_counts()
+    first = fstep(True, stats)
+    fused_launches = counts()
+    again = fstep(True)
+    unfused = fstep(False)
+    default_step()  # warm-up
+    repeat = same(first, again)
+    vs_unfused = same(first, unfused)
+    max_diff = {nm: (a.double() - b.double()).abs().max().item()
+                for nm, a, b in zip(("loss",) + pt.DIFF_FIELDS, first,
+                                     unfused)}
+    secs = {"fused": [], "unfused": [], "default": []}
+    for _ in range(5):
+        for nm, fn in (("fused", lambda: fstep(True)),
+                       ("unfused", lambda: fstep(False)),
+                       ("default", default_step)):
+            t0 = time.perf_counter()
+            fn()
+            secs[nm].append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    fstep(True)
+    peak = torch.cuda.max_memory_allocated()
+    med = {k: sorted(v)[2] for k, v in secs.items()}
+    emit({"phase": "fused_step_grad", "card": card, "size": [W, H], "spp": 1,
+          "route": "trace_recorded_persist(fused_step=True), 8 strips, "
+                   "n_iters None (the worst case), strict; loss: mean "
+                   "squared error against the spp-1 target",
+          "launches": fused_launches, "dropped": stats["dropped"],
+          "iterations": sum(c > 0 for c in stats["phase1_counts"][0]),
+          "loss": float(first[0]), "bitwise_repeat": repeat,
+          "bitwise_equal_to_unfused": vs_unfused,
+          "max_abs_diff_vs_unfused": max_diff, "seconds_runs": secs,
+          "seconds_median": med,
+          "mpaths_per_s": {k: W * H / v / 1e6 for k, v in med.items()},
+          "peak_allocated_bytes": peak,
+          "tolerance": "0 dropped paths; two fused steps bitwise equal; "
+                       "loss and every field gradient bitwise equal to the "
+                       "unfused (8, None) step on the same seed"})
+    check(fused_launches["persist_record_fused"] > 0
+          and fused_launches["persist_record"] == 0
+          and fused_launches["sweep_masked"] == 0
+          and fused_launches["persist_replay_fused"] > 0,
+          f"fused step launched {fused_launches}")
+    check(stats["dropped"] == 0, f"{stats['dropped']} paths dropped")
+    check(repeat, "two fused steps differ")
+    check(vs_unfused, f"fused step differs from the unfused: {max_diff}")
+    del first, again, unfused
+
+    # -- K12 against its plain version and the pinned iteration, at K9's
+    # shape: the whole flagship film pinned, 2 073 600 lanes, iteration 24
+    n = u_px.shape[0]
+    org, d = I.pinned_start_rays(cam_f, u_px, v_px, 0, 0, float(W), float(H))
+    fs = torch.zeros((12, n), device=dev)
+    fs[0:3], fs[3:6], fs[6:9] = org.T, d.T, 1.0
+    ist = torch.zeros((3, n), dtype=i32, device=dev)
+    ist[2] = 1
+    cc = K2.pack_camera_consts(cam_f, W, H)
+    seed32, last = 0x9E3779B9, SPP - 1
+    for it in range(24):
+        K12.mega_step(fs, ist, spheres, amat, u_px, v_px, cc, seed32, it, last,
+                      16, 1e-4)
+    torch.cuda.synchronize()
+
+    def k12_compare(u9):
+        a, b = [fs.clone(), ist.clone()], [fs.clone(), ist.clone()]
+        K12.mega_step(*a, spheres, amat, u_px, v_px, cc, seed32, 24, last, 16,
+                      1e-4, u9)
+        torch.cuda.synchronize()
+        K12.mega_step_ref(*b, spheres, amat, u_px, v_px, cc, seed32, 24, last,
+                          16, 1e-4, u9)
+        return lanes_outside([(a[0], b[0])], 1e-6, [(a[1], b[1])])
+
+    def pinned_iter(fs_, ist_):
+        t, idx = K1.sweep(fs_[0:6], spheres)
+        K2.shade_and_regen(fs_, ist_, t, fetch_attr_planes(idx, amat), u_px,
+                           v_px, cc, seed32, 24, last, 16)
+
+    bad12_inj, err12_inj = k12_compare(torch.rand((9, n), generator=g,
+                                                  device=dev))
+    bad12_ph, err12_ph = k12_compare(None)
+    a, b = [fs.clone(), ist.clone()], [fs.clone(), ist.clone()]
+    K12.mega_step(*a, spheres, amat, u_px, v_px, cc, seed32, 24, last, 16,
+                  1e-4)
+    pinned_iter(*b)
+    torch.cuda.synchronize()
+    n_diff12 = int(_bitwise_lanes([(a[0], b[0]), (a[1], b[1])], n).sum())
+    del a, b
+    live12 = [fs.clone(), ist.clone()]
+
+    def restore12():
+        live12[0].copy_(fs)
+        live12[1].copy_(ist)
+
+    k12_ms = device_ms(lambda: K12.mega_step(
+        *live12, spheres, amat, u_px, v_px, cc, seed32, 24, last, 16, 1e-4),
+        20, setup=restore12)
+    k12_plain_ms = device_ms(lambda: K12.mega_step_ref(
+        *live12, spheres, amat, u_px, v_px, cc, seed32, 24, last, 16, 1e-4),
+        3, setup=restore12, sleep_cycles=long_sleep)
+    pinned_ms = device_ms(lambda: pinned_iter(*live12), 20, setup=restore12)
+    del live12
+    active = ist[2] != 0
+    n_active = int(active.sum())
+    t24, _ = K1.sweep(fs[0:6], spheres)
+    hit_live = int((active & (t24 < K1.BIG)).sum())
+    # active lanes: 15 state words in and out and the film coordinates in;
+    # an idle lane: its flag read; the two tables and the camera once.
+    # Active lanes: the sweep, the shade and the regeneration (an upper
+    # count); their hits: the advance.
+    k12_bound = bound(n_active * (15 * 4 * 2 + 8) + (n - n_active) * 4
+                      + n_sph * (16 + 40) + 21 * 4,
+                      n_active * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS * n_sph
+                                  + SHADE_OPS + REGEN_OPS)
+                      + hit_live * ADVANCE_OPS)
+    del fs, ist, t24
+    emit({"phase": "k12", "card": card, "lanes": n, "iteration": 24,
+          "active_lanes": n_active, "lanes_outside_injected_u9": bad12_inj,
+          "max_abs_err_injected": err12_inj,
+          "lanes_outside_philox": bad12_ph, "max_abs_err_philox": err12_ph,
+          "lanes_differing_from_k1_gather_k9": n_diff12,
+          "device_ms": {"mega": k12_ms, "mega_plain": k12_plain_ms,
+                        "k1_gather_k9": pinned_ms},
+          "bound": k12_bound,
+          "tolerance": "against the plain version: int planes identical, "
+                       "float planes within 1e-6*max(1,|x|), on >= 99.99% "
+                       "of lanes; against K1 + gather + K9 (Philox): every "
+                       "state word bitwise equal"})
+    limit = int(1e-4 * n)
+    check(bad12_inj <= limit and bad12_ph <= limit,
+          f"K12: {bad12_inj} / {bad12_ph} lanes outside")
+    check(n_diff12 == 0, f"K12 differs from K1 + gather + K9 on {n_diff12} "
+                         "lanes")
+
+    # -- the flagship render through the megakernel, beside the pinned and
+    # the strided routes ----------------------------------------------------
+    def mega():
+        return MG.persistent_render_sum_mega(scene_f, cam_f, u_px, v_px, 7,
+                                             SPP, 0, 16, 1e-4, float(W),
+                                             float(H))
+
+    def pinned():
+        return I.persistent_render_sum_fused(scene_f, cam_f, u_px, v_px, 7,
+                                             SPP, 0, 16, 1e-4, float(W),
+                                             float(H))
+
+    def strided():
+        return pt.render_radiance(flag_scene, flag_cam, W, SPP, seed=7,
+                                  device=dev, persistent=True)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    for fn in (mega, pinned, strided):
+        fn()  # warm-up
+    reset_counts()
+    _, img_m = timed(mega)
+    mega_launches = counts()
+    reset_counts()
+    _, img_p = timed(pinned)
+    pinned_launches = counts()
+    bitwise = bool(torch.equal(_bits(img_m), _bits(img_p)))
+    secs = {"mega": [], "pinned": [], "strided": []}
+    for _ in range(5):
+        for nm, fn in (("mega", mega), ("pinned", pinned),
+                       ("strided", strided)):
+            secs[nm].append(timed(fn)[0])
+    med = {k: sorted(v)[2] for k, v in secs.items()}
+    m_m = (img_m / SPP).mean(0)
+    m_s = strided().reshape(-1, 3).mean(0)
+    rel_s = ((m_m - m_s) / m_s).abs().max().item()
+    emit({"phase": "mega_render", "card": card, "size": [W, H], "spp": SPP,
+          "launches_mega": mega_launches, "launches_pinned": pinned_launches,
+          "bitwise_equal_to_pinned": bitwise, "seconds_runs": secs,
+          "seconds_median": med,
+          "mpaths_per_s": {k: W * H * SPP / v / 1e6 for k, v in med.items()},
+          "means": m_m.tolist(), "means_strided": m_s.tolist(),
+          "max_rel_diff_strided": rel_s,
+          "tolerance": "the image bitwise the pinned route's (same seed); "
+                       "channel means within 1% of the strided route's "
+                       "(other draws)"})
+    check(mega_launches["mega"] > 0 and mega_launches["sweep"] == 0
+          and mega_launches["shade_pinned"] == 0,
+          f"megakernel render launched {mega_launches}")
+    check(bitwise, "megakernel image differs from the pinned route's")
+    check(bool(torch.isfinite(img_m).all()) and rel_s <= 0.01,
+          f"megakernel means differ from strided by {rel_s}")
+    del img_m, img_p
+
+    # -- K13 against its plain version and K1: the flagship's camera rays
+    # and bounce-1 rays in scripts/spatial_probe.py's lane orders --------
+    gtab = GR.build_grid(pt.trim_scene(flag_scene))
+    tabs = GR.grid_tables(gtab, dev)
+    R = W * H
+    rays_c = torch.cat([o_c.T, d_c.T]).contiguous()
+    t0_, i0_ = K1.sweep(rays_c, spheres)
+    hit0 = t0_ < K1.BIG
+    hitp = o_c + torch.where(hit0, t0_, torch.ones_like(t0_))[:, None] * d_c
+    nrm = hitp - spheres[i0_.long(), 0:3]
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True).clamp(min=1e-9)
+    d1 = nrm + pt.unit_sphere_directions((R,), generator=g, device=dev)
+    d1 = d1 / d1.norm(dim=-1, keepdim=True).clamp(min=1e-9)
+    orders = {"row_major": None,
+              "strided_k64": _strided_perm(R, 64),
+              "tile32": _tile_perm(W, H, 32, 32),
+              "tile128x64": _tile_perm(W, H, 128, 64)}
+    cases = {}
+    reset_counts()
+    left = torch.where(hit0, i0_, torch.full_like(i0_, -1))
+    for rs, (oo, dd, st) in (("camera", (o_c, d_c, None)),
+                             ("bounce1", (hitp, d1, left))):
+        for nm, perm in orders.items():
+            if perm is not None:
+                p = torch.from_numpy(perm).to(dev)
+                oo_, dd_ = oo[p].contiguous(), dd[p].contiguous()
+                st_ = None if st is None else st[p]
+            else:
+                oo_, dd_, st_ = oo, dd, st
+            res, skips = GR.intersect_spheres_grid(oo_, dd_, scene_f, gtab)
+            cases[f"{rs}_{nm}"] = (oo_, dd_, st_, res, skips)
+    grid_launches = counts()["grid_sweep"]
+    torch.cuda.synchronize()
+    out, err13 = {}, 0.0
+    n_warps = -(-R // K13.WARP)
+    for key, (oo_, dd_, st_, res, skips) in cases.items():
+        rays6 = torch.cat([oo_.T, dd_.T]).contiguous()
+        tp, ip, sp, reach_pairs = K13.grid_sweep_ref(rays6, *tabs, 1e-4,
+                                                     with_reach=True)
+        plain_bitwise = (bool(torch.equal(_bits(res.t), _bits(tp)))
+                         and bool(torch.equal(res.index, ip))
+                         and bool(torch.equal(skips, sp)))
+        err13 = max(err13, (res.t - tp).abs().max().item())
+        t1, i1 = K1.sweep(rays6, spheres)
+        vs_k1 = _k13_vs_k1(oo_, dd_, scene_f.center, scene_f.radius, res.t,
+                           res.index, t1, i1, st_)
+        k13_ms = device_ms(lambda: K13.grid_sweep(rays6, *tabs, 1e-4), 20)
+        k1_ms = device_ms(lambda: K1.sweep(rays6, spheres), 20)
+        culled = int(skips.sum())
+        out[key] = {"k13_ms": k13_ms, "k1_ms": k1_ms,
+                    "k13_over_k1": k13_ms / k1_ms,
+                    "culled_share": culled / (n_warps * tabs.K),
+                    "ray_cluster_pairs_reached": reach_pairs,
+                    "ray_cluster_pairs_swept": K13.WARP * (
+                        n_warps * tabs.K - culled),
+                    "plain_bitwise": plain_bitwise, **vs_k1}
+        check(plain_bitwise, f"K13 differs from its plain version ({key})")
+        check(vs_k1["differing_unexplained"] == 0
+              and vs_k1["t_max_gap_over_rounding_bound"] <= 4,
+              f"K13 against K1 ({key}): {out[key]}")
+        if key == "camera_row_major":
+            k13_row_ms = k13_ms
+            k13_plain_ms = device_ms(
+                lambda: K13.grid_sweep_ref(rays6, *tabs, 1e-4), 2,
+                sleep_cycles=long_sleep)
+            # rays in, t and idx out, each warp's count out, the tables
+            # once; every ray against the global spheres and every bound,
+            # and each ray against the slots of the clusters its own bound
+            # test reaches (a lane its warp carries through a cluster it
+            # cannot reach changes nothing of the result).
+            k13_bound = bound(
+                R * (24 + 8) + n_warps * 4
+                + (tabs.n_global + tabs.K * tabs.P) * (16 + 4) + tabs.K * 16,
+                R * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS
+                     * (tabs.n_global + tabs.K))
+                + SWEEP_SPHERE_OPS * tabs.P * reach_pairs)
+    emit({"phase": "grid_sweep", "card": card, "rays": R,
+          "grid": {"n_global": tabs.n_global, "K": tabs.K, "P": tabs.P},
+          "launches": grid_launches, "cases": out, "bound_camera_row_major":
+          k13_bound,
+          "tolerance": "t, idx and skips bitwise equal to the plain version; "
+                       "against K1 (ck in float64 here, float32 in K1): "
+                       "same-winner hits within 4x the sum of the two "
+                       "first-order rounding bounds of the expanded "
+                       "quadratic (rays beyond 5e-5 relative counted); a "
+                       "ray whose hit or winner differs has its nearer "
+                       "candidate grazed (float64 sqrt(disc) <= 5% of the "
+                       "radius) or, on a bounce ray, a root of the sphere "
+                       "the ray leaves at tmin within 4x its rounding "
+                       "bound"})
+    check(grid_launches == len(cases), f"grid sweep launched {grid_launches}")
+
+    pkg, tpu = "raytracingweekend_jl_tpu_torch/csrc", \
+        "raytracingweekend_jl_tpu/ops/pallas"
+    rows = [kernel_row("persist_record_fused", f"{pkg}/persist_record.cu",
+                       f"{tpu}/persist_grad_kernel.py:367",
+                       max(err11_inj, err11_ph), k11_ms, k11_plain_ms,
+                       k11_bound),
+            kernel_row("mega", f"{pkg}/mega.cu",
+                       f"{tpu}/experimental/mega_kernel.py:45",
+                       max(err12_inj, err12_ph), k12_ms, k12_plain_ms,
+                       k12_bound),
+            kernel_row("grid_sweep", f"{pkg}/grid_sweep.cu",
+                       f"{tpu}/experimental/grid_kernel.py:124", err13,
+                       k13_row_ms, k13_plain_ms, k13_bound)]
+    rows[0]["launches"] = fused_launches["persist_record_fused"]
+    rows[1]["launches"] = mega_launches["mega"]
+    rows[2]["launches"] = grid_launches
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1662,7 +2238,7 @@ def main() -> int:
                           device="cuda"))})
 
     # -- 8-9. the gradient slice: K3-K6, then the public entry point -------
-    grad_rows, grad_dev_ms, grad_call_ms = grad_kernel_phases(
+    grad_rows, grad_dev_ms, grad_call_ms, snap = grad_kernel_phases(
         dev, card, scene, cam, W, H)
     emit({"phase": "kernel_times", "card": card,
           "device_ms": {**fwd_dev_ms, **grad_dev_ms},
@@ -1683,6 +2259,9 @@ def main() -> int:
 
     # -- 12. the fixed-depth wavefront and the pinned route: K10, K9 -------
     trace_rows = trace_slice_phases(dev, card, scene, cam, rays, lin_k)
+
+    # -- 13. the fused record step, the megakernel, the cluster sweep ------
+    last_rows = last_kernel_phases(dev, card, snap)
 
     # -- the kernels line: every ported kernel, with its bound -------------
     n_rays, n_sph = rays_f.shape[1], spheres.shape[0]
@@ -1705,7 +2284,7 @@ def main() -> int:
                            k2_plain_ms, k2_bound)]
     fwd_rows[0]["launches"] = launches["sweep"]
     fwd_rows[1]["launches"] = launches["shade_strided"]
-    rows = fwd_rows + grad_rows + fit_rows + trace_rows
+    rows = fwd_rows + grad_rows + fit_rows + trace_rows + last_rows
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} never launched on its "
                                    "main path")

@@ -38,38 +38,28 @@
 
 #include "philox.cuh"
 #include "shade_core.cuh"
+#include "sweep_core.cuh"
 
-__global__ void persist_record_kernel(
-    const float* __restrict__ t_in, const float* __restrict__ attrs,
+// An inactive lane's record slot: n_rec zero planes.
+__device__ __forceinline__ void rtw_zero_record(int i, size_t n, float* rec,
+                                                int n_rec) {
+  for (int p = 0; p < n_rec; ++p) rec[p * n + i] = 0.0f;
+}
+
+// The record state machine of one active lane (_advance_record_bank): K4's
+// body, shared with the fused record step K11. Given the swept hit distance
+// t, the winner's 10 attributes a and the 5 uniforms u, it reads the lane's
+// state from sf/si, writes slot planes 0..n_rec-1 of `rec`, banks a miss
+// into `rad`, advances or refills, and writes the state back.
+__device__ __forceinline__ void rtw_record_advance(
+    int i, size_t n, float t, const float* a, const float* u,
     const float* __restrict__ strips, float* __restrict__ sf,
     int* __restrict__ si, float* __restrict__ rad, float* __restrict__ rec,
-    int n_rec, const float* __restrict__ u5, int n_lanes, int S,
-    int max_depth, uint32_t seed, uint32_t iteration) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_lanes) return;
-  const size_t n = n_lanes;
-  const bool active = si[2 * n + i] != 0;
-  if (!active) {
-    for (int p = 0; p < n_rec; ++p) rec[p * n + i] = 0.0f;
-    return;
-  }
-
+    int n_rec, int S, int max_depth) {
   float ox = sf[0 * n + i], oy = sf[1 * n + i], oz = sf[2 * n + i];
   float dx = sf[3 * n + i], dy = sf[4 * n + i], dz = sf[5 * n + i];
   float tx = sf[6 * n + i], ty = sf[7 * n + i], tz = sf[8 * n + i];
   int bo = si[0 * n + i], sp = si[1 * n + i];
-
-  float u[5];
-  if (u5) {
-#pragma unroll
-    for (int j = 0; j < 5; ++j) u[j] = u5[j * n + i];
-  } else {
-    rtw_uniforms<5>(seed, iteration, (uint32_t)i, u);
-  }
-  const float t = t_in[i];
-  float a[10];
-#pragma unroll
-  for (int j = 0; j < 10; ++j) a[j] = attrs[j * n + i];
 
   float bkr = 0.0f, bkg = 0.0f, bkb = 0.0f;
   const RtwShade s = rtw_shade_core(u, t, a, ox, oy, oz, dx, dy, dz, tx, ty,
@@ -127,6 +117,41 @@ __global__ void persist_record_kernel(
   si[0 * n + i] = bo; si[1 * n + i] = sp; si[2 * n + i] = act ? 1 : 0;
 }
 
+// The lane's 5 uniforms: from u5 [5, W] when given, else Philox keyed by
+// (seed, iteration) with the lane as the counter.
+__device__ __forceinline__ void rtw_record_uniforms(
+    int i, size_t n, const float* __restrict__ u5, uint32_t seed,
+    uint32_t iteration, float* u) {
+  if (u5) {
+#pragma unroll
+    for (int j = 0; j < 5; ++j) u[j] = u5[j * n + i];
+  } else {
+    rtw_uniforms<5>(seed, iteration, (uint32_t)i, u);
+  }
+}
+
+__global__ void persist_record_kernel(
+    const float* __restrict__ t_in, const float* __restrict__ attrs,
+    const float* __restrict__ strips, float* __restrict__ sf,
+    int* __restrict__ si, float* __restrict__ rad, float* __restrict__ rec,
+    int n_rec, const float* __restrict__ u5, int n_lanes, int S,
+    int max_depth, uint32_t seed, uint32_t iteration) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_lanes) return;
+  const size_t n = n_lanes;
+  if (si[2 * n + i] == 0) {
+    rtw_zero_record(i, n, rec, n_rec);
+    return;
+  }
+  float u[5];
+  rtw_record_uniforms(i, n, u5, seed, iteration, u);
+  float a[10];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) a[j] = attrs[j * n + i];
+  rtw_record_advance(i, n, t_in[i], a, u, strips, sf, si, rad, rec, n_rec, S,
+                     max_depth);
+}
+
 // t [W] f32, attrs [10, W] f32, strips [6S, W] f32; sf [9, W] f32 (o, d, T),
 // si [3, W] i32 (bounce, strip, active) and rad [3S, W] f32 are updated in
 // place; rec points at one record slot [n_rec, W] (n_rec 21 or 11). u5
@@ -143,5 +168,107 @@ extern "C" int rtw_persist_record(const float* t, const float* attrs,
   persist_record_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       t, attrs, strips, sf, si, rad, rec, n_rec, u5, n_lanes, S, max_depth,
       seed, iteration);
+  return (int)cudaGetLastError();
+}
+
+// K11: the single-dispatch record iteration (fused_step=True).
+//
+// Replaces the TPU kernel
+// raytracingweekend_jl_tpu/ops/pallas/persist_grad_kernel.py ::
+// _persist_record_fused_kernel (launched by persist_record_fused_step): the
+// masked sweep (K3), the winner's attributes and the record step (K4) in
+// one launch, with the winner index as an extra output plane (the TPU
+// kernel's 22nd record plane). The plain PyTorch version is
+// raytracingweekend_jl_tpu_torch/ops/cuda/persist_grad_kernel.py ::
+// persist_record_fused_step_ref.
+//
+// What it computes, per lane: a dead lane writes a zero record and winner 0
+// and changes nothing (K3 + K4's dead lanes). A live lane runs K1's loop
+// (sweep_core.cuh, so t and idx are K3's bit for bit), takes its winner's
+// attributes from the table in shared memory (zeros on a miss, where the
+// gather of the three-launch iteration reads sphere 0's row: every use of
+// the attributes in the shade and in the replay is gated on the hit, so the
+// record differs only in those ten miss-lane planes), then K4's record
+// state machine (rtw_record_advance) with K4's draws.
+//
+// What bounds it on the card: arithmetic, as K3: ~20 flops per live lane
+// and sphere against ~250 bytes of state and record per live lane; at the
+// flagship step's 262 144 lanes and 488 spheres the sweep dominates.
+//
+// Design: K3's block-level skip (a block whose lanes are all dead stages no
+// table), K10's post-loop read of the winner's row from shared memory in
+// place of the TPU kernel's ten running selects per sphere, and K4's
+// device function. The TPU kernel tied its block rows to the replay's
+// because its hardware PRNG was seeded per block; Philox keyed by (seed,
+// iteration) with the lane as the counter draws the same numbers at any
+// block size, so the block size here is free (128).
+__global__ void persist_record_fused_kernel(
+    const float* __restrict__ strips, float* __restrict__ sf,
+    int* __restrict__ si, float* __restrict__ rad, float* __restrict__ rec,
+    int* __restrict__ idx_out, const float4* __restrict__ spheres,
+    const float* __restrict__ amat, int n_spheres, float tmin,
+    const float* __restrict__ u5, int n_lanes, int S, int max_depth,
+    uint32_t seed, uint32_t iteration) {
+  extern __shared__ float4 sph[];
+  float* sattr = reinterpret_cast<float*>(sph + n_spheres);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t n = n_lanes;
+  const bool live = i < n_lanes && si[2 * n + i] != 0;
+  if (!__syncthreads_or(live)) {  // the whole block is dead
+    if (i < n_lanes) {
+      rtw_zero_record(i, n, rec, 21);
+      idx_out[i] = 0;
+    }
+    return;
+  }
+  for (int s = threadIdx.x; s < n_spheres; s += blockDim.x) sph[s] = spheres[s];
+  for (int j = threadIdx.x; j < 10 * n_spheres; j += blockDim.x)
+    sattr[j] = amat[j];
+  __syncthreads();
+  if (i >= n_lanes) return;
+  if (!live) {
+    rtw_zero_record(i, n, rec, 21);
+    idx_out[i] = 0;
+    return;
+  }
+  float best_t;
+  int best_i;
+  rtw_sweep_closest(sph, n_spheres, sf[0 * n + i], sf[1 * n + i],
+                    sf[2 * n + i], sf[3 * n + i], sf[4 * n + i],
+                    sf[5 * n + i], tmin, best_t, best_i);
+  const bool hit = best_t < RTW_BIG;
+  const float* row = sattr + 10 * best_i;
+  float a[10];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) a[j] = hit ? row[j] : 0.0f;
+  float u[5];
+  rtw_record_uniforms(i, n, u5, seed, iteration, u);
+  rtw_record_advance(i, n, best_t, a, u, strips, sf, si, rad, rec, 21, S,
+                     max_depth);
+  idx_out[i] = best_i;
+}
+
+// strips [6S, W] f32; sf [9, W] f32, si [3, W] i32 and rad [3S, W] f32 are
+// updated in place; rec points at one 21-plane record slot [21, W]; idx
+// [W] i32 receives the winners; spheres [N, 4] f32 (cx, cy, cz, ck), amat
+// [N, 10] f32; u5 [5, W] f32 may be NULL (in-kernel Philox).
+extern "C" int rtw_persist_record_fused(
+    const float* strips, float* sf, int* si, float* rad, float* rec, int* idx,
+    const float* spheres, const float* amat, int n_spheres, float tmin,
+    const float* u5, int n_lanes, int S, int max_depth, unsigned int seed,
+    unsigned int iteration, void* stream) {
+  if (n_lanes <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (n_lanes + threads - 1) / threads;
+  const size_t smem = (size_t)n_spheres * (sizeof(float4) + 10 * sizeof(float));
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        persist_record_fused_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  persist_record_fused_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      strips, sf, si, rad, rec, idx, reinterpret_cast<const float4*>(spheres),
+      amat, n_spheres, tmin, u5, n_lanes, S, max_depth, seed, iteration);
   return (int)cudaGetLastError();
 }

@@ -25,11 +25,12 @@
 // TPU kernel held spheres in SMEM scalars and rays in vector tiles; here the
 // same split falls out of the thread model. Built with --fmad=false so its
 // arithmetic matches the plain PyTorch version (sweep_ref) operation for
-// operation.
+// operation. The loop itself is sweep_core.cuh's, shared with every kernel
+// that sweeps.
 
 #include <cuda_runtime.h>
 
-#define RTW_BIG 3.0e38f
+#include "sweep_core.cuh"
 
 __global__ void sweep_kernel(const float* __restrict__ rays,
                              const float4* __restrict__ spheres,
@@ -46,27 +47,10 @@ __global__ void sweep_kernel(const float* __restrict__ rays,
   const float dx = rays[3 * n_rays + i], dy = rays[4 * n_rays + i],
               dz = rays[5 * n_rays + i];
 
-  const float od = ox * dx + oy * dy + oz * dz;
-  const float oo = ox * ox + oy * oy + oz * oz;
-
-  float best_t = RTW_BIG;
-  int best_i = 0;
-#pragma unroll 8
-  for (int s = 0; s < n_spheres; ++s) {
-    const float4 c4 = sph[s];
-    const float cd = c4.x * dx + c4.y * dy + c4.z * dz;
-    const float oc = c4.x * ox + c4.y * oy + c4.z * oz;
-    const float hb = od - cd;
-    const float c = oo - 2.0f * oc + c4.w;
-    const float disc = hb * hb - c;
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const float r1 = -hb - sq;
-    const float t = r1 >= tmin ? r1 : -hb + sq;
-    if (disc > 0.0f && t >= tmin && t < best_t) {
-      best_t = t;
-      best_i = s;
-    }
-  }
+  float best_t;
+  int best_i;
+  rtw_sweep_closest(sph, n_spheres, ox, oy, oz, dx, dy, dz, tmin, best_t,
+                    best_i);
   t_out[i] = best_t;
   idx_out[i] = best_i;
 }
@@ -134,27 +118,10 @@ __global__ void sweep_masked_kernel(const float* __restrict__ rays,
   const float dx = rays[3 * n + i], dy = rays[4 * n + i],
               dz = rays[5 * n + i];
 
-  const float od = ox * dx + oy * dy + oz * dz;
-  const float oo = ox * ox + oy * oy + oz * oz;
-
-  float best_t = RTW_BIG;
-  int best_i = 0;
-#pragma unroll 8
-  for (int s = 0; s < n_spheres; ++s) {
-    const float4 c4 = sph[s];
-    const float cd = c4.x * dx + c4.y * dy + c4.z * dz;
-    const float oc = c4.x * ox + c4.y * oy + c4.z * oz;
-    const float hb = od - cd;
-    const float c = oo - 2.0f * oc + c4.w;
-    const float disc = hb * hb - c;
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const float r1 = -hb - sq;
-    const float t = r1 >= tmin ? r1 : -hb + sq;
-    if (disc > 0.0f && t >= tmin && t < best_t) {
-      best_t = t;
-      best_i = s;
-    }
-  }
+  float best_t;
+  int best_i;
+  rtw_sweep_closest(sph, n_spheres, ox, oy, oz, dx, dy, dz, tmin, best_t,
+                    best_i);
   t_out[i] = best_t;
   idx_out[i] = best_i;
 }
@@ -221,27 +188,10 @@ __global__ void sweep_fetch_kernel(const float* __restrict__ rays,
   const float dx = rays[3 * n + i], dy = rays[4 * n + i],
               dz = rays[5 * n + i];
 
-  const float od = ox * dx + oy * dy + oz * dz;
-  const float oo = ox * ox + oy * oy + oz * oz;
-
-  float best_t = RTW_BIG;
-  int best_i = 0;
-#pragma unroll 8
-  for (int s = 0; s < n_spheres; ++s) {
-    const float4 c4 = sph[s];
-    const float cd = c4.x * dx + c4.y * dy + c4.z * dz;
-    const float oc = c4.x * ox + c4.y * oy + c4.z * oz;
-    const float hb = od - cd;
-    const float c = oo - 2.0f * oc + c4.w;
-    const float disc = hb * hb - c;
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const float r1 = -hb - sq;
-    const float t = r1 >= tmin ? r1 : -hb + sq;
-    if (disc > 0.0f && t >= tmin && t < best_t) {
-      best_t = t;
-      best_i = s;
-    }
-  }
+  float best_t;
+  int best_i;
+  rtw_sweep_closest(sph, n_spheres, ox, oy, oz, dx, dy, dz, tmin, best_t,
+                    best_i);
   t_out[i] = best_t;
   idx_out[i] = best_i;
   const bool hit = best_t < RTW_BIG;

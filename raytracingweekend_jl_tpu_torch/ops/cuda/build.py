@@ -80,6 +80,19 @@ _SIGNATURES = {
     # rays[6,R], spheres[11,N], rad[3,R], u5[depth,5,R] or NULL, R, N,
     # max_depth, tmin, seed, stream
     "rtw_inline": [_P, _P, _P, _P, _I, _I, _I, _F, _U, _P],
+    # strips[6S,W], sf[9,W], si[3,W], rad[3S,W], rec slot[21,W], idx[W],
+    # spheres[N,4], amat[N,10], N, tmin, u5[5,W] or NULL, W, S, max_depth,
+    # seed, iteration, stream
+    "rtw_persist_record_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P,
+                                 _I, _I, _I, _U, _U, _P],
+    # fstate[12,R], istate[3,R], spheres[N,4], amat[N,10], N, tmin, u[R],
+    # v[R], cam[21], u9[9,R] or NULL, R, last_sample, max_depth, seed,
+    # iteration, stream
+    "rtw_mega": [_P, _P, _P, _P, _I, _F, _P, _P, _P, _P, _I, _I, _I, _U, _U,
+                 _P],
+    # rays[6,R], sph[G+K*P,4], im[G+K*P], bnd[K,4], R, G, K, P, tmin, t[R],
+    # idx[R], skips[ceil(R/32)], stream
+    "rtw_grid_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
 }
 
 

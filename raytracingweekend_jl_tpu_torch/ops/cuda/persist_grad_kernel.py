@@ -1,8 +1,10 @@
-"""K4 — the persistent record step — and K5/K6 — the replay kernels —
+"""K4 — the persistent record step —, K11 — the same step fused with its
+masked sweep and winner fetch — and K5/K6 — the replay kernels —
 (csrc/persist_record.cu, csrc/persist_replay.cu) with their plain versions.
 
 Counterparts of ``raytracingweekend_jl_tpu/ops/pallas/persist_grad_kernel.py``:
 ``_advance_record_bank`` and ``_persist_record_kernel`` (K4),
+``_persist_record_fused_kernel`` (K11, ``fused_step=True``),
 ``_replay_iter_core`` and ``_persist_replay_fused_kernel`` (K5),
 ``_persist_replay_kernel`` (K6).
 
@@ -33,13 +35,16 @@ from __future__ import annotations
 import torch
 
 from ... import rng
+from ..intersect import BIG
 from . import build
 from .grad_kernel import bounce_adjoint
+from .intersect_kernel import sweep_masked_ref
 from .shade_kernel import shade_core
 
-#: Launches of K4, K5 and K6 since the last reset (incremented only where
-#: the kernel is launched).
+#: Launches of K4, K11, K5 and K6 since the last reset (incremented only
+#: where the kernel is launched).
 record_launches = 0
+record_fused_launches = 0
 replay_fused_launches = 0
 replay_step_launches = 0
 
@@ -190,6 +195,80 @@ def persist_record_step(t, attrs, strips, sf, si, rad, rec_slot, seed: int,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "persist_record_step")
     record_launches += 1
+
+
+# ---------------------------------------------------------------------------
+# K11: one record iteration in one launch (sweep, fetch, record)
+# ---------------------------------------------------------------------------
+
+def persist_record_fused_step_ref(strips, sf, si, rad, rec_slot, idx_out,
+                                  spheres, amat, seed: int, iteration: int,
+                                  max_depth: int, tmin: float,
+                                  u5: torch.Tensor | None = None) -> None:
+    """Plain PyTorch K11: the masked sweep of the lanes' current rays
+    (``sweep_masked_ref`` against ``spheres`` [N, 4] from
+    ``intersect_kernel.sphere_consts``), the winners' rows of ``amat``
+    [N, 10] (zeros on a miss), then :func:`persist_record_step_ref`. Updates
+    ``sf``, ``si`` and ``rad`` in place, writes the 21-plane ``rec_slot``
+    and the winners to ``idx_out`` [W] int32 (0 on dead lanes and misses).
+    On every hit lane the record equals that of the three-step iteration
+    (K3, the gather, K4); a miss lane records zero attributes where the
+    gather gives sphere 0's row, which nothing downstream reads."""
+    t, idx = sweep_masked_ref(sf[0:6], si[2], spheres, tmin)
+    rows = amat.T[:, idx.long()]
+    attrs = torch.where(t < BIG, rows, torch.zeros_like(rows))
+    persist_record_step_ref(t, attrs, strips, sf, si, rad, rec_slot, seed,
+                            iteration, max_depth, u5)
+    idx_out.copy_(idx)
+
+
+def persist_record_fused_step(strips, sf, si, rad, rec_slot, idx_out,
+                              spheres, amat, seed: int, iteration: int,
+                              max_depth: int, tmin: float,
+                              u5: torch.Tensor | None = None) -> None:
+    """K11: one record iteration in one launch (arguments as
+    :func:`persist_record_fused_step_ref`). CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
+    global record_fused_launches
+    if sf.device.type == "cpu":
+        return persist_record_fused_step_ref(strips, sf, si, rad, rec_slot,
+                                             idx_out, spheres, amat, seed,
+                                             iteration, max_depth, tmin, u5)
+    dev = sf.device
+    if dev.type != "cuda":
+        raise ValueError(f"persist_record_fused_step: unsupported device {dev}")
+    W = sf.shape[1]
+    S = strips.shape[0] // 6
+    n_sph = spheres.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    if strips.shape[0] != 6 * S or S < 1:
+        raise ValueError(f"persist_record_fused_step: strips has "
+                         f"{strips.shape[0]} planes, not 6S")
+    for name, x, dt, shape in (
+            ("strips", strips, f32, (6 * S, W)), ("sf", sf, f32, (9, W)),
+            ("si", si, i32, (3, W)), ("rad", rad, f32, (3 * S, W)),
+            ("rec_slot", rec_slot, f32, (N_REC, W)),
+            ("idx_out", idx_out, i32, (W,)),
+            ("spheres", spheres, f32, (n_sph, 4)),
+            ("amat", amat, f32, (n_sph, 10))):
+        _check(f"persist_record_fused_step: {name}", x, dt, shape, dev)
+    if u5 is not None:
+        _check("persist_record_fused_step: u5", u5, f32, (5, W), dev)
+    if n_sph * 56 > 227 * 1024:
+        raise ValueError(f"persist_record_fused_step: {n_sph} spheres exceed "
+                         f"the kernel's shared-memory tables "
+                         f"(max {227 * 1024 // 56})")
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.rtw_persist_record_fused(
+            strips.data_ptr(), sf.data_ptr(), si.data_ptr(), rad.data_ptr(),
+            rec_slot.data_ptr(), idx_out.data_ptr(), spheres.data_ptr(),
+            amat.data_ptr(), n_sph, float(tmin),
+            None if u5 is None else u5.data_ptr(), W, S, int(max_depth),
+            seed & 0xFFFFFFFF, iteration & 0xFFFFFFFF,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "persist_record_fused_step")
+    record_fused_launches += 1
 
 
 # ---------------------------------------------------------------------------

@@ -389,6 +389,69 @@ def _film_rays(cam, u, v, u4, centred, f32_w: float, f32_h: float):
     return make_rays(cam, u + jit_uv[:, 0], v + jit_uv[:, 1], disk)
 
 
+def pinned_render_loop(scene: Scene, cam, u: torch.Tensor, v: torch.Tensor,
+                       seed: int, n_samples: int, sample_offset: int,
+                       max_depth: int, tmin: float, f32_w: float,
+                       f32_h: float, impl: str | None,
+                       init_u4: torch.Tensor | None,
+                       rng_u9_fn: Callable[[int], torch.Tensor] | None,
+                       iteration: Callable) -> torch.Tensor:
+    """The pixel-pinned persistent loop shared by
+    :func:`persistent_render_sum_fused` and the megakernel renderer
+    (``ops/experimental/mega.py``): the first rays, the state planes, the
+    loop bound and the active check, with ``iteration(impl, tables, fstate,
+    istate, u, v, cam_consts, seed32, it, last_sample, max_depth, tmin,
+    u9)`` running one iteration in place (``tables`` = (scene,
+    sphere_consts, attr_mat)). Arguments and result as
+    :func:`persistent_render_sum_fused`."""
+    device = scene.device
+    if cam.origin.device != device or u.device != device:
+        raise ValueError(f"scene on {device}, camera on {cam.origin.device}, "
+                         f"film coordinates on {u.device}: one device")
+    impl = resolve_impl(impl, device)
+    if scene.center.dtype != torch.float32:
+        raise NotImplementedError(
+            "only float32 renders take the pixel-pinned routes (their "
+            f"kernels and state are float32); got {scene.center.dtype}")
+    R = u.shape[0]
+    if max_depth <= 0 or n_samples <= 0:
+        return torch.zeros((R, 3), dtype=torch.float32, device=device)
+    _check_film(f32_w, f32_h)
+    u = u.to(torch.float32).contiguous()
+    v = v.to(torch.float32).contiguous()
+    org, d = pinned_start_rays(cam, u, v, seed, sample_offset, f32_w, f32_h,
+                               init_u4)
+    fstate = torch.zeros((12, R), dtype=torch.float32, device=device)
+    fstate[0:3] = org.T
+    fstate[3:6] = d.T
+    fstate[6:9] = 1.0
+    istate = torch.zeros((3, R), dtype=torch.int32, device=device)
+    istate[1] = sample_offset
+    istate[2] = 1
+    cam_consts = shade_kernel.pack_camera_consts(cam, int(f32_w), int(f32_h),
+                                                 device=device)
+    tables = (scene, intersect_kernel.sphere_consts(scene), attr_mat(scene))
+    seed32 = rng.persistent_seed(seed, sample_offset)
+    last_sample = sample_offset + n_samples - 1
+    for it in range(n_samples * max_depth):
+        if it % ACTIVE_CHECK_EVERY == 0 and not bool(istate[2].any()):
+            break
+        u9 = None if rng_u9_fn is None else rng_u9_fn(it)
+        iteration(impl, tables, fstate, istate, u, v, cam_consts, seed32, it,
+                  last_sample, max_depth, tmin, u9)
+    return fstate[9:12].T.contiguous()
+
+
+def _pinned_iteration(impl, tables, fstate, istate, u, v, cam_consts, seed32,
+                      it, last_sample, max_depth, tmin, u9) -> None:
+    """One iteration of the pinned route: the sweep, the fetch and K9."""
+    t, attrs = sweep_attr_planes(tables, fstate[0:6], tmin, impl)
+    step = (shade_kernel.shade_and_regen if impl == "kernels"
+            else shade_kernel.shade_and_regen_ref)
+    step(fstate, istate, t, attrs, u, v, cam_consts, seed32, it, last_sample,
+         max_depth, u9)
+
+
 def persistent_render_sum_fused(
         scene: Scene, cam, u: torch.Tensor, v: torch.Tensor, seed: int,
         n_samples: int, sample_offset: int = 0,
@@ -412,45 +475,9 @@ def persistent_render_sum_fused(
     Philox keyed by ``(persistent_seed(seed, sample_offset), iteration)``
     with the lane as the counter, in the kernel, or ``rng_u9_fn(it)`` ->
     [9, R]."""
-    device = scene.device
-    if cam.origin.device != device or u.device != device:
-        raise ValueError(f"scene on {device}, camera on {cam.origin.device}, "
-                         f"film coordinates on {u.device}: one device")
-    impl = resolve_impl(impl, device)
-    if scene.center.dtype != torch.float32:
-        raise NotImplementedError(
-            "only float32 renders take the pixel-pinned route (K9 and its "
-            f"state are float32); got {scene.center.dtype}")
-    R = u.shape[0]
-    if max_depth <= 0 or n_samples <= 0:
-        return torch.zeros((R, 3), dtype=torch.float32, device=device)
-    _check_film(f32_w, f32_h)
-    u = u.to(torch.float32).contiguous()
-    v = v.to(torch.float32).contiguous()
-    org, d = pinned_start_rays(cam, u, v, seed, sample_offset, f32_w, f32_h,
-                               init_u4)
-    fstate = torch.zeros((12, R), dtype=torch.float32, device=device)
-    fstate[0:3] = org.T
-    fstate[3:6] = d.T
-    fstate[6:9] = 1.0
-    istate = torch.zeros((3, R), dtype=torch.int32, device=device)
-    istate[1] = sample_offset
-    istate[2] = 1
-    cam_consts = shade_kernel.pack_camera_consts(cam, int(f32_w), int(f32_h),
-                                                 device=device)
-    tables = (scene, intersect_kernel.sphere_consts(scene), attr_mat(scene))
-    seed32 = rng.persistent_seed(seed, sample_offset)
-    last_sample = sample_offset + n_samples - 1
-    step = (shade_kernel.shade_and_regen if impl == "kernels"
-            else shade_kernel.shade_and_regen_ref)
-    for it in range(n_samples * max_depth):
-        if it % ACTIVE_CHECK_EVERY == 0 and not bool(istate[2].any()):
-            break
-        t, attrs = sweep_attr_planes(tables, fstate[0:6], tmin, impl)
-        u9 = None if rng_u9_fn is None else rng_u9_fn(it)
-        step(fstate, istate, t, attrs, u, v, cam_consts, seed32, it,
-             last_sample, max_depth, u9)
-    return fstate[9:12].T.contiguous()
+    return pinned_render_loop(scene, cam, u, v, seed, n_samples,
+                              sample_offset, max_depth, tmin, f32_w, f32_h,
+                              impl, init_u4, rng_u9_fn, _pinned_iteration)
 
 
 def _keyed_camera_rays(cam, u, v, key_cam: int, slots, sample_ids,

@@ -12,6 +12,10 @@ phase's slot cap is reached:
 3. the record step (K4, ``cuda/persist_grad_kernel.persist_record_step``),
    which shades, banks, advances, refills and writes one record slot.
 
+With ``fused_step=True`` the three run as one launch of K11
+(``cuda/persist_grad_kernel.persist_record_fused_step``), which also writes
+the winner indices; the replay is unchanged.
+
 With tail compaction ``(b1, wdiv)`` the lanes still alive after ``b1``
 iterations are gathered into a ``W / wdiv``-wide second phase. The backward
 walks each phase's slots newest first: one launch of the fused replay (K5)
@@ -108,6 +112,7 @@ class _Config(NamedTuple):
     tmin: float
     n_strips: int
     n_iters: int
+    fused_step: bool
     tail_compact: tuple | None
     rec_attrs: bool
     strict: bool
@@ -150,15 +155,19 @@ def _run_record_phase(scene_tabs, strips, sf, si, rad, n_slots: int,
     """Record iterations ``i0 .. i0 + n_slots - 1`` over the given planes,
     stopping early once every lane is dead (checked every
     ``ACTIVE_CHECK_EVERY`` iterations; an all-dead iteration writes a zero
-    record and changes nothing)."""
+    record and changes nothing). Each iteration is K3, the gather and K4,
+    or with ``cfg.fused_step`` one K11, which writes ``rec_idx`` itself."""
     spheres, amat = scene_tabs
     W = sf.shape[1]
     dev = sf.device
-    if cfg.impl == "kernels":
+    kern = cfg.impl == "kernels"
+    if kern:
         sweep, step = intersect_kernel.sweep_masked, PK.persist_record_step
     else:
         sweep = intersect_kernel.sweep_masked_ref
         step = PK.persist_record_step_ref
+    fused = (PK.persist_record_fused_step if kern
+             else PK.persist_record_fused_step_ref)
     n_rec = PK.N_REC if cfg.rec_attrs else PK.N_REC_LEAN
     rec = torch.empty((n_slots, n_rec, W), dtype=torch.float32, device=dev)
     rec_idx = torch.empty((n_slots, W), dtype=torch.int32, device=dev)
@@ -168,10 +177,14 @@ def _run_record_phase(scene_tabs, strips, sf, si, rad, n_slots: int,
         if s % ACTIVE_CHECK_EVERY == 0 and not bool(si[2].any()):
             break
         counts[s] = si[2].sum()
+        u5 = None if cfg.u5_fn is None else cfg.u5_fn(i0 + s, W).to(dev)
+        if cfg.fused_step:
+            fused(strips, sf, si, rad, rec[s], rec_idx[s], spheres, amat,
+                  seed, i0 + s, cfg.max_depth, cfg.tmin, u5)
+            continue
         t, idx = sweep(sf[0:6], si[2], spheres, cfg.tmin)
         attrs = fetch_attr_planes(idx, amat)
         rec_idx[s] = idx
-        u5 = None if cfg.u5_fn is None else cfg.u5_fn(i0 + s, W).to(dev)
         step(t, attrs, strips, sf, si, rad, rec[s], seed, i0 + s,
              cfg.max_depth, u5)
     return _Phase(rec, rec_idx, counts, i0)
@@ -385,14 +398,15 @@ class _PersistTrace(torch.autograd.Function):
 def _config(seed, max_depth, tmin, n_strips, n_iters, fused_step,
             tail_compact, rec_attrs, strict, impl, u5_fn, stats,
             device) -> _Config:
-    if fused_step:
-        raise NotImplementedError(
-            "fused_step=True needs the single-dispatch record kernel (TPU "
-            "ops/pallas/persist_grad_kernel.py::_persist_record_fused_kernel,"
-            " K11), not ported yet")
+    if fused_step and not rec_attrs:
+        raise ValueError("rec_attrs=False requires fused_step=False (the "
+                         "fused record kernel stores attrs in-kernel)")
+    if fused_step and tail_compact is not None:
+        raise ValueError("tail_compact requires fused_step=False")
     if n_iters is None:
         n_iters = default_n_iters(n_strips, max_depth)
     return _Config(int(max_depth), float(tmin), int(n_strips), int(n_iters),
+                   bool(fused_step),
                    None if tail_compact is None else tuple(tail_compact),
                    bool(rec_attrs), bool(strict), resolve_impl(impl, device),
                    int(seed), u5_fn, stats)
@@ -418,10 +432,14 @@ def trace_recorded_persist(scene: Scene, origin: torch.Tensor,
     under ``tail_compact = (b1, wdiv)``, read black, unless ``strict``, when
     any dropped path turns the radiance and every gradient to NaN.
     ``rec_attrs=False`` records 11 planes instead of 21 and replays slot by
-    slot (K6), refetching the winner attributes. Test hooks: ``u5_fn(i,
-    width)`` -> [5, width] replaces the draws of absolute iteration ``i``
-    (record and replay), ``stats`` (a dict) collects the dropped count and
-    the per-iteration occupancy."""
+    slot (K6), refetching the winner attributes. ``fused_step=True`` runs
+    each record iteration as one launch of K11 (sweep, winner attributes
+    and record step) with the same draws, so the radiance and the gradients
+    are the three-launch iteration's; it takes neither ``tail_compact`` nor
+    ``rec_attrs=False`` (``ValueError``, as the JAX package). Test hooks:
+    ``u5_fn(i, width)`` -> [5, width] replaces the draws of absolute
+    iteration ``i`` (record and replay), ``stats`` (a dict) collects the
+    dropped count and the per-iteration occupancy."""
     cfg = _config(seed, max_depth, tmin, n_strips, n_iters, fused_step,
                   tail_compact, rec_attrs, strict, impl, u5_fn, stats,
                   scene.device)
@@ -438,12 +456,13 @@ def persist_dropped_paths(scene: Scene, origin: torch.Tensor,
                           direction: torch.Tensor, seed: int,
                           max_depth: int = 16, tmin: float = DEFAULT_TMIN,
                           n_strips: int = 8, n_iters: int | None = None, *,
+                          fused_step: bool = False,
                           tail_compact: tuple | None = None,
                           rec_attrs: bool = True, impl: str | None = None,
                           u5_fn: Callable | None = None) -> int:
     """Number of real paths the iteration cap or the boundary width drops
     (0 = exact; the default cap is exact by construction)."""
-    cfg = _config(seed, max_depth, tmin, n_strips, n_iters, False,
+    cfg = _config(seed, max_depth, tmin, n_strips, n_iters, fused_step,
                   tail_compact, rec_attrs, False, impl, u5_fn, None,
                   scene.device)
     with torch.no_grad():

@@ -252,14 +252,17 @@ def test_unported_gradient_integrators_raise(kw):
 
 
 def test_fused_step_and_twin_canary_raise(monkeypatch):
-    # The fused record step (K11) is not ported and raises. The canary now
+    # The fused record step (K11, test_torch_fused_step.py) raises the JAX
+    # package's ValueError when asked for tail compaction. The canary now
     # runs (test_torch_trace.py) and raises GradSanityError when the kernel
     # pair's gradients are corrupted: here its albedo gradient scaled by
     # 1e6, as the JAX package's test_twin_ad_canary_catches_norm_blowup.
     scene = pt.scene_from_numpy(_mirror_world()[0])
     o = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="K11"):
-        pt.trace_recorded_persist(scene, o, o, 0, fused_step=True)
+    with pytest.raises(ValueError, match="tail_compact requires "
+                                         "fused_step=False"):
+        pt.trace_recorded_persist(scene, o, o, 0, fused_step=True,
+                                  tail_compact=(44, 16))
     real = G.render_grads
 
     def corrupted(*a, **k):

@@ -169,9 +169,67 @@ def _agreeing_cotangent(name, sj, o, d, seed=5):
     return g.astype(np.float32)
 
 
-def _close(a, b, rel):
+def _close(a, b, rel, mass=None):
+    """``|a - b| <= rel * max(1, m)`` elementwise, with ``m = |b|`` or, for
+    a gradient summed over rays, ``mass``: the sum over the rays of the
+    absolute per-ray terms (:func:`_term_mass`). A sum of large terms that
+    cancel is only as accurate as its terms are, and its error scales with
+    them, not with the result."""
     b = np.asarray(b)
-    return np.abs(np.asarray(a) - b) <= rel * np.maximum(1, np.abs(b))
+    m = np.abs(b) if mass is None else np.asarray(mass)
+    return np.abs(np.asarray(a) - b) <= rel * np.maximum(1, m)
+
+
+def _term_mass(sj, o, d, g_t, g_attrs=None):
+    """Per sphere, ``sum over rays of |per-ray term|`` of the sweep VJP's
+    sphere gradients, in float64: the terms the backward hands the ordered
+    contraction, ``scale * p`` and ``scale * radius`` at the winner
+    (``K._winner_scale``) plus the hit-masked attribute cotangents
+    ``g_attrs`` (center [R, 3], radius, albedo [R, 3], fuzz, ir). Returns
+    ``{field: [N, ...]}`` for center and radius, and with ``g_attrs`` also
+    albedo, fuzz and ir."""
+    sc = pt.scene_from_numpy(sj)
+    t, idx = K.sweep_ref(_rays6(o, d), K.sphere_consts(sc))
+    f64 = torch.float64
+    _, _, p, scale = K._winner_scale(
+        torch.from_numpy(o).to(f64), torch.from_numpy(d).to(f64),
+        sc.center.to(f64), t, idx, torch.from_numpy(g_t).to(f64))
+    hit = (t < K.BIG).to(f64)
+    ga = [torch.zeros((o.shape[0], 3), dtype=f64), torch.zeros(o.shape[0],
+                                                                dtype=f64)]
+    if g_attrs is not None:
+        ga = [torch.from_numpy(np.asarray(c)).to(f64) for c in g_attrs]
+    cols = {"center": (ga[0] * hit[:, None] + scale[:, None] * p).abs(),
+            "radius": (ga[1] * hit + scale * sc.radius.to(f64)[idx.long()])
+            .abs()}
+    for name, c in zip(("albedo", "fuzz", "ir"), ga[2:]):
+        cols[name] = (c * (hit[:, None] if c.dim() == 2 else hit)).abs()
+    n = sc.center.shape[0]
+    return {k: torch.zeros((n,) + v.shape[1:], dtype=f64)
+            .index_add_(0, idx.long(), v).numpy() for k, v in cols.items()}
+
+
+def _hit_ray(t, g_t):
+    """The first ray that hits and carries a cotangent on t."""
+    return int(np.flatnonzero((t.detach().numpy() < K.BIG) & (g_t != 0))[0])
+
+
+def _drop_ray(cots, k):
+    """The cotangents with ray ``k``'s zeroed (its last axis entry, or row)."""
+    out = [np.array(c) for c in cots]
+    for c in out:
+        c[k] = 0
+    return out
+
+
+def _drops_one_ray(grads, ref, fields, mass):
+    """The sphere gradients computed without one ray's terms lie outside
+    the limit of :func:`_close` on some entry, and the limit is nowhere
+    above 1e-2: it is tight enough to see a single ray go missing from the
+    sums."""
+    assert max(1e-5 * np.maximum(1, mass[f]).max() for f in fields) <= 1e-2
+    return not all(_close(a.numpy(), b, 1e-5, mass[f]).all()
+                   for f, a, b in zip(fields, grads, ref))
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -179,10 +237,15 @@ def test_sweep_vjp_matches_jax(name):
     # The port's autograd.Function over sweep_ref against jax.vjp of
     # intersect_spheres_pallas(interpret=True), with a random cotangent on
     # t (on the rays whose t agrees bitwise, see _agreeing_cotangent):
-    # d_origin, d_direction, d_centers and d_radius within
-    # 1e-5 * max(1, |x|) (measured: rays exactly equal, sphere sums within
-    # 9.6e-7; 59% and 65% of the rays carry a cotangent). The sphere sums go
-    # through the ordered contraction.
+    # d_origin and d_direction within 1e-5 * max(1, |x|), d_centers and
+    # d_radius within 1e-5 * max(1, sum of the absolute per-ray terms) (see
+    # _close; measured: rays exactly equal, sphere sums within 9.6e-7; 59%
+    # and 65% of the rays carry a cotangent). The sphere sums go through the
+    # ordered contraction. The limit this gives is at most 9.1e-3 absolute
+    # (held below 1e-2) and 1.6e-3 of |x| (a center entry of 3.17 on
+    # diel_spheres_hollow); half the entries have it below 3.9e-5 of |x|.
+    # It still sees one ray: the port's gradient with one hit ray's
+    # cotangent zeroed fails it (_drops_one_ray).
     import jax
     sj = jtrim(SCENES[name][0]())
     o, d = _rays(name, 512, 512)
@@ -201,10 +264,16 @@ def test_sweep_vjp_matches_jax(name):
               sc.radius.clone().requires_grad_()]
     hit = K.intersect_spheres_kernel(
         leaves[0], leaves[1], sc._replace(center=leaves[2], radius=leaves[3]))
-    out = torch.autograd.grad(hit.t, leaves, torch.from_numpy(g))
+    out = torch.autograd.grad(hit.t, leaves, torch.from_numpy(g),
+                              retain_graph=True)
+    mass = _term_mass(sj, o, d, g)
     for what, a, b in zip(("origin", "direction", "center", "radius"), out,
                           ref):
-        assert _close(a.numpy(), b, 1e-5).all(), what
+        assert _close(a.numpy(), b, 1e-5, mass.get(what)).all(), what
+    k = _hit_ray(hit.t, g)
+    dropped = torch.autograd.grad(hit.t, leaves[2:],
+                                  torch.from_numpy(_drop_ray([g], k)[0]))
+    assert _drops_one_ray(dropped, ref[2:], ("center", "radius"), mass)
 
 
 def test_sweep_vjp_is_order_free():
@@ -260,8 +329,17 @@ def test_sweep_fetch_matches_jax(name):
 def test_sweep_fetch_vjp_matches_jax(name):
     # K10's backward against jax.vjp of intersect_fetch_pallas with
     # cotangents on t (on the agreeing rays) and on every attribute row:
-    # rays and the five fields within 1e-5 * max(1, |x|) (measured: rays
-    # exactly equal, fields within 3.7e-6). mat gets no gradient.
+    # rays within 1e-5 * max(1, |x|), the five fields within 1e-5 * max(1,
+    # sum of the absolute per-ray terms) (see _close; measured: rays exactly
+    # equal, fields within 1.1e-5 of the JAX sums). On diel_spheres_hollow a
+    # center entry of -0.573 sums terms of up to ~30 that cancel; the float32
+    # sum of the JAX package is 9.4e-6 from the float64 value and the
+    # port's ordered contraction 1.4e-6 (test_sweep_vjp_f32_matches_f64).
+    # The limit this gives is at most 9.9e-3 absolute (held below 1e-2) and
+    # 5.5e-3 of |x| (3.2e-3 on that -0.573 entry); half the entries have it
+    # below 2.2e-4 of |x|. It still sees one ray: the port's gradient with
+    # one hit ray's cotangents zeroed fails it (_drops_one_ray). mat gets no
+    # gradient.
     import jax
     sj = jtrim(SCENES[name][0]())
     o, d = _rays(name, 512, 512)
@@ -286,9 +364,77 @@ def test_sweep_fetch_vjp_matches_jax(name):
     h, at = K.intersect_fetch_kernel(
         leaves[0], leaves[1], sc._replace(**dict(zip(fields, leaves[2:]))))
     out = torch.autograd.grad([h.t] + list(at[:5]), leaves,
-                              [torch.from_numpy(c) for c in cots])
+                              [torch.from_numpy(c) for c in cots],
+                              retain_graph=True)
+    mass = _term_mass(sj, o, d, g, cots[1:])
     for what, a, b in zip(("origin", "direction") + fields, out, ref):
-        assert _close(a.numpy(), b, 1e-5).all(), what
+        assert _close(a.numpy(), b, 1e-5, mass.get(what)).all(), what
+    dropped = torch.autograd.grad(
+        [h.t] + list(at[:5]), leaves[2:],
+        [torch.from_numpy(c) for c in _drop_ray(cots, _hit_ray(h.t, g))])
+    assert _drops_one_ray(dropped, ref[2:], fields, mass)
+
+
+def _well_conditioned(sj, o, d, limit=1e-5):
+    """Rays whose sweep VJP terms carry at most ``limit`` relative float32
+    rounding: misses, and hits with ``2u (|o|_1 + t + |c|_1) / |p . d| <=
+    limit`` (u = 2^-24). ``p = o + t d - c`` cancels terms of size |o|, t
+    and |c| down to the radius, and the terms divide by ``p . d``."""
+    sc = pt.scene_from_numpy(sj)
+    t, idx = K.sweep_ref(_rays6(o, d), K.sphere_consts(sc))
+    hit = (t < K.BIG).numpy()
+    c = np.asarray(sj.center, np.float64)[idx.numpy()]
+    ts = np.where(hit, t.numpy(), 0.0)
+    pd = np.abs(((o + ts[:, None] * d - c) * d).sum(-1))
+    kappa = (2 * 2.0 ** -24 * (np.abs(o).sum(-1) + ts + np.abs(c).sum(-1))
+             / np.maximum(pd, 1e-30))
+    return ~hit | (kappa <= limit)
+
+
+@pytest.mark.parametrize("fetch", [False, True], ids=["sweep", "fetch"])
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_sweep_vjp_f32_matches_f64(name, fetch):
+    # The port's float32 VJP of K1 / K10 (plain versions) against the same
+    # VJP in float64 over the same rays and cotangents: the sweep itself runs
+    # in float32 either way (sphere_consts, _rays6), so t and the winners are
+    # the same and only the backward's arithmetic differs. The cotangent on t
+    # is zero on the rays whose per-ray term is itself ill-conditioned in
+    # float32 (_well_conditioned: 1.3% of the rays of diel_spheres_hollow,
+    # 21% of random_spheres), so what is held is the sum onto the spheres.
+    # Every gradient within 1e-5 * max(1, |x|) of float64, including the
+    # center sums whose terms cancel (measured: within 2.0e-6; on
+    # diel_spheres_hollow with every ray carrying a cotangent, 1.4e-6 at an
+    # entry of -0.573 whose terms reach ~30).
+    sj = jtrim(SCENES[name][0]())
+    o, d = _rays(name, 512, 512)
+    gen = np.random.default_rng(6)
+    g_t = gen.normal(size=o.shape[0]) * _well_conditioned(sj, o, d)
+    g_at = [gen.normal(size=(o.shape[0], 3)), gen.normal(size=o.shape[0]),
+            gen.normal(size=(o.shape[0], 3)), gen.normal(size=o.shape[0]),
+            gen.normal(size=o.shape[0])]
+    fields = pt.DIFF_FIELDS if fetch else ("center", "radius")
+
+    def grads(dt):
+        sc = pt.scene_from_numpy(sj)
+        leaves = [torch.from_numpy(o).to(dt).requires_grad_(),
+                  torch.from_numpy(d).to(dt).requires_grad_()] + [
+            getattr(sc, k).to(dt).requires_grad_() for k in fields]
+        scene = sc._replace(**dict(zip(fields, leaves[2:])))
+        if fetch:
+            h, at = K.intersect_fetch_kernel(leaves[0], leaves[1], scene)
+            outs, cots = [h.t] + list(at[:5]), [g_t] + g_at
+        else:
+            outs = [K.intersect_spheres_kernel(leaves[0], leaves[1], scene).t]
+            cots = [g_t]
+        cots = [torch.from_numpy(np.asarray(c, np.float32)).to(
+            x.dtype if x.dtype.is_floating_point else dt)
+            for c, x in zip(cots, outs)]
+        return torch.autograd.grad(outs, leaves, cots)
+
+    lo, hi = grads(torch.float32), grads(torch.float64)
+    for what, a, b in zip(("origin", "direction") + fields, lo, hi):
+        assert a.dtype == torch.float32 and b.dtype == torch.float64
+        assert _close(a.numpy(), b.numpy(), 1e-5).all(), what
 
 
 def test_sweep_fetch_ref_is_sweep_plus_gather():
