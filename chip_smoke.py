@@ -14,7 +14,11 @@ pixel-pinned route, the remat gradient step and the twin-AD canary, and
 last the flagship gradient step through the fused record step
 (``trace_recorded_persist(fused_step=True)``), the flagship render through
 the megakernel (``persistent_render_sum_mega``) and the cluster sweep
-(``intersect_spheres_grid``) on the flagship's rays in five lane orders. It
+(``intersect_spheres_grid``) on the flagship's rays in five lane orders.
+K1 and K3 split each ray's sweep over a group of threads and are held bit
+for bit against K10, which keeps the one-thread loop, at every split
+(``k1_vs_plain``, ``k3_vs_plain``, ``sweep_redesign``); the last phase
+times them at the main paths' widths. It
 times the kernels, the renders, the steps and the fit against the plain
 path. Each phase prints one JSON line; a failed
 check raises and the script exits non-zero without printing a result. The
@@ -157,9 +161,12 @@ def device_ms(fn, n: int, setup=None, sleep_cycles: int = 100_000_000) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / n
 
 
-def profile_call(fn) -> dict:
+def profile_call(fn, sums: dict | None = None) -> dict:
     """Device time by kernel and the device's busy share over one call of
-    ``fn()``, from torch.profiler (CUPTI)."""
+    ``fn()``, from torch.profiler (CUPTI). ``sums`` maps a label to a
+    regular expression: the device time and count of every kernel whose
+    name it matches are summed under that label."""
+    import re
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -183,8 +190,14 @@ def profile_call(fn) -> dict:
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU
                    and e.self_cpu_time_total > 0), key=lambda r: -r[1])
+    by_match = {label: {"device_ms": sum(r[1] for r in rows
+                                         if re.search(pat, r[0])) / 1e3,
+                        "count": sum(r[2] for r in rows
+                                     if re.search(pat, r[0]))}
+                for label, pat in (sums or {}).items()}
     return {"wall_s_profiled": wall, "device_busy_s": busy_s,
             "device_idle_share": (1 - busy_s / wall) if rows else None,
+            **({"device_ms_by_match": by_match} if sums else {}),
             "top_kernels": [{"name": k[:80], "device_ms": us / 1e3,
                              "count": c} for k, us, c in rows[:12]],
             "top_host_ops": [{"name": k[:60], "self_cpu_ms": us / 1e3,
@@ -206,6 +219,38 @@ def lanes_outside(close_pairs, rel: float, exact_pairs=()) -> tuple:
     for a, b in exact_pairs:
         ok &= (a.reshape(-1, a.shape[-1]) == b.reshape(-1, b.shape[-1])).all(0)
     return int((~ok).sum().item()), err
+
+
+#: K1's and K3's P in the bitwise checks: the one the wrapper picks
+#: (``None``: K1's rule, K3's per-block choice), then each forced P.
+SPLIT_PARTS = (None, 1, 2, 4, 8, 16, 32)
+
+
+def split_vs_k10(rays, spheres, amat, alive=None) -> dict:
+    """The lanes on which K1 (with ``alive``: K3, dead lanes held to
+    ``(BIG, 0)``) differs from K10 in any bit of t or idx, for each P of
+    :data:`SPLIT_PARTS` (``"auto"`` for the wrapper's pick). K10 keeps the
+    one-thread loop, so this holds the split schedule against it in one
+    call."""
+    import torch
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    n = rays.shape[1]
+    t10, i10, _ = K1.sweep_fetch(rays, spheres, amat)
+    runs = {}
+    if alive is None:
+        for P in SPLIT_PARTS:
+            runs["auto" if P is None else str(P)] = K1.sweep(rays, spheres,
+                                                             parts=P)
+    else:
+        live = alive != 0
+        t10 = torch.where(live, t10, torch.full_like(t10, K1.BIG))
+        i10 = torch.where(live, i10, torch.zeros_like(i10))
+        for P in SPLIT_PARTS:
+            runs["auto" if P is None else str(P)] = K1.sweep_masked(
+                rays, alive, spheres, parts=P or 0)
+    torch.cuda.synchronize()
+    return {k: int(_bitwise_lanes([(t, t10), (i, i10)], n).sum())
+            for k, (t, i) in runs.items()}
 
 
 def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
@@ -237,6 +282,8 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
     for i in range(B1):
         if i == 20:  # a mid-phase state for the K3 and K4 checks
             sf20, si20, rad20 = sf.clone(), si.clone(), rad.clone()
+        if i == 40:  # a late state, few lanes live (K3's bitwise check)
+            sf40, si40 = sf.clone(), si.clone()
         t, idx = K1.sweep_masked(sf[0:6], si[2], spheres)
         rec_idx[i] = idx
         PK.persist_record_step(t, fetch_attr_planes(idx, amat), strips, sf,
@@ -252,15 +299,26 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
     t_bit = (t3 == t3r)[live].float().mean().item()
     dead_ok = bool(((t3[~live] == K1.BIG) & (i3[~live] == 0)).all())
     k3_err = (t3 - t3r).abs().max().item()
+    k3_states = {20: (sf20[0:6], si20[2]), 40: (sf40[0:6], si40[2])}
+    vs_k10 = {it: split_vs_k10(r, spheres, amat, a)
+              for it, (r, a) in k3_states.items()}
     emit({"phase": "k3_vs_plain", "lanes": lanes, "spheres": scene.n_spheres,
           "iteration": 20, "live_share": live.float().mean().item(),
           "idx_identical": idx_same, "t_bit_equal_share_live": t_bit,
           "dead_lanes_big_0": dead_ok, "t_max_abs_err": k3_err,
+          "live_share_by_iteration": {
+              it: (a != 0).float().mean().item()
+              for it, (_, a) in k3_states.items()},
+          "lanes_differing_from_k10_by_iteration_and_p": vs_k10,
           "tolerance": "idx identical; t bit-equal on >= 99.99% of live "
-                       "lanes; dead lanes exactly (BIG, 0)"})
+                       "lanes; dead lanes exactly (BIG, 0); against K10 "
+                       "(the one-thread loop), at iterations 20 and 40 and "
+                       "every P: 0 lanes differ in any bit"})
     check(idx_same, "K3 idx differs from sweep_masked_ref")
     check(t_bit >= 0.9999, f"K3 t bit-equal on only {t_bit} of live lanes")
     check(dead_ok, "K3 dead lanes are not (BIG, 0)")
+    check(all(v == 0 for d in vs_k10.values() for v in d.values()),
+          f"K3 differs from K10: {vs_k10}")
 
     # -- K4 against persist_record_step_ref -----------------------------------
     attrs3 = fetch_attr_planes(i3, amat)
@@ -444,7 +502,8 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
             ("persist_replay_step", "persist_replay.cu",
              "persist_grad_kernel.py:542", k6_err)]
     snap = dict(strips=strips, sf=sf20, si=si20, rad=rad20, seed=SEED,
-                spheres=spheres, amat=amat, depth=DEPTH, iteration=20)
+                spheres=spheres, amat=amat, depth=DEPTH, iteration=20,
+                k3_states=k3_states)
     return [kernel_row(nm, f"{pkg}/{src}", f"{tpu}/{tpu_at}", err,
                        dev_ms[nm], dev_ms[nm + "_plain"], bounds[nm])
             for nm, src, tpu_at, err in rows], dev_ms, call, snap
@@ -2033,6 +2092,91 @@ def last_kernel_phases(dev, card, snap, W: int = 1920, H: int = 1080,
     return rows
 
 
+def sweep_redesign_phases(dev, card, cam, rays_f, snap, W: int = 1920,
+                          H: int = 1080, SPP: int = 4) -> None:
+    """K1's split sweep and K3's compacted sweep at the widths the main
+    paths give them: K1 at the flagship's 32 400 mid-render lanes, at the
+    gradient step's 262 144 lanes (iteration 20, every lane) and at the
+    2 073 600 camera rays of one film pass, for the P the wrapper picks and
+    for each forced P, beside K10 (the one-thread loop plus its 40-byte
+    fetch) on the same rays; K3 at iterations 20 and 40 of the step's record
+    phase; every run bitwise against K10; the kernels' registers and
+    resident blocks; K1's device time per flagship render and K3's per
+    flagship step from the profiler."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+
+    spheres, amat = snap["spheres"], snap["amat"]
+    n_sph = spheres.shape[0]
+    g = torch.Generator(device=dev).manual_seed(13)
+    u_px, v_px = pt.pixel_coords(W, H, device=dev)
+    o, d = pt.get_rays(cam, u_px, v_px, generator=g)
+    sets = {"mid_render_32400": rays_f,
+            "grad_lanes_262144": snap["k3_states"][20][0].contiguous(),
+            "camera_2073600": torch.cat([o.T, d.T]).contiguous()}
+    del o, d, u_px, v_px
+    resident = K1._resident_threads(dev, n_sph)
+    k1, bitwise = {}, {}
+    for name, r in sets.items():
+        n = r.shape[1]
+        bitwise[name] = split_vs_k10(r, spheres, amat)
+        ms = {("auto" if P is None else str(P)): device_ms(
+            lambda P=P: K1.sweep(r, spheres, parts=P), 20)
+            for P in SPLIT_PARTS}
+        k1[name] = {"rays": n,
+                    "parts_chosen": K1.sweep_parts(n, n_sph, resident),
+                    "device_ms_by_p": ms,
+                    "k10_device_ms": device_ms(
+                        lambda: K1.sweep_fetch(r, spheres, amat), 20)}
+    k3 = {}
+    for it, (r, a) in snap["k3_states"].items():
+        ms = {("auto" if P is None else str(P)): device_ms(
+            lambda P=P: K1.sweep_masked(r, a, spheres, parts=P or 0), 20)
+            for P in SPLIT_PARTS}
+        k3[it] = {"live_share": (a != 0).float().mean().item(),
+                  "device_ms_by_p": ms,
+                  "k1_all_lanes_device_ms": device_ms(
+                      lambda: K1.sweep(r, spheres), 20),
+                  "k10_all_lanes_device_ms": device_ms(
+                      lambda: K1.sweep_fetch(r, spheres, amat), 20)}
+    occ = {kern: K1.occupancy(kern, n_sph, dev)
+           for kern in ("sweep", "sweep_masked", "sweep_fetch")}
+
+    # K1 per flagship render, K3 per flagship step (torch.profiler)
+    flag_scene, flag_cam = pt.scene_random_spheres(seed=1), pt.t_cam1()
+    bad = flag_scene._replace(albedo=torch.clamp(flag_scene.albedo * 0.8,
+                                                 0, 1))
+    target = pt.render_radiance(flag_scene, flag_cam, W, 1, seed=123,
+                                device=dev, persistent=True)
+    sums = {"sweep": r"\bsweep_kernel\b",
+            "sweep_masked": r"\bsweep_masked_kernel\b"}
+    render = profile_call(lambda: pt.render(
+        flag_scene, flag_cam, W, SPP, persistent=True, device="cuda"), sums)
+    step = profile_call(lambda: pt.render_grads(
+        bad, flag_cam, target, W, 1, device=dev), sums)
+    per_render = render["device_ms_by_match"]["sweep"]
+    per_step = step["device_ms_by_match"]["sweep_masked"]
+    emit({"phase": "sweep_redesign", "card": card, "spheres": n_sph,
+          "resident_threads_k1": resident, "k1": k1, "k3": k3,
+          "occupancy": occ, "lanes_differing_from_k10_by_p": bitwise,
+          "k1_per_flagship_render": {
+              **per_render, "wall_s_profiled": render["wall_s_profiled"],
+              "device_idle_share": render["device_idle_share"]},
+          "k3_per_flagship_step": {
+              **per_step, "wall_s_profiled": step["wall_s_profiled"],
+              "device_idle_share": step["device_idle_share"]},
+          "note": "device_ms: card time only (queue pre-filled), 20 "
+                  "launches; K10 sweeps with the one-thread loop and "
+                  "fetches 40 bytes per ray more",
+          "tolerance": "0 lanes differ from K10 in any bit of t or idx, "
+                       "on every ray set at every P"})
+    check(all(v == 0 for d in bitwise.values() for v in d.values()),
+          f"K1 differs from K10: {bitwise}")
+    check(per_render["count"] > 0 and per_step["count"] > 0,
+          "the profiles found no K1 or K3 launch")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2073,7 +2217,7 @@ def main() -> int:
     spheres = K1.sphere_consts(scene)
     check(scene.n_spheres == 488, f"flagship scene has {scene.n_spheres}")
 
-    # -- 2. K1 against sweep_ref: 2^20 rays ---------------------------------
+    # -- 2. K1 against sweep_ref: 2^20 rays and the flagship's lanes -------
     g = torch.Generator(device=dev).manual_seed(0)
     n_half = 1 << 19
     s = torch.rand(n_half, generator=g, device=dev)
@@ -2086,24 +2230,8 @@ def main() -> int:
     p = o_cam + torch.where(hit, t_cam, torch.ones_like(t_cam))[:, None] * d_cam
     d_sc = pt.unit_sphere_directions((n_half,), generator=g, device=dev)
     rays = torch.cat([rays_cam, torch.cat([p.T, d_sc.T])], dim=1).contiguous()
-    K1.launches = 0
-    t_k, i_k = K1.sweep(rays, spheres)
-    torch.cuda.synchronize()
-    t_r, i_r = K1.sweep_ref(rays, spheres)
-    bit_equal = (t_k == t_r).float().mean().item()
-    rel = ((t_k - t_r).abs() / t_r.abs().clamp(min=1e-30)).max().item()
-    idx_equal = bool(torch.equal(i_k, i_r))
-    k1_err = (t_k - t_r).abs().max().item()
-    emit({"phase": "k1_vs_plain", "rays": rays.shape[1],
-          "hit_share": (t_r < K1.BIG).float().mean().item(),
-          "idx_identical": idx_equal, "t_bit_equal_share": bit_equal,
-          "t_max_rel_err": rel, "t_max_abs_err": k1_err,
-          "tolerance": "idx identical; t bit-equal on >= 99.99%, rel 1e-6 on all"})
-    check(idx_equal, "K1 idx differs from sweep_ref")
-    check(bit_equal >= 0.9999, f"K1 t bit-equal on only {bit_equal}")
-    check(rel <= 1e-6, f"K1 t relative error {rel}")
 
-    # -- 3. K2 against shade_strided_step_ref at the flagship lane count -----
+    # the flagship's mid-render lanes: 32 400 at k = 64, after 24 iterations
     k = 64
     st = I.init_strided_state(cam, W * H, W, H, 5, SPP, 0, 16, k, device=dev)
     n_lanes = st.fstate.shape[1]
@@ -2113,7 +2241,46 @@ def main() -> int:
     seed32 = rng.persistent_seed(5, 0)
     for it in range(24):  # a realistic mid-render state
         I.strided_step(tables, st, cc, seed32, it, 0, 16, 1e-4, "kernels")
-    t_s, i_s = K1.sweep(st.fstate[0:6], spheres)
+    rays_f = st.fstate[0:6].contiguous()
+
+    # K1 at the P its rule picks for each set (1 and 8 on an H100)
+    resident = K1._resident_threads(dev, spheres.shape[0])
+    by_set = {}
+    for name, r in (("rays_2p20", rays), ("mid_render_32400", rays_f)):
+        t_k, i_k = K1.sweep(r, spheres)
+        torch.cuda.synchronize()
+        t_r, i_r = K1.sweep_ref(r, spheres)
+        by_set[name] = {
+            "rays": r.shape[1],
+            "parts_chosen": K1.sweep_parts(r.shape[1], spheres.shape[0],
+                                           resident),
+            "hit_share": (t_r < K1.BIG).float().mean().item(),
+            "idx_identical": bool(torch.equal(i_k, i_r)),
+            "t_bit_equal_share": (t_k == t_r).float().mean().item(),
+            "t_max_rel_err": ((t_k - t_r).abs()
+                              / t_r.abs().clamp(min=1e-30)).max().item(),
+            "t_max_abs_err": (t_k - t_r).abs().max().item()}
+    k1_err = by_set["mid_render_32400"]["t_max_abs_err"]  # the main path's
+    vs_k10 = {"rays_2p20": split_vs_k10(rays, spheres, tables[2]),
+              "mid_render_32400": split_vs_k10(rays_f, spheres, tables[2])}
+    emit({"phase": "k1_vs_plain", "by_set": by_set,
+          "lanes_differing_from_k10_by_p": vs_k10,
+          "tolerance": "against sweep_ref, on both ray sets at the P the "
+                       "rule picks: idx identical; t bit-equal on >= "
+                       "99.99%, rel 1e-6 on all; against K10 (the "
+                       "one-thread loop), on both ray sets at every P: 0 "
+                       "lanes differ in any bit"})
+    for name, c in by_set.items():
+        check(c["idx_identical"], f"K1 idx differs from sweep_ref ({name})")
+        check(c["t_bit_equal_share"] >= 0.9999,
+              f"K1 t bit-equal on only {c['t_bit_equal_share']} ({name})")
+        check(c["t_max_rel_err"] <= 1e-6,
+              f"K1 t relative error {c['t_max_rel_err']} ({name})")
+    check(all(v == 0 for d in vs_k10.values() for v in d.values()),
+          f"K1 differs from K10: {vs_k10}")
+
+    # -- 3. K2 against shade_strided_step_ref at the flagship lane count -----
+    t_s, i_s = K1.sweep(rays_f, spheres)
     attrs = fetch_attr_planes(i_s, tables[2])
     state0 = [x.clone() for x in (st.fstate, st.istate, st.buf)]
 
@@ -2210,7 +2377,6 @@ def main() -> int:
     check(rel6 <= 0.01, f"flagship means differ by {rel6}")
 
     # -- 6. kernel times at the flagship shapes (CUDA events) ----------------
-    rays_f = state0[0][0:6].contiguous()
     live = [x.clone() for x in state0]
     k1 = lambda: K1.sweep(rays_f, spheres)
     k1_plain = lambda: K1.sweep_ref(rays_f, spheres)
@@ -2262,6 +2428,9 @@ def main() -> int:
 
     # -- 13. the fused record step, the megakernel, the cluster sweep ------
     last_rows = last_kernel_phases(dev, card, snap)
+
+    # -- 14. K1's and K3's schedules at the main paths' widths ------------
+    sweep_redesign_phases(dev, card, cam, rays_f, snap)
 
     # -- the kernels line: every ported kernel, with its bound -------------
     n_rays, n_sph = rays_f.shape[1], spheres.shape[0]

@@ -1,149 +1,219 @@
-// K1: closest-hit ray-sphere sweep for Hopper (sm_90a).
+// K1 and K3: the closest-hit ray-sphere sweep and its occupancy-masked
+// form, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py
-// :: _sweep_kernel (launched by _sweep_forward), forward only.
+// K1 replaces the TPU kernel raytracingweekend_jl_tpu/ops/pallas/
+// intersect_kernel.py :: _sweep_kernel (launched by _sweep_forward),
+// forward only; K3 replaces :: _sweep_masked_kernel (launched by
+// sweep_masked_planes).
 //
-// What it computes: for each ray, the closest sphere hit in [tmin, inf) with
-// the half-b quadratic for unit directions (a == 1), in the TPU kernel's
-// expanded form:
-//     od = o.d, oo = |o|^2, ck = |c|^2 - r^2 (precomputed per sphere)
-//     hb = od - c.d,  c = oo - 2 o.c + ck,  disc = hb^2 - c
-//     t  = near root if >= tmin, else far root
-//     accept if disc > 0 and t >= tmin and t < best_t (strict: ties keep the
-//     first index)
-// Misses return t = BIG and index 0.
+// What they compute: for each ray (each live lane, for K3), the closest
+// sphere hit in [tmin, inf) with the half-b quadratic for unit directions
+// (a == 1), in the TPU kernel's expanded form (sweep_core.cuh). Misses and
+// K3's dead lanes return t = BIG and index 0.
 //
-// What bounds it on the card: arithmetic. Each ray reads 24 bytes and writes
-// 8, then does ~20 flops per sphere; at the flagship width (32 400 rays x 488
-// spheres) that is ~0.3 GFLOP per launch against ~1 MB of traffic. The sphere
-// table is the only shared operand.
+// What bounds them on this card: operations. Each (ray, sphere) pair costs
+// ~20 float32 operations against 32 bytes of traffic per ray, so at 488
+// spheres a ray does ~300 operations per byte. Built with --fmad=false (so
+// that the kernels match their plain versions), every add and multiply
+// issues alone: the FP32 pipes' ceiling for this code is half the 67 TFLOP/s
+// that counts an FMA as two operations, so a sweep reaches at most ~50% of
+// the bound that chip_smoke.py reports.
 //
-// Design: one thread per ray, ray state in registers. The sphere table
-// (cx, cy, cz, ck) is staged once per block into shared memory as float4
-// (488 spheres = 7.8 KB), so the inner loop issues one 16-byte shared load
-// per sphere, broadcast to the whole warp, and no global traffic. The
-// TPU kernel held spheres in SMEM scalars and rays in vector tiles; here the
-// same split falls out of the thread model. Built with --fmad=false so its
-// arithmetic matches the plain PyTorch version (sweep_ref) operation for
-// operation. The loop itself is sweep_core.cuh's, shared with every kernel
-// that sweeps.
+// What the design does about it: it keeps the card full and sweeps only
+// what must be swept, without touching a pair's arithmetic.
+//   - Split rays within a warp. A group of P threads (P a power of two, at
+//     most 32, inside one warp) sweeps one ray: part p takes spheres
+//     s == p (mod P) from the table staged in shared memory, and the parts
+//     merge with __shfl_xor_sync on the lexicographic minimum of (t, idx)
+//     (rtw_sweep_part, rtw_merge_closest). The one-thread-per-ray loop
+//     filled 12% of the thread slots at the flagship's 32 400 lanes; K1
+//     takes P from the ray count (the wrapper's rule: enough threads to fill
+//     the SMs' resident slots), P = 1 at full-film widths.
+//   - Skip the roots of pairs that miss: the square root and the two roots
+//     sit behind `disc > 0` (rtw_sweep_pair), which changes no bit.
+//   - K3 compacts the live lanes of each block: a block of 256 lanes packs
+//     its live lane ids into shared memory in lane order (__ballot_sync,
+//     __popc and a warp scan of the 8 per-warp counts), sweeps only those,
+//     with P chosen per block from its live count (up to 4 rounds), and
+//     writes (BIG, 0) to the dead lanes. A block with no live lane skips the table staging.
+//     The TPU kernel skipped an all-dead (64, 128) tile and swept every
+//     lane of the others.
+// Each lane's result lands in its own slot: no atomics, no allocation, no
+// grid-wide synchronisation, and the output does not depend on block
+// order. The (t, idx) of both kernels is bit for bit rtw_sweep_closest's,
+// the one-thread loop that K10-K13 keep.
 
 #include <cuda_runtime.h>
 
 #include "sweep_core.cuh"
 
-__global__ void sweep_kernel(const float* __restrict__ rays,
-                             const float4* __restrict__ spheres,
-                             int n_rays, int n_spheres, float tmin,
-                             float* __restrict__ t_out,
-                             int* __restrict__ idx_out) {
+#define RTW_SWEEP_THREADS 256
+
+__global__ void __launch_bounds__(RTW_SWEEP_THREADS)
+    sweep_kernel(const float* __restrict__ rays,
+                 const float4* __restrict__ spheres, int n_rays,
+                 int n_spheres, float tmin, int log2p,
+                 float* __restrict__ t_out, int* __restrict__ idx_out) {
   extern __shared__ float4 sph[];
   for (int s = threadIdx.x; s < n_spheres; s += blockDim.x) sph[s] = spheres[s];
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const float ox = rays[i], oy = rays[n_rays + i], oz = rays[2 * n_rays + i];
-  const float dx = rays[3 * n_rays + i], dy = rays[4 * n_rays + i],
-              dz = rays[5 * n_rays + i];
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = g >> log2p;
+  const int P = 1 << log2p, p = (int)(g & (P - 1));
+  float best_t = RTW_BIG;
+  int best_i = 0;
+  if (i < n_rays) {
+    const size_t n = n_rays;
+    rtw_sweep_part(sph, n_spheres, p, P, rays[i], rays[n + i],
+                   rays[2 * n + i], rays[3 * n + i], rays[4 * n + i],
+                   rays[5 * n + i], tmin, best_t, best_i);
+  }
+  rtw_merge_closest(best_t, best_i, P);  // every lane of the warp
+  if (i < n_rays && p == 0) {
+    t_out[i] = best_t;
+    idx_out[i] = best_i;
+  }
+}
 
-  float best_t;
-  int best_i;
-  rtw_sweep_closest(sph, n_spheres, ox, oy, oz, dx, dy, dz, tmin, best_t,
-                    best_i);
-  t_out[i] = best_t;
-  idx_out[i] = best_i;
+static int log2_of(int p) {
+  int l = 0;
+  while ((1 << l) < p) ++l;
+  return l;
+}
+
+// Dynamic shared memory of the kernels (bytes), raised above 48 KB first.
+static cudaError_t rtw_reserve_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 // rays: [6, n_rays] f32 planes (ox, oy, oz, dx, dy, dz); spheres: [n, 4] f32
-// rows (cx, cy, cz, ck). Launches on `stream`; returns the launch's error.
+// rows (cx, cy, cz, ck); parts: P, a power of two in [1, 32]. Launches on
+// `stream`; returns the launch's error.
 extern "C" int rtw_sweep(const float* rays, const float* spheres, int n_rays,
                          int n_spheres, float tmin, float* t_out, int* idx_out,
-                         void* stream) {
+                         int parts, void* stream) {
   if (n_rays <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n_rays + threads - 1) / threads;
+  if (parts < 1 || parts > 32 || (parts & (parts - 1)))
+    return (int)cudaErrorInvalidValue;
+  const int log2p = log2_of(parts);
+  const long long threads = (long long)n_rays << log2p;
+  const int blocks = (int)((threads + RTW_SWEEP_THREADS - 1) /
+                           RTW_SWEEP_THREADS);
   const size_t smem = (size_t)n_spheres * sizeof(float4);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  sweep_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  cudaError_t e = rtw_reserve_smem((const void*)sweep_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  sweep_kernel<<<blocks, RTW_SWEEP_THREADS, smem, (cudaStream_t)stream>>>(
       rays, reinterpret_cast<const float4*>(spheres), n_rays, n_spheres, tmin,
-      t_out, idx_out);
+      log2p, t_out, idx_out);
   return (int)cudaGetLastError();
 }
 
-// K3: the occupancy-masked sweep of the gradient path's record phases.
-//
-// Replaces the TPU kernel raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py
-// :: _sweep_masked_kernel (launched by sweep_masked_planes). The TPU kernel
-// skipped a (64, 128) tile whose lanes were all dead and swept every lane of
-// a live tile; its host code then masked dead lanes per lane off the TPU
-// (persist_grad_kernel.py:955-958). Here the mask is per lane: a dead lane
-// returns (BIG, 0) and does not sweep, and a block whose lanes are all dead
-// skips the staging of the sphere table as well (__syncthreads_or). Live
-// lanes run K1's loop, so they get K1's (t, idx) bit for bit.
-//
-// What bounds it: as K1, arithmetic per live lane; the record phase's
-// occupancy falls from 1 to a few percent, and dead lanes cost one load and
-// two stores.
-__global__ void sweep_masked_kernel(const float* __restrict__ rays,
-                                    const int* __restrict__ alive,
-                                    const float4* __restrict__ spheres,
-                                    int n_rays, int n_spheres, float tmin,
-                                    float* __restrict__ t_out,
-                                    int* __restrict__ idx_out) {
+// K3. Each block takes 256 lanes, one per thread. `parts` is P for every
+// block, or 0: each block takes the largest P <= min(p_cap, 16) with
+// n_live * P <= 4 * 256, at most 4 rounds of its live lanes (a dense block
+// takes P = 4, a sparse one 16; P = 32 loses to 16 on sparse blocks and one
+// round at P = 1 to four at P = 4 on dense ones, PERF.md). The bound of 8
+// blocks per SM holds the kernel to 32 registers (34 unbounded, which fits
+// 6 blocks), without a spill.
+__global__ void __launch_bounds__(RTW_SWEEP_THREADS, 8)
+    sweep_masked_kernel(const float* __restrict__ rays,
+                        const int* __restrict__ alive,
+                        const float4* __restrict__ spheres, int n_rays,
+                        int n_spheres, float tmin, int parts, int p_cap,
+                        float* __restrict__ t_out,
+                        int* __restrict__ idx_out) {
+  constexpr int NW = RTW_SWEEP_THREADS / 32;
   extern __shared__ float4 sph[];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n_rays && alive[i] != 0;
-  if (!__syncthreads_or(live)) {  // the whole block is dead
-    if (i < n_rays) {
-      t_out[i] = RTW_BIG;
-      idx_out[i] = 0;
-    }
-    return;
+  __shared__ int ids[RTW_SWEEP_THREADS];
+  __shared__ int base[NW + 1];  // per-warp offsets; base[NW] = total
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // Dead lanes get (BIG, 0); each warp counts its live lanes.
+  const long long i0 = (long long)blockIdx.x * RTW_SWEEP_THREADS + threadIdx.x;
+  const bool in = i0 < n_rays;
+  const bool live = in && alive[i0] != 0;
+  if (in && !live) {
+    t_out[i0] = RTW_BIG;
+    idx_out[i0] = 0;
   }
+  const unsigned m = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) base[warp] = __popc(m);
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the NW per-warp counts
+    const int v = lane < NW ? base[lane] : 0;
+    int incl = v;
+    for (int off = 1; off < NW; off <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += u;
+    }
+    if (lane < NW) base[lane] = incl - v;
+    if (lane == NW - 1) base[NW] = incl;
+  }
+  __syncthreads();
+  const int n_live = base[NW];
+  if (n_live == 0) return;  // the whole block is dead: no staging
+
+  // Pack the live lane ids in lane order, and stage the sphere table.
+  if (live) ids[base[warp] + __popc(m & ((1u << lane) - 1u))] = (int)i0;
   for (int s = threadIdx.x; s < n_spheres; s += blockDim.x) sph[s] = spheres[s];
   __syncthreads();
-  if (i >= n_rays) return;
-  if (!live) {
-    t_out[i] = RTW_BIG;
-    idx_out[i] = 0;
-    return;
-  }
-  const size_t n = n_rays;
-  const float ox = rays[i], oy = rays[n + i], oz = rays[2 * n + i];
-  const float dx = rays[3 * n + i], dy = rays[4 * n + i],
-              dz = rays[5 * n + i];
 
-  float best_t;
-  int best_i;
-  rtw_sweep_closest(sph, n_spheres, ox, oy, oz, dx, dy, dz, tmin, best_t,
-                    best_i);
-  t_out[i] = best_t;
-  idx_out[i] = best_i;
+  int P = parts;
+  if (P == 0) {
+    P = p_cap < 16 ? p_cap : 16;
+    while (P > 1 && n_live * P > 4 * RTW_SWEEP_THREADS) P >>= 1;
+  }
+  const int log2p = __ffs(P) - 1;
+  const int per_round = RTW_SWEEP_THREADS >> log2p;
+  const int p = threadIdx.x & (P - 1);
+  const size_t n = n_rays;
+  for (int r0 = 0; r0 < n_live; r0 += per_round) {  // block-uniform
+    const int j = r0 + (threadIdx.x >> log2p);
+    float best_t = RTW_BIG;
+    int best_i = 0, i = 0;
+    if (j < n_live) {
+      i = ids[j];
+      rtw_sweep_part(sph, n_spheres, p, P, rays[i], rays[n + i],
+                     rays[2 * n + i], rays[3 * n + i], rays[4 * n + i],
+                     rays[5 * n + i], tmin, best_t, best_i);
+    }
+    rtw_merge_closest(best_t, best_i, P);  // every lane of the warp
+    if (j < n_live && p == 0) {
+      t_out[i] = best_t;
+      idx_out[i] = best_i;
+    }
+  }
 }
 
-// rays: [6, n_rays] f32 planes; alive: [n_rays] i32; spheres: [n, 4] f32.
+// The largest power of two <= min(32, n_spheres): every part has a sphere.
+static int parts_cap(int n_spheres) {
+  int p = 1;
+  while (p < 32 && 2 * p <= n_spheres) p *= 2;
+  return p;
+}
+
+// rays: [6, n_rays] f32 planes; alive: [n_rays] i32; spheres: [n, 4] f32;
+// parts: 0 (per block) or a power of two in [1, 32].
 extern "C" int rtw_sweep_masked(const float* rays, const int* alive,
                                 const float* spheres, int n_rays,
                                 int n_spheres, float tmin, float* t_out,
-                                int* idx_out, void* stream) {
+                                int* idx_out, int parts, void* stream) {
   if (n_rays <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n_rays + threads - 1) / threads;
+  if (parts < 0 || parts > 32 || (parts & (parts - 1)))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (int)(((long long)n_rays + RTW_SWEEP_THREADS - 1) /
+                           RTW_SWEEP_THREADS);
   const size_t smem = (size_t)n_spheres * sizeof(float4);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sweep_masked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  sweep_masked_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  cudaError_t e = rtw_reserve_smem((const void*)sweep_masked_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  sweep_masked_kernel<<<blocks, RTW_SWEEP_THREADS, smem,
+                        (cudaStream_t)stream>>>(
       rays, alive, reinterpret_cast<const float4*>(spheres), n_rays,
-      n_spheres, tmin, t_out, idx_out);
+      n_spheres, tmin, parts, parts_cap(n_spheres), t_out, idx_out);
   return (int)cudaGetLastError();
 }
 
@@ -153,8 +223,10 @@ extern "C" int rtw_sweep_masked(const float* rays, const int* alive,
 // :: _sweep_fetch_kernel (launched by _sweep_fetch_forward), the
 // `fused_attrs=True` route of the fixed-depth wavefront.
 //
-// What it computes: K1's (t, idx), with K1's expressions in K1's order, so t
-// and idx are K1's bit for bit; then the winner's 10 attributes in
+// What it computes: the closest hit through rtw_sweep_closest, one thread
+// per ray (K1's split loop gives the same (t, idx) bit for bit, and
+// chip_smoke.py holds K1 against this kernel on every lane); then the
+// winner's 10 attributes in
 // materials.attr_mat column order (center xyz, radius, albedo rgb, fuzz, ir,
 // mat as a float). A miss writes (BIG, 0) and ten zeros, the TPU kernel's
 // raw outputs; the wrapper applies the miss defaults.
@@ -163,10 +235,11 @@ extern "C" int rtw_sweep_masked(const float* rays, const int* alive,
 // writes 40 more bytes per ray than K1.
 //
 // Design: the TPU carried ten running selects per sphere because its vector
-// unit had no gather. Here the loop is K1's, and after it one thread reads
-// its winner's row from the attribute table staged in shared memory beside
-// the sphere table (56 bytes per sphere, 27 KB for the flagship's 488): the
-// same function with ten fewer live registers in the loop.
+// unit had no gather. Here the loop is the one-thread sweep, and after it
+// one thread reads its winner's row from the attribute table staged in
+// shared memory beside the sphere table (56 bytes per sphere, 27 KB for the
+// flagship's 488): the same function with ten fewer live registers in the
+// loop.
 __global__ void sweep_fetch_kernel(const float* __restrict__ rays,
                                    const float4* __restrict__ spheres,
                                    const float* __restrict__ amat,
@@ -220,6 +293,39 @@ extern "C" int rtw_sweep_fetch(const float* rays, const float* spheres,
       rays, reinterpret_cast<const float4*>(spheres), amat, n_rays, n_spheres,
       tmin, t_out, idx_out, attrs_out);
   return (int)cudaGetLastError();
+}
+
+// The registers per thread of kernel `which` (0: K1, 1: K3, 2: K10), the
+// blocks of it that one SM holds at the launch's block size and shared
+// memory for `n_spheres`, and the device's SM count.
+extern "C" int rtw_sweep_occupancy(int which, int n_spheres, int* regs,
+                                   int* blocks_per_sm, int* sm_count) {
+  const void* k;
+  int threads = RTW_SWEEP_THREADS;
+  size_t smem = (size_t)n_spheres * sizeof(float4);
+  if (which == 0) {
+    k = (const void*)sweep_kernel;
+  } else if (which == 1) {
+    k = (const void*)sweep_masked_kernel;
+  } else if (which == 2) {
+    k = (const void*)sweep_fetch_kernel;
+    threads = 128;
+    smem += (size_t)n_spheres * 10 * sizeof(float);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaFuncAttributes a = {};
+  cudaError_t e = cudaFuncGetAttributes(&a, k);
+  if (e == cudaSuccess) e = rtw_reserve_smem(k, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k,
+                                                      threads, smem);
+  int dev = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, dev);
+  *regs = a.numRegs;
+  return (int)e;
 }
 
 extern "C" const char* rtw_error_string(int err) {

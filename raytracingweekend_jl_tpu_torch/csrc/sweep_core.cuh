@@ -1,8 +1,18 @@
-// The closest-hit loop of K1 (sweep.cu), shared by every kernel that sweeps
-// a ray against a sphere table: K3 and K10 (sweep.cu), the fused record
-// step K11 (persist_record.cu), the megakernel K12 (mega.cu) and the cluster
-// sweep K13 (grid_sweep.cu). One definition keeps their (t, idx) bit for bit
-// K1's.
+// The closest-hit loops of the sphere sweeps.
+//
+// rtw_sweep_closest: one thread sweeps one ray over the whole table. It is
+// the loop of the fused kernels: K10 (sweep.cu), the fused record step K11
+// (persist_record.cu), the megakernel K12 (mega.cu) and the cluster sweep
+// K13 (grid_sweep.cu, through rtw_sweep_one).
+//
+// rtw_sweep_part + rtw_merge_closest: the split loop of K1 and K3
+// (sweep.cu). A group of P threads of one warp sweeps one ray, part p
+// taking spheres s == p (mod P), and the parts merge on the lexicographic
+// minimum of (t, idx). rtw_sweep_closest accepts only a strictly smaller t,
+// in increasing index order, so its winner is the least accepted t and,
+// among equal t, the least index: exactly that minimum, whatever the
+// order of the parts. A part that accepts nothing holds (BIG, 0); a NaN t
+// is accepted by neither loop. So both loops give (t, idx) bit for bit.
 //
 // The TPU kernel's expanded form of the half-b quadratic for unit
 // directions (a == 1), raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py
@@ -58,4 +68,61 @@ __device__ __forceinline__ void rtw_sweep_closest(const float4* sph, int n,
   for (int s = 0; s < n; ++s)
     rtw_sweep_one(sph[s], s, ox, oy, oz, dx, dy, dz, od, oo, tmin, best_t,
                   best_i);
+}
+
+// rtw_sweep_one with the roots behind `disc > 0`: the same expressions in
+// the same order, so the same (t, idx) bit for bit (a pair with disc <= 0,
+// or NaN, is never accepted, and for disc > 0 fmaxf(disc, 0) is disc). Most
+// pairs miss, and a warp whose pairs all miss skips the square root.
+__device__ __forceinline__ void rtw_sweep_pair(float4 c4, int s, float ox,
+                                               float oy, float oz, float dx,
+                                               float dy, float dz, float od,
+                                               float oo, float tmin,
+                                               float& best_t, int& best_i) {
+  const float cd = c4.x * dx + c4.y * dy + c4.z * dz;
+  const float oc = c4.x * ox + c4.y * oy + c4.z * oz;
+  const float hb = od - cd;
+  const float c = oo - 2.0f * oc + c4.w;
+  const float disc = hb * hb - c;
+  if (disc > 0.0f) {
+    const float sq = sqrtf(disc);
+    const float r1 = -hb - sq;
+    const float t = r1 >= tmin ? r1 : -hb + sq;
+    if (t >= tmin && t < best_t) {
+      best_t = t;
+      best_i = s;
+    }
+  }
+}
+
+// Part p of P (a power of two) of one ray's sweep: spheres p, p + P, ...
+// of [0, n). (BIG, 0) when the part accepts nothing.
+__device__ __forceinline__ void rtw_sweep_part(const float4* sph, int n,
+                                               int p, int P, float ox,
+                                               float oy, float oz, float dx,
+                                               float dy, float dz,
+                                               float tmin, float& best_t,
+                                               int& best_i) {
+  const float od = ox * dx + oy * dy + oz * dz;
+  const float oo = ox * ox + oy * oy + oz * oz;
+  best_t = RTW_BIG;
+  best_i = 0;
+#pragma unroll 4
+  for (int s = p; s < n; s += P)
+    rtw_sweep_pair(sph[s], s, ox, oy, oz, dx, dy, dz, od, oo, tmin, best_t,
+                   best_i);
+}
+
+// Merges the parts of each group of P aligned lanes of a warp (P a power of
+// two <= 32): afterwards every lane of the group holds the group's
+// lexicographic minimum of (t, idx). Every lane of the warp must call it.
+__device__ __forceinline__ void rtw_merge_closest(float& t, int& idx, int P) {
+  for (int off = P >> 1; off > 0; off >>= 1) {
+    const float to = __shfl_xor_sync(0xffffffffu, t, off);
+    const int io = __shfl_xor_sync(0xffffffffu, idx, off);
+    if (to < t || (to == t && io < idx)) {
+      t = to;
+      idx = io;
+    }
+  }
 }

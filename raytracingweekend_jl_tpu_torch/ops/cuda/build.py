@@ -37,10 +37,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 #: C signatures of the exported launchers (each returns a cudaError_t).
 _SIGNATURES = {
-    # rays[6,R], spheres[N,4], R, N, tmin, t[R], idx[R], stream
-    "rtw_sweep": [_P, _P, _I, _I, _F, _P, _P, _P],
+    # rays[6,R], spheres[N,4], R, N, tmin, t[R], idx[R], parts, stream
+    "rtw_sweep": [_P, _P, _I, _I, _F, _P, _P, _I, _P],
     # fstate[12,R], istate[7,R], buf[3k,R], t[R], attrs[10,R], cam[21],
     # u9[9,R] or NULL, R, k, W, H, dpx, dpy, p_end, first_sample, max_depth,
     # seed, iteration, stream
@@ -53,8 +54,11 @@ _SIGNATURES = {
     # u9[9,R] or NULL, R, last_sample, max_depth, seed, iteration, stream
     "rtw_shade_pinned": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
                          _P],
-    # rays[6,W], alive[W], spheres[N,4], W, N, tmin, t[W], idx[W], stream
-    "rtw_sweep_masked": [_P, _P, _P, _I, _I, _F, _P, _P, _P],
+    # rays[6,W], alive[W], spheres[N,4], W, N, tmin, t[W], idx[W], parts,
+    # stream
+    "rtw_sweep_masked": [_P, _P, _P, _I, _I, _F, _P, _P, _I, _P],
+    # kernel, N, &regs, &blocks_per_sm, &sm_count
+    "rtw_sweep_occupancy": [_I, _I, _IP, _IP, _IP],
     # t[W], attrs[10,W], strips[6S,W], sf[9,W], si[3,W], rad[3S,W],
     # rec slot[n_rec,W], n_rec, u5[5,W] or NULL, W, S, max_depth, seed,
     # iteration, stream

@@ -9,6 +9,13 @@ Counterparts of ``raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py``
 kernels on CUDA tensors and run :func:`sweep_ref`, :func:`sweep_masked_ref`
 and :func:`sweep_fetch_ref` on CPU tensors; nothing else.
 
+K1 and K3 split each ray's sweep over a group of P threads of one warp and
+merge the parts on the lexicographic minimum of ``(t, idx)``, which gives
+the one-thread loop's result bit for bit (``csrc/sweep_core.cuh``). K1
+takes P from the ray count (:func:`sweep_parts`), K3 per block from its
+live lanes. :func:`sweep_split_ref` is the plain mirror of that schedule,
+for the tests and ``chip_smoke.py``; no route runs it.
+
 :func:`intersect_spheres_kernel` and :func:`intersect_fetch_kernel` (the
 reference's ``intersect_spheres_pallas`` and ``intersect_fetch_pallas``)
 wrap K1 and K10 in ``torch.autograd.Function`` s whose backward is the
@@ -37,6 +44,13 @@ masked_launches = 0
 
 #: Number of K10 launches since the last reset.
 fetch_launches = 0
+
+#: Threads per block of K1 and K3 (``RTW_SWEEP_THREADS`` in csrc/sweep.cu),
+#: and K3's lanes per block.
+SWEEP_THREADS = 256
+
+#: The kernels of :func:`occupancy`.
+OCCUPANCY_KERNELS = {"sweep": 0, "sweep_masked": 1, "sweep_fetch": 2}
 
 
 def sphere_consts(scene: Scene) -> torch.Tensor:
@@ -87,6 +101,117 @@ def sweep_masked_ref(rays: torch.Tensor, alive: torch.Tensor,
             torch.where(live, idx, torch.zeros_like(idx)))
 
 
+def parts_cap(n_spheres: int) -> int:
+    """The most parts a ray's sweep is split into: the largest power of two
+    <= min(32, ``n_spheres``), so that every part has a sphere."""
+    p = 1
+    while p < 32 and 2 * p <= n_spheres:
+        p *= 2
+    return p
+
+
+def sweep_parts(n_rays: int, n_spheres: int, resident_threads: int) -> int:
+    """K1's P: the largest power of two up to :func:`parts_cap` with
+    ``n_rays * P`` threads within ``resident_threads``, the threads the
+    card holds at once (at least 1). On an H100 (132 SMs x 2 048 threads):
+    8 at the flagship's 32 400 lanes, 1 at 262 144 rays and more."""
+    p, cap = 1, parts_cap(n_spheres)
+    while p < cap and n_rays * 2 * p <= resident_threads:
+        p *= 2
+    return p
+
+
+def _check_parts(what: str, parts, allow_zero: bool = False) -> None:
+    ok = isinstance(parts, int) and (
+        (allow_zero and parts == 0)
+        or (1 <= parts <= 32 and parts & (parts - 1) == 0))
+    if not ok:
+        raise ValueError(f"{what}: parts must be a power of two in [1, 32], "
+                         f"got {parts!r}")
+
+
+def sweep_split_ref(rays: torch.Tensor, spheres: torch.Tensor, parts: int,
+                    tmin: float = DEFAULT_TMIN,
+                    alive: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain mirror of K1's and K3's schedule: part ``p`` of ``parts`` (a
+    power of two <= 32) sweeps spheres ``s == p (mod parts)`` with
+    :func:`sweep_ref`'s expressions, and the parts merge pairwise, as the
+    kernels' ``__shfl_xor_sync`` butterfly does, on the lexicographic
+    minimum of ``(t, idx)``. With ``alive`` [R] int32, only the live lanes
+    are swept, packed in lane order, and dead lanes get ``(BIG, 0)``.
+    Bitwise :func:`sweep_ref` (:func:`sweep_masked_ref` with ``alive``).
+    For the tests and ``chip_smoke.py``; no route runs it."""
+    _check_parts("sweep_split_ref", parts)
+    live = None if alive is None else torch.nonzero(alive != 0)[:, 0]
+    ox, oy, oz, dx, dy, dz = rays if live is None else rays[:, live]
+    od = ox * dx + oy * dy + oz * dz
+    oo = ox * ox + oy * oy + oz * oz
+    n = spheres.shape[0]
+    part = torch.arange(parts, device=rays.device)
+    best_t = torch.full((parts,) + ox.shape, BIG, dtype=ox.dtype,
+                        device=ox.device)
+    best_i = torch.zeros(best_t.shape, dtype=torch.int32, device=ox.device)
+    for k in range(0, n, parts):  # sphere k + p for every part p at once
+        s = k + part
+        real = (s < n)[:, None]
+        cx, cy, cz, ck = spheres[s.clamp(max=n - 1)].T[:, :, None]
+        cd = cx * dx + cy * dy + cz * dz
+        oc = cx * ox + cy * oy + cz * oz
+        hb = od - cd
+        c = oo - 2.0 * oc + ck
+        disc = hb * hb - c
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        r1 = -hb - sq
+        t = torch.where(r1 >= tmin, r1, -hb + sq)
+        ok = real & (disc > 0) & (t >= tmin) & (t < best_t)
+        best_t = torch.where(ok, t, best_t)
+        best_i = torch.where(ok, s.to(torch.int32)[:, None], best_i)
+    off = parts // 2
+    while off:  # the butterfly: part p takes the smaller of p and p ^ off
+        to, io = best_t[part ^ off], best_i[part ^ off]
+        take = (to < best_t) | ((to == best_t) & (io < best_i))
+        best_t = torch.where(take, to, best_t)
+        best_i = torch.where(take, io, best_i)
+        off //= 2
+    if live is None:
+        return best_t[0], best_i[0]
+    t = torch.full((rays.shape[1],), BIG, dtype=rays.dtype, device=rays.device)
+    idx = torch.zeros(rays.shape[1], dtype=torch.int32, device=rays.device)
+    t[live], idx[live] = best_t[0], best_i[0]
+    return t, idx
+
+
+_RESIDENT = {}
+
+
+def occupancy(kernel: str, n_spheres: int, device) -> dict:
+    """``{"registers", "blocks_per_sm", "threads_per_block", "sm_count"}``
+    of a sweep kernel (``"sweep"``, ``"sweep_masked"`` or
+    ``"sweep_fetch"``) on ``device``, from the CUDA runtime, at the launch's
+    block size and shared memory for ``n_spheres`` spheres."""
+    import ctypes
+    out = [ctypes.c_int(0) for _ in range(3)]
+    lib = build.load()
+    with torch.cuda.device(device):
+        err = lib.rtw_sweep_occupancy(OCCUPANCY_KERNELS[kernel], n_spheres,
+                                      *(ctypes.byref(x) for x in out))
+    build.check(err, "sweep occupancy")
+    regs, blocks, sms = (x.value for x in out)
+    return {"registers": regs, "blocks_per_sm": blocks,
+            "threads_per_block": 128 if kernel == "sweep_fetch"
+            else SWEEP_THREADS, "sm_count": sms}
+
+
+def _resident_threads(device, n_spheres: int) -> int:
+    """The threads of K1 that ``device`` holds at once (cached)."""
+    key = (torch.device(device).index, n_spheres)
+    if key not in _RESIDENT:
+        o = occupancy("sweep", n_spheres, device)
+        _RESIDENT[key] = o["blocks_per_sm"] * SWEEP_THREADS * o["sm_count"]
+    return _RESIDENT[key]
+
+
 def _check_sweep_args(what, rays, spheres, alive=None):
     if not (rays.is_cuda and spheres.device == rays.device):
         raise ValueError(f"{what}: rays on {rays.device}, spheres on "
@@ -108,29 +233,38 @@ def _check_sweep_args(what, rays, spheres, alive=None):
         raise ValueError(f"{what}: alive must be a contiguous int32 [R] "
                          f"tensor on {rays.device}, got {alive.dtype} "
                          f"{tuple(alive.shape)} on {alive.device}")
-    if spheres.shape[0] * 16 > 227 * 1024:
+    # K3 also keeps its live lane ids and warp offsets there (1 060 bytes)
+    table = 227 * 1024 - (0 if alive is None else 4 * (SWEEP_THREADS + 9))
+    if spheres.shape[0] * 16 > table:
         raise ValueError(f"{what}: {spheres.shape[0]} spheres exceed the "
-                         f"kernel's shared-memory table "
-                         f"(max {227 * 1024 // 16})")
+                         f"kernel's shared-memory table (max {table // 16})")
 
 
 def sweep(rays: torch.Tensor, spheres: torch.Tensor,
-          tmin: float = DEFAULT_TMIN) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1: closest hit of ``rays`` [6, R] against ``spheres`` [N, 4].
+          tmin: float = DEFAULT_TMIN, parts: int | None = None
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1: closest hit of ``rays`` [6, R] against ``spheres`` [N, 4], each
+    ray swept by ``parts`` threads (a power of two <= 32; by default
+    :func:`sweep_parts` for this card). Every P gives the same result.
 
     CPU tensors run :func:`sweep_ref`. CUDA tensors launch the kernel on the
     current stream; anything the kernel does not take raises."""
     global launches
+    if parts is not None:
+        _check_parts("sweep", parts)
     if rays.device.type == "cpu" and spheres.device.type == "cpu":
         return sweep_ref(rays, spheres, tmin)
     _check_sweep_args("sweep", rays, spheres)
     n_rays, n_sph = rays.shape[1], spheres.shape[0]
+    if parts is None:
+        parts = sweep_parts(n_rays, n_sph,
+                            _resident_threads(rays.device, n_sph))
     t = torch.empty(n_rays, dtype=torch.float32, device=rays.device)
     idx = torch.empty(n_rays, dtype=torch.int32, device=rays.device)
     lib = build.load()
     with torch.cuda.device(rays.device):  # the launch uses the current device
         err = lib.rtw_sweep(rays.data_ptr(), spheres.data_ptr(), n_rays, n_sph,
-                            float(tmin), t.data_ptr(), idx.data_ptr(),
+                            float(tmin), t.data_ptr(), idx.data_ptr(), parts,
                             torch.cuda.current_stream().cuda_stream)
     build.check(err, "sweep")
     launches += 1
@@ -138,14 +272,18 @@ def sweep(rays: torch.Tensor, spheres: torch.Tensor,
 
 
 def sweep_masked(rays: torch.Tensor, alive: torch.Tensor,
-                 spheres: torch.Tensor, tmin: float = DEFAULT_TMIN
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+                 spheres: torch.Tensor, tmin: float = DEFAULT_TMIN,
+                 parts: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """K3: :func:`sweep` of the lanes whose ``alive`` [R] int32 is non-zero;
-    dead lanes get ``(BIG, 0)``.
+    dead lanes get ``(BIG, 0)``. Each block packs the live lanes of its 256
+    lanes and sweeps them with ``parts`` threads per ray, or with
+    ``parts=0`` the most, up to 16, that take at most 4 rounds of its 256
+    threads.
 
     CPU tensors run :func:`sweep_masked_ref`. CUDA tensors launch the kernel
     on the current stream; anything the kernel does not take raises."""
     global masked_launches
+    _check_parts("sweep_masked", parts, allow_zero=True)
     if rays.device.type == "cpu" and spheres.device.type == "cpu" \
             and alive.device.type == "cpu":
         return sweep_masked_ref(rays, alive, spheres, tmin)
@@ -157,7 +295,7 @@ def sweep_masked(rays: torch.Tensor, alive: torch.Tensor,
     with torch.cuda.device(rays.device):
         err = lib.rtw_sweep_masked(
             rays.data_ptr(), alive.data_ptr(), spheres.data_ptr(), n_rays,
-            n_sph, float(tmin), t.data_ptr(), idx.data_ptr(),
+            n_sph, float(tmin), t.data_ptr(), idx.data_ptr(), parts,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "sweep_masked")
     masked_launches += 1

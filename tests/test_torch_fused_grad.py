@@ -273,15 +273,28 @@ def _cos_ratio(a, b):
     return a @ b / (na * nb), na / nb
 
 
+def _radiance_close(a, b):
+    """The rule of test_bounce_adjoint_matches_jax for ``[R, 3]`` radiance:
+    every lane (ray) within 1e-4 * max(1, |x|), and all but 0.1% of the
+    lanes (at least one) within 1e-5 * max(1, |x|)."""
+    err = (np.abs(a - b) / np.maximum(1.0, np.abs(b))).max(1)
+    return bool((err <= 1e-4).all()
+                and (err > 1e-5).sum() <= max(1, err.size // 1000))
+
+
 def test_trace_and_vjp_match_jax():
     # The port's autograd trace (plain versions) against the JAX package's
     # trace_recorded_fused(interpret=True) and jax.vjp on the mixed scene,
-    # 32x18 rays, depth 8, the same uniforms (_u5_for). Radiance within
-    # atol 2e-5 + rtol 1e-5 (measured max 2.9e-6); per scene field and for
-    # the ray origins cosine >= 0.9999 and norm ratio within 1e-3
-    # (measured: cosines >= 0.9999999995, ratios within 2.1e-5); the direction
-    # gradients compared in the plane normal to the ray, as the JAX
-    # package's own test does.
+    # 32x18 rays, depth 8, the same uniforms (_u5_for). Radiance by
+    # _radiance_close: XLA's CPU backend contracts a*b+c into FMA and eager
+    # PyTorch does not, so one element lay beyond the old every-element limit
+    # (atol 2e-5 + rtol 1e-5) on one host and within it on others. Measured
+    # here: worst lane 2.9e-6, no lane beyond 1e-5. The rule still fails on
+    # the brightest lane's radiance dropped and on its sign flipped. Per
+    # scene field and for the ray origins cosine >= 0.9999 and norm ratio
+    # within 1e-3 (measured: cosines >= 0.9999999995, ratios within 2.1e-5);
+    # the direction gradients compared in the plane normal to the ray, as
+    # the JAX package's own test does.
     scene_j = mixed_scene()
     o, d, tk = camera_rays(rtw.default_camera())
     R_ = o.shape[0]
@@ -301,8 +314,13 @@ def test_trace_and_vjp_match_jax():
         JG._u5_for(tk, b, rows)).reshape(5, -1)[:, :n])
     rad = pt.trace_recorded_fused(scene, ot, dt, 123, 8, 1e-4, u5_fn=u5_fn)
     rad.backward(torch.from_numpy(g_out))
-    np.testing.assert_allclose(rad.detach().numpy(), np.asarray(rad_j),
-                               atol=2e-5, rtol=1e-5)
+    rad_p, rad_j = rad.detach().numpy(), np.asarray(rad_j)
+    assert _radiance_close(rad_p, rad_j), np.abs(rad_p - rad_j).max()
+    k = int(rad_j.sum(1).argmax())
+    for planted in (0.0, -1.0):  # the brightest lane dropped, or negated
+        bad = rad_p.copy()
+        bad[k] *= planted
+        assert not _radiance_close(bad, rad_j)
     for fld in FIELDS:
         cos, ratio = _cos_ratio(getattr(scene, fld).grad,
                                 getattr(gs_j, fld))

@@ -91,6 +91,15 @@ def assert_close(a, b, tol=1e-5, share=1.0):
     assert ok >= share, (ok, float(err.max()))
 
 
+def is_close(a, b, tol=1e-5, share=1.0):
+    """:func:`assert_close`'s rule as a truth value."""
+    try:
+        assert_close(a, b, tol, share)
+    except AssertionError:
+        return False
+    return True
+
+
 @pytest.fixture(scope="module")
 def record():
     """Twelve plain record iterations of the mixed scene at 32 768 rays
@@ -174,8 +183,16 @@ def test_record_step_ref_writes_zero_record_for_dead_lanes(record):
 def test_replay_iter_core_matches_jax(record, it):
     # One reverse iteration over a recorded slot (deposits at regens, chain
     # cuts, strip-selected radiance cotangent, bounce adjoint) against
-    # _replay_iter_core with the same random carry: within
-    # 1e-5 * max(1, |x|) on every lane.
+    # _replay_iter_core with the same random carry, by the rule of
+    # test_bounce_adjoint_matches_jax: within 1e-5 * max(1, |x|) on >= 99.9%
+    # of lanes and 1e-4 on all. XLA's CPU backend contracts a*b+c into FMA
+    # and eager PyTorch does not, so a grazing lane may sit a few last bits
+    # further off on one host than on another (a lane beyond 1e-5 failed the
+    # old every-lane limit on one host and passed on others). Measured here,
+    # worst lane: cot 1.9e-6 / 5.2e-6 / 5.7e-6, dattr 1.4e-6 / 7.0e-6 /
+    # 5.7e-6 (iterations 0 / 5 / 11), deposits bitwise; no lane beyond
+    # 1e-5. The rule still fails on one lane's deposit dropped and on one
+    # lane's cotangent with its sign flipped.
     st = record["steps"][it]
     slot, W = st["slot"], record["W"]
     g = np.random.default_rng(100 + it)
@@ -188,9 +205,21 @@ def test_replay_iter_core_matches_jax(record, it):
         j(st["u5"]), tuple(j(p) for p in slot[0:10]),
         tuple(j(p) for p in slot[11:21]), j(flags), tuple(j(c) for c in cot),
         tuple(j(p) for p in gs), tuple(j(p) for p in dep), S)
-    assert_close(cot9.numpy(), np.stack(jc))
-    assert_close(dattr9.numpy(), np.stack(jd))
-    assert_close(dep2.numpy(), np.stack(jdep))
+    jc, jd, jdep = np.stack(jc), np.stack(jd), np.stack(jdep)
+    assert_close(cot9.numpy(), jc, share=0.999)
+    assert_close(dattr9.numpy(), jd, share=0.999)
+    assert_close(dep2.numpy(), jdep, share=0.999)
+    # planted faults: the largest deposit dropped, one cotangent negated
+    deposited = np.abs(jdep - dep.numpy()).max(0)
+    assert deposited.max() > 0
+    k = int(deposited.argmax())
+    dropped = dep2.numpy().copy()
+    dropped[:, k] = dep.numpy()[:, k]
+    assert not is_close(dropped, jdep, share=0.999)
+    k = int(np.abs(jc).max(0).argmax())
+    flipped = cot9.numpy().copy()
+    flipped[:, k] *= -1
+    assert not is_close(flipped, jc, share=0.999)
 
 
 @pytest.mark.parametrize("masks", ["recorded", "all_hit", "all_miss"])
