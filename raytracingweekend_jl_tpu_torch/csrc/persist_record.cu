@@ -1,37 +1,53 @@
-// K4: one record iteration of the persistent-record gradient path for
-// Hopper (sm_90a).
+// K4: one record iteration of the persistent-record gradient path, with
+// its winner fetch, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel
 // raytracingweekend_jl_tpu/ops/pallas/persist_grad_kernel.py ::
 // _persist_record_kernel (launched by persist_record_step), whose state
-// machine is _advance_record_bank. The plain PyTorch version is
+// machine is _advance_record_bank, and the winner fetch the TPU ran before
+// it in XLA (materials.fetch_attr_planes, a one-hot matrix product there).
+// The plain PyTorch version is
 // raytracingweekend_jl_tpu_torch/ops/cuda/persist_grad_kernel.py ::
-// persist_record_step_ref.
+// persist_record_fetch_ref (the gather, then persist_record_step_ref).
 //
 // What it computes, per lane: each lane owns S rays spaced W lanes apart
-// (its strips) and traces them one after another. It shades the swept
-// bounce (shade_core.cuh), banks T * sky(d) of a missing ray into that
-// strip's radiance planes, advances a continuing ray, and refills a
-// terminated lane with its next strip's camera ray. Before the update it
-// writes slot `slot` of the residual record: the bounce's inputs o, d, T,
-// the hit distance t, the packed event flags
-// act | hit<<1 | term<<2 | regen<<3 | strip<<4 (stored bit for bit in a
-// float plane), and, for the full 21-plane record, the winner's 10
-// attributes. An inactive lane changes nothing and writes a zero record.
+// (its strips) and traces them one after another. It reads its winner's 10
+// attributes from the sweep's index, shades the swept bounce
+// (shade_core.cuh), banks T * sky(d) of a missing ray into that strip's
+// radiance planes, advances a continuing ray, and refills a terminated lane
+// with its next strip's camera ray. Before the update it writes slot `slot`
+// of the residual record: the bounce's inputs o, d, T, the hit distance t,
+// the packed event flags act | hit<<1 | term<<2 | regen<<3 | strip<<4
+// (stored bit for bit in a float plane), and, for the full 21-plane record,
+// the winner's 10 attributes (sphere 0's row on a miss, where the sweep's
+// index is 0, as the gather gives). An inactive lane changes nothing and
+// writes a zero record.
 //
-// What bounds it on the card: memory traffic. A live lane reads ~130 bytes
-// (state, hit, attributes, its next strip's ray) and writes ~120 (state and
-// 21 record words); at the flagship width (262 144 lanes) one launch moves
-// ~65 MB, about 20 us of HBM time.
+// What bounds it on the card: memory traffic. A live lane reads ~90 bytes
+// (state, t, idx, its next strip's ray; its 40-byte table row comes from
+// L1) and writes ~120 (state and 21 record words); at the flagship width
+// (262 144 lanes) one launch moves ~35 MB, about 10 us of HBM time.
 //
 // Design: one thread per lane, [plane, lane] layout so every access of a
-// warp is one coalesced segment per plane. The TPU kernel banked and
-// refilled with masked blends over all S strips (9S planes read and
-// written per lane); here a lane reads and writes only the strip it needs.
-// Record offsets are 64-bit: n_slots x 21 x W grows with the image.
-// Draws: 5 uniforms, Philox4x32-10 keyed by (seed, absolute iteration) with
-// the lane as the counter, so the replay kernels redraw exactly these
-// numbers at any launch shape; or read from `u5` when given.
+// warp is one coalesced segment per plane.
+//   - The winner's row is read from the [N, 10] table through the
+//     read-only path (as K2), in place of ten planes written by a gather
+//     launch and read back.
+//   - The record is stored with the evict-first hint (__stcs): only the
+//     replay reads it, after the phase, while the next iteration rereads
+//     the state, which keeps the default policy.
+// Two other designs gave the same bits and measured slower at the flagship
+// step's iterations 20 and 40 (scripts/torch_k2_k4_variants.py builds and
+// times them): a copy of the table in each block's shared memory, and each
+// block's live lanes compacted onto full warps (a ballot, a scan of the
+// warp counts and a barrier per block cost more than the idle threads of
+// one thread per lane). The TPU kernel banked and refilled with masked
+// blends over all S strips (9S planes read and written per lane); here a
+// lane reads and writes only the strip it needs. Record offsets are
+// 64-bit: n_slots x 21 x W grows with the image. Draws: 5 uniforms,
+// Philox4x32-10 keyed by (seed, absolute iteration) with the lane as the
+// counter, so the replay kernels redraw exactly these numbers at any
+// launch shape; or read from `u5` when given.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,17 +56,29 @@
 #include "shade_core.cuh"
 #include "sweep_core.cuh"
 
+// A record word: with STREAM, stored with the evict-first hint.
+template <bool STREAM>
+__device__ __forceinline__ void rtw_rec_store(float* p, float v) {
+  if (STREAM)
+    __stcs(p, v);
+  else
+    *p = v;
+}
+
 // An inactive lane's record slot: n_rec zero planes.
+template <bool STREAM>
 __device__ __forceinline__ void rtw_zero_record(int i, size_t n, float* rec,
                                                 int n_rec) {
-  for (int p = 0; p < n_rec; ++p) rec[p * n + i] = 0.0f;
+  for (int p = 0; p < n_rec; ++p) rtw_rec_store<STREAM>(rec + p * n + i, 0.0f);
 }
 
 // The record state machine of one active lane (_advance_record_bank): K4's
 // body, shared with the fused record step K11. Given the swept hit distance
 // t, the winner's 10 attributes a and the 5 uniforms u, it reads the lane's
 // state from sf/si, writes slot planes 0..n_rec-1 of `rec`, banks a miss
-// into `rad`, advances or refills, and writes the state back.
+// into `rad`, advances or refills, and writes the state back. STREAM: the
+// record stores carry the evict-first hint (K4; K11 keeps the default).
+template <bool STREAM>
 __device__ __forceinline__ void rtw_record_advance(
     int i, size_t n, float t, const float* a, const float* u,
     const float* __restrict__ strips, float* __restrict__ sf,
@@ -74,14 +102,14 @@ __device__ __forceinline__ void rtw_record_advance(
   // Residual record: this iteration's inputs and packed events.
   const int flags = 1 + ((s.hitm ? 1 : 0) << 1) + ((term ? 1 : 0) << 2)
                     + ((can ? 1 : 0) << 3) + (sp << 4);
-  rec[0 * n + i] = ox; rec[1 * n + i] = oy; rec[2 * n + i] = oz;
-  rec[3 * n + i] = dx; rec[4 * n + i] = dy; rec[5 * n + i] = dz;
-  rec[6 * n + i] = tx; rec[7 * n + i] = ty; rec[8 * n + i] = tz;
-  rec[9 * n + i] = t;
-  rec[10 * n + i] = __int_as_float(flags);
+  const float r10[11] = {ox, oy, oz, dx, dy, dz, tx, ty, tz, t,
+                         __int_as_float(flags)};
+#pragma unroll
+  for (int j = 0; j < 11; ++j) rtw_rec_store<STREAM>(rec + j * n + i, r10[j]);
   if (n_rec == 21) {
 #pragma unroll
-    for (int j = 0; j < 10; ++j) rec[(11 + j) * n + i] = a[j];
+    for (int j = 0; j < 10; ++j)
+      rtw_rec_store<STREAM>(rec + (11 + j) * n + i, a[j]);
   }
 
   // Bank the terminating ray's radiance into its strip's planes.
@@ -131,43 +159,43 @@ __device__ __forceinline__ void rtw_record_uniforms(
 }
 
 __global__ void persist_record_kernel(
-    const float* __restrict__ t_in, const float* __restrict__ attrs,
-    const float* __restrict__ strips, float* __restrict__ sf,
-    int* __restrict__ si, float* __restrict__ rad, float* __restrict__ rec,
-    int n_rec, const float* __restrict__ u5, int n_lanes, int S,
-    int max_depth, uint32_t seed, uint32_t iteration) {
+    const float* __restrict__ t_in, const int* __restrict__ idx,
+    const float* __restrict__ amat, const float* __restrict__ strips,
+    float* __restrict__ sf, int* __restrict__ si, float* __restrict__ rad,
+    float* __restrict__ rec, int n_rec, const float* __restrict__ u5,
+    int n_lanes, int S, int max_depth, uint32_t seed, uint32_t iteration) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_lanes) return;
   const size_t n = n_lanes;
   if (si[2 * n + i] == 0) {
-    rtw_zero_record(i, n, rec, n_rec);
+    rtw_zero_record<true>(i, n, rec, n_rec);
     return;
   }
   float u[5];
   rtw_record_uniforms(i, n, u5, seed, iteration, u);
   float a[10];
-#pragma unroll
-  for (int j = 0; j < 10; ++j) a[j] = attrs[j * n + i];
-  rtw_record_advance(i, n, t_in[i], a, u, strips, sf, si, rad, rec, n_rec, S,
-                     max_depth);
+  rtw_fetch_row(idx, amat, i, a);
+  rtw_record_advance<true>(i, n, t_in[i], a, u, strips, sf, si, rad, rec,
+                           n_rec, S, max_depth);
 }
 
-// t [W] f32, attrs [10, W] f32, strips [6S, W] f32; sf [9, W] f32 (o, d, T),
-// si [3, W] i32 (bounce, strip, active) and rad [3S, W] f32 are updated in
-// place; rec points at one record slot [n_rec, W] (n_rec 21 or 11). u5
-// [5, W] f32 may be NULL (in-kernel Philox).
-extern "C" int rtw_persist_record(const float* t, const float* attrs,
-                                  const float* strips, float* sf, int* si,
-                                  float* rad, float* rec, int n_rec,
-                                  const float* u5, int n_lanes, int S,
-                                  int max_depth, unsigned int seed,
+// t [W] f32; idx [W] i32: the sweep's winners, rows of amat [N, 10] f32;
+// strips [6S, W] f32; sf [9, W] f32 (o, d, T), si [3, W] i32 (bounce,
+// strip, active) and rad [3S, W] f32 are updated in place; rec points at
+// one record slot [n_rec, W] (n_rec 21 or 11). u5 [5, W] f32 may be NULL
+// (in-kernel Philox).
+extern "C" int rtw_persist_record(const float* t, const int* idx,
+                                  const float* amat, const float* strips,
+                                  float* sf, int* si, float* rad, float* rec,
+                                  int n_rec, const float* u5, int n_lanes,
+                                  int S, int max_depth, unsigned int seed,
                                   unsigned int iteration, void* stream) {
   if (n_lanes <= 0) return 0;
   const int threads = 128;
   const int blocks = (n_lanes + threads - 1) / threads;
   persist_record_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      t, attrs, strips, sf, si, rad, rec, n_rec, u5, n_lanes, S, max_depth,
-      seed, iteration);
+      t, idx, amat, strips, sf, si, rad, rec, n_rec, u5, n_lanes, S,
+      max_depth, seed, iteration);
   return (int)cudaGetLastError();
 }
 
@@ -185,9 +213,9 @@ extern "C" int rtw_persist_record(const float* t, const float* attrs,
 // What it computes, per lane: a dead lane writes a zero record and winner 0
 // and changes nothing (K3 + K4's dead lanes). A live lane runs K1's loop
 // (sweep_core.cuh, so t and idx are K3's bit for bit), takes its winner's
-// attributes from the table in shared memory (zeros on a miss, where the
-// gather of the three-launch iteration reads sphere 0's row: every use of
-// the attributes in the shade and in the replay is gated on the hit, so the
+// attributes from the table in shared memory (zeros on a miss, where K4
+// of the two-launch iteration reads sphere 0's row: every use of the
+// attributes in the shade and in the replay is gated on the hit, so the
 // record differs only in those ten miss-lane planes), then K4's record
 // state machine (rtw_record_advance) with K4's draws.
 //
@@ -216,7 +244,7 @@ __global__ void persist_record_fused_kernel(
   const bool live = i < n_lanes && si[2 * n + i] != 0;
   if (!__syncthreads_or(live)) {  // the whole block is dead
     if (i < n_lanes) {
-      rtw_zero_record(i, n, rec, 21);
+      rtw_zero_record<false>(i, n, rec, 21);
       idx_out[i] = 0;
     }
     return;
@@ -227,7 +255,7 @@ __global__ void persist_record_fused_kernel(
   __syncthreads();
   if (i >= n_lanes) return;
   if (!live) {
-    rtw_zero_record(i, n, rec, 21);
+    rtw_zero_record<false>(i, n, rec, 21);
     idx_out[i] = 0;
     return;
   }
@@ -243,8 +271,8 @@ __global__ void persist_record_fused_kernel(
   for (int j = 0; j < 10; ++j) a[j] = hit ? row[j] : 0.0f;
   float u[5];
   rtw_record_uniforms(i, n, u5, seed, iteration, u);
-  rtw_record_advance(i, n, best_t, a, u, strips, sf, si, rad, rec, 21, S,
-                     max_depth);
+  rtw_record_advance<false>(i, n, best_t, a, u, strips, sf, si, rad, rec, 21,
+                            S, max_depth);
   idx_out[i] = best_i;
 }
 

@@ -1,5 +1,6 @@
 // The shading core shared by the strided forward step (K2, shade_strided.cu)
-// and the persistent record step (K4, persist_record.cu).
+// and the persistent record step (K4, persist_record.cu), and the winner
+// fetch both take from the sweep's index (rtw_fetch_row).
 //
 // Replaces the value-level helpers of the TPU kernels in
 // raytracingweekend_jl_tpu/ops/pallas/shade_kernel.py: _shade_core (sky on
@@ -35,6 +36,18 @@ __device__ __forceinline__ void rtw_gauss3(float u0, float u1, float u2,
   g0 = r0g * cosf(a0);
   g1 = r0g * sinf(a0);
   g2 = r1g * cosf(a1);
+}
+
+// The winner's 10 attributes (materials.attr_mat column order): row idx[i]
+// of the [N, 10] table, read through the read-only data path. This is
+// materials.fetch_attr_planes' gather: a miss lane (idx 0) reads sphere 0's
+// row, as the gather does.
+__device__ __forceinline__ void rtw_fetch_row(const int* __restrict__ idx,
+                                              const float* __restrict__ amat,
+                                              int i, float* a) {
+  const float* row = amat + 10 * (size_t)__ldg(idx + i);
+#pragma unroll
+  for (int j = 0; j < 10; ++j) a[j] = __ldg(row + j);
 }
 
 struct RtwShade {

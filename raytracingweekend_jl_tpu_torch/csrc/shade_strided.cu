@@ -1,36 +1,47 @@
-// K2: one strided persistent iteration (shade, scatter, fold, pixel switch,
-// regenerate) for Hopper (sm_90a).
+// K2: one strided persistent iteration (winner fetch, shade, scatter, fold,
+// pixel switch, regenerate) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel raytracingweekend_jl_tpu/ops/pallas/shade_kernel.py
 // :: _shade_strided_kernel (launched by shade_strided_step), with the math of
 // _shade_core (shade_core.cuh) and the helpers _uniforms, _gauss3 and
-// _concentric.
+// _concentric, and the winner fetch that the TPU ran before it in XLA
+// (materials.fetch_attr_planes, a one-hot matrix product there).
 //
 // What it computes, per lane (each lane serves k pixels spaced n_lanes
-// apart, one at a time): sky on miss; the hit point and facing normal;
-// Lambertian, metal and dielectric scatter directions from shared draws with
-// the Schlick coin; the continue-or-exhaust decision at max_depth; when a
-// pixel has all its samples, the fold of its accumulator into buf[strip]
-// and the switch to the lane's next pixel; and a thin-lens camera ray for
-// every lane that starts a sample.
+// apart, one at a time): the winner's 10 attributes from the sweep's index;
+// sky on miss; the hit point and facing normal; Lambertian, metal and
+// dielectric scatter directions from shared draws with the Schlick coin;
+// the continue-or-exhaust decision at max_depth; when a pixel has all its
+// samples, the fold of its accumulator into buf[strip] and the switch to
+// the lane's next pixel; and a thin-lens camera ray for every lane that
+// starts a sample.
 //
-// What bounds it on the card: memory traffic and launch latency. A lane reads
-// ~124 bytes (state, hit, attributes) and writes ~72, with ~250 flops and
-// four transcendental calls; at the flagship width (32 400 lanes) one launch
-// moves ~6 MB, a few microseconds of HBM time, so the fixed cost of a launch
-// is of the same order.
+// What bounds it on the card: launch latency and the lane's dependent
+// chain, not bandwidth. A lane reads ~88 bytes (state, t, idx; its 40-byte
+// table row comes from L1) and writes ~72, with ~250 flops and four
+// transcendental calls; at the flagship width (32 400 lanes) one launch
+// moves ~5 MB, under 2 us of HBM time, and fills ~12% of the card's
+// resident threads.
 //
 // Design: one thread per lane; neighbouring threads read neighbouring words
 // of each [plane, lane] array, so every load and store is coalesced. The
-// state is updated in place (the TPU kernel aliased its state planes to its
-// outputs for the same reason: no second copy of the state). The TPU had
-// to fold with a masked add over all k strip buffers (3k planes read and
-// written per lane); here a lane touches only buf[strip], 3 floats, guarded by
-// strip < k. Draws are Philox4x32-10 keyed by (seed, iteration) with the lane
-// as counter, or, when `u9` is given, read from it, so the plain PyTorch
-// version (shade_strided_step_ref) can be fed the same numbers. Built with
-// --fmad=false: each expression is evaluated as written, in the same order as
-// the plain version.
+// winner's row is read from the [N, 10] table through the read-only path
+// (19.5 KB for the flagship's 488 spheres, resident in L1 and L2), in place
+// of a gather launch that wrote ten planes for the kernel to read back.
+// Two other designs gave the same bits and measured slower at the
+// flagship's widths (scripts/torch_k2_k4_variants.py builds and times
+// them): a copy of the table in each block's shared memory, and a lane's
+// Philox blocks, Box-Muller branches and lens disk split over 2, 4 or 8
+// threads of a warp and exchanged by shuffles. The state is updated in
+// place (the TPU kernel aliased its state planes to its outputs for the
+// same reason: no second copy of the state). The TPU had to fold with a
+// masked add over all k strip buffers (3k planes read and written per
+// lane); here a lane touches only buf[strip], 3 floats, guarded by
+// strip < k. Draws are Philox4x32-10 keyed by (seed, iteration) with the
+// lane as counter, or, when `u9` is given, read from it, so the plain
+// PyTorch version (shade_strided_step_ref) can be fed the same numbers.
+// Built with --fmad=false: each expression is evaluated as written, in the
+// same order as the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,10 +51,11 @@
 
 __global__ void shade_strided_kernel(
     float* __restrict__ fs, int* __restrict__ is, float* __restrict__ buf,
-    const float* __restrict__ t_in, const float* __restrict__ attrs,
-    const float* __restrict__ cam, const float* __restrict__ u9, int n, int k,
-    int W, int H, int dpx, int dpy, int p_end, int first_sample,
-    int max_depth, uint32_t seed, uint32_t iteration) {
+    const float* __restrict__ t_in, const int* __restrict__ idx,
+    const float* __restrict__ amat, const float* __restrict__ cam,
+    const float* __restrict__ u9, int n, int k, int W, int H, int dpx,
+    int dpy, int p_end, int first_sample, int max_depth, uint32_t seed,
+    uint32_t iteration) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -66,8 +78,7 @@ __global__ void shade_strided_kernel(
 
   const float t = t_in[i];
   float a[10];
-#pragma unroll
-  for (int j = 0; j < 10; ++j) a[j] = attrs[j * n + i];
+  rtw_fetch_row(idx, amat, i, a);
 
   const RtwShade s = rtw_shade_core(u, t, a, ox, oy, oz, dx, dy, dz, tx, ty,
                                     tz, active, cx, cy, cz);
@@ -154,10 +165,12 @@ __global__ void shade_strided_kernel(
 }
 
 // fstate [12, n] f32 and istate [7, n] i32 are updated in place; buf [3k, n]
-// f32 is accumulated in place. u9 [9, n] f32 may be NULL (in-kernel Philox).
+// f32 is accumulated in place. idx [n] i32: the sweep's winners, rows of
+// amat [N, 10] f32. u9 [9, n] f32 may be NULL (in-kernel Philox).
 extern "C" int rtw_shade_strided(float* fstate, int* istate, float* buf,
-                                 const float* t, const float* attrs,
-                                 const float* cam, const float* u9, int n,
+                                 const float* t, const int* idx,
+                                 const float* amat, const float* cam,
+                                 const float* u9, int n,
                                  int k, int W, int H, int dpx, int dpy,
                                  int p_end, int first_sample, int max_depth,
                                  unsigned int seed, unsigned int iteration,
@@ -166,7 +179,7 @@ extern "C" int rtw_shade_strided(float* fstate, int* istate, float* buf,
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   shade_strided_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      fstate, istate, buf, t, attrs, cam, u9, n, k, W, H, dpx, dpy, p_end,
+      fstate, istate, buf, t, idx, amat, cam, u9, n, k, W, H, dpx, dpy, p_end,
       first_sample, max_depth, seed, iteration);
   return (int)cudaGetLastError();
 }

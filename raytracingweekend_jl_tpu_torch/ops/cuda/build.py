@@ -42,11 +42,11 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # rays[6,R], spheres[N,4], R, N, tmin, t[R], idx[R], parts, stream
     "rtw_sweep": [_P, _P, _I, _I, _F, _P, _P, _I, _P],
-    # fstate[12,R], istate[7,R], buf[3k,R], t[R], attrs[10,R], cam[21],
-    # u9[9,R] or NULL, R, k, W, H, dpx, dpy, p_end, first_sample, max_depth,
-    # seed, iteration, stream
-    "rtw_shade_strided": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _U, _U, _P],
+    # fstate[12,R], istate[7,R], buf[3k,R], t[R], idx[R], amat[N,10],
+    # cam[21], u9[9,R] or NULL, R, k, W, H, dpx, dpy, p_end, first_sample,
+    # max_depth, seed, iteration, stream
+    "rtw_shade_strided": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _U, _U, _P],
     # rays[6,R], spheres[N,4], amat[N,10], R, N, tmin, t[R], idx[R],
     # attrs[10,R], stream
     "rtw_sweep_fetch": [_P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
@@ -59,11 +59,11 @@ _SIGNATURES = {
     "rtw_sweep_masked": [_P, _P, _P, _I, _I, _F, _P, _P, _I, _P],
     # kernel, N, &regs, &blocks_per_sm, &sm_count
     "rtw_sweep_occupancy": [_I, _I, _IP, _IP, _IP],
-    # t[W], attrs[10,W], strips[6S,W], sf[9,W], si[3,W], rad[3S,W],
+    # t[W], idx[W], amat[N,10], strips[6S,W], sf[9,W], si[3,W], rad[3S,W],
     # rec slot[n_rec,W], n_rec, u5[5,W] or NULL, W, S, max_depth, seed,
     # iteration, stream
-    "rtw_persist_record": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                           _U, _U, _P],
+    "rtw_persist_record": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
+                           _I, _U, _U, _P],
     # cot[9,W], dep[6S,W], rec[K,21,W], gs[3S,W], dattr[K,9,W],
     # u5[K,5,W] or NULL, W, S, K, seed, i0, stream
     "rtw_persist_replay_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,

@@ -154,19 +154,32 @@ def persist_record_step_ref(t, attrs, strips, sf, si, rad, rec_slot,
     rad.copy_(torch.where(active, rad2, rad))
 
 
+def persist_record_fetch_ref(t, idx, amat, strips, sf, si, rad, rec_slot,
+                             seed: int, iteration: int, max_depth: int,
+                             u5: torch.Tensor | None = None) -> None:
+    """Plain PyTorch K4 as the record loop calls it: the winner fetch
+    (``materials.fetch_attr_planes`` of the sweep's ``idx`` [W] into
+    ``amat`` [N, 10]; sphere 0's row on a miss, where ``idx`` is 0), then
+    :func:`persist_record_step_ref`."""
+    from ..materials import fetch_attr_planes  # materials imports shade_kernel
+    persist_record_step_ref(t, fetch_attr_planes(idx, amat), strips, sf, si,
+                            rad, rec_slot, seed, iteration, max_depth, u5)
+
+
 _check = build.check_arg
 
 
-def persist_record_step(t, attrs, strips, sf, si, rad, rec_slot, seed: int,
-                        iteration: int, max_depth: int,
+def persist_record_step(t, idx, amat, strips, sf, si, rad, rec_slot,
+                        seed: int, iteration: int, max_depth: int,
                         u5: torch.Tensor | None = None) -> None:
-    """K4: one record iteration in place (arguments as
-    :func:`persist_record_step_ref`). CPU tensors run the plain version."""
+    """K4: one record iteration with its winner fetch, in place (arguments
+    as :func:`persist_record_fetch_ref`; ``idx`` int32). CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise."""
     global record_launches
     if sf.device.type == "cpu":
-        return persist_record_step_ref(t, attrs, strips, sf, si, rad,
-                                       rec_slot, seed, iteration, max_depth,
-                                       u5)
+        return persist_record_fetch_ref(t, idx, amat, strips, sf, si, rad,
+                                        rec_slot, seed, iteration, max_depth,
+                                        u5)
     dev = sf.device
     if dev.type != "cuda":
         raise ValueError(f"persist_record_step: unsupported device {dev}")
@@ -178,7 +191,9 @@ def persist_record_step(t, attrs, strips, sf, si, rad, rec_slot, seed: int,
         raise ValueError(f"persist_record_step: record slot has {n_rec} "
                          f"planes, strips {strips.shape[0]}")
     for name, x, dt, shape in (
-            ("t", t, f32, (W,)), ("attrs", attrs, f32, (10, W)),
+            ("t", t, f32, (W,)), ("idx", idx, i32, (W,)),
+            ("amat", amat, f32,
+             (amat.shape[0] if amat.dim() == 2 else -1, 10)),
             ("strips", strips, f32, (6 * S, W)), ("sf", sf, f32, (9, W)),
             ("si", si, i32, (3, W)), ("rad", rad, f32, (3 * S, W)),
             ("rec_slot", rec_slot, f32, (n_rec, W))):
@@ -188,7 +203,8 @@ def persist_record_step(t, attrs, strips, sf, si, rad, rec_slot, seed: int,
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.rtw_persist_record(
-            t.data_ptr(), attrs.data_ptr(), strips.data_ptr(), sf.data_ptr(),
+            t.data_ptr(), idx.data_ptr(), amat.data_ptr(), strips.data_ptr(),
+            sf.data_ptr(),
             si.data_ptr(), rad.data_ptr(), rec_slot.data_ptr(), n_rec,
             None if u5 is None else u5.data_ptr(), W, S, int(max_depth),
             seed & 0xFFFFFFFF, iteration & 0xFFFFFFFF,
@@ -211,9 +227,9 @@ def persist_record_fused_step_ref(strips, sf, si, rad, rec_slot, idx_out,
     [N, 10] (zeros on a miss), then :func:`persist_record_step_ref`. Updates
     ``sf``, ``si`` and ``rad`` in place, writes the 21-plane ``rec_slot``
     and the winners to ``idx_out`` [W] int32 (0 on dead lanes and misses).
-    On every hit lane the record equals that of the three-step iteration
-    (K3, the gather, K4); a miss lane records zero attributes where the
-    gather gives sphere 0's row, which nothing downstream reads."""
+    On every hit lane the record equals that of the two-launch iteration
+    (K3, then K4 with its fetch); a miss lane records zero attributes where
+    K4 reads sphere 0's row, which nothing downstream reads."""
     t, idx = sweep_masked_ref(sf[0:6], si[2], spheres, tmin)
     rows = amat.T[:, idx.long()]
     attrs = torch.where(t < BIG, rows, torch.zeros_like(rows))

@@ -18,8 +18,10 @@ State layout (all ``[planes, n_lanes]``, contiguous, updated in place):
 - ``buf`` float32 [3k]: plane ``3*c + ch`` holds channel ``ch`` of the pixel
   the lane served in strip ``c``.
 
-:func:`shade_strided_step` launches the CUDA kernel on CUDA tensors and runs
-:func:`shade_strided_step_ref` on CPU tensors; nothing else.
+K2 takes the sweep's winner index and the [N, 10] attribute table and
+fetches the winner's row itself: :func:`shade_strided_step` launches the
+CUDA kernel on CUDA tensors and runs :func:`shade_strided_fetch_ref` (the
+gather, then :func:`shade_strided_step_ref`) on CPU tensors; nothing else.
 
 K9 — one pixel-pinned persistent iteration (csrc/shade_pinned.cu), the
 counterpart of ``_shade_kernel`` with ``_shade_math`` — keeps one lane per
@@ -296,6 +298,21 @@ def shade_strided_step_ref(fstate: torch.Tensor, istate: torch.Tensor,
                                   active.to(torch.int32)]))
 
 
+def shade_strided_fetch_ref(fstate: torch.Tensor, istate: torch.Tensor,
+                            buf: torch.Tensor, t: torch.Tensor,
+                            idx: torch.Tensor, amat: torch.Tensor,
+                            cam: torch.Tensor, geom: tuple, seed: int,
+                            iteration: int, first_sample: int, max_depth: int,
+                            u9: torch.Tensor | None = None) -> None:
+    """Plain PyTorch K2 as the strided loop calls it: the winner fetch
+    (``materials.fetch_attr_planes`` of the sweep's ``idx`` [R] into
+    ``amat`` [N, 10]), then :func:`shade_strided_step_ref`."""
+    from ..materials import fetch_attr_planes  # materials imports this module
+    shade_strided_step_ref(fstate, istate, buf, t,
+                           fetch_attr_planes(idx, amat), cam, geom, seed,
+                           iteration, first_sample, max_depth, u9)
+
+
 def _check_planes(name, x, dtype, shape, device):
     if x.device != device:
         raise ValueError(f"shade_strided_step: {name} on {x.device}, "
@@ -312,19 +329,20 @@ def _check_planes(name, x, dtype, shape, device):
 
 def shade_strided_step(fstate: torch.Tensor, istate: torch.Tensor,
                        buf: torch.Tensor, t: torch.Tensor,
-                       attrs: torch.Tensor, cam: torch.Tensor, geom: tuple,
-                       seed: int, iteration: int, first_sample: int,
-                       max_depth: int, u9: torch.Tensor | None = None) -> None:
-    """K2: one strided iteration, in place (arguments as
-    :func:`shade_strided_step_ref`).
+                       idx: torch.Tensor, amat: torch.Tensor,
+                       cam: torch.Tensor, geom: tuple, seed: int,
+                       iteration: int, first_sample: int, max_depth: int,
+                       u9: torch.Tensor | None = None) -> None:
+    """K2: one strided iteration with its winner fetch, in place
+    (arguments as :func:`shade_strided_fetch_ref`; ``idx`` int32).
 
-    CPU tensors run :func:`shade_strided_step_ref`. CUDA tensors launch the
+    CPU tensors run :func:`shade_strided_fetch_ref`. CUDA tensors launch the
     kernel on the current stream; anything it does not take raises."""
     global launches
     if fstate.device.type == "cpu":
-        return shade_strided_step_ref(fstate, istate, buf, t, attrs, cam, geom,
-                                      seed, iteration, first_sample,
-                                      max_depth, u9)
+        return shade_strided_fetch_ref(fstate, istate, buf, t, idx, amat, cam,
+                                       geom, seed, iteration, first_sample,
+                                       max_depth, u9)
     dev = fstate.device
     if dev.type != "cuda":
         raise ValueError(f"shade_strided_step: unsupported device {dev}")
@@ -335,7 +353,9 @@ def shade_strided_step(fstate: torch.Tensor, istate: torch.Tensor,
     _check_planes("istate", istate, i32, (N_ISTATE, n), dev)
     _check_planes("buf", buf, f32, (3 * k, n), dev)
     _check_planes("t", t, f32, (n,), dev)
-    _check_planes("attrs", attrs, f32, (10, n), dev)
+    _check_planes("idx", idx, i32, (n,), dev)
+    _check_planes("amat", amat, f32,
+                  (amat.shape[0] if amat.dim() == 2 else -1, 10), dev)
     _check_planes("cam", cam, f32, (21,), dev)
     if u9 is not None:
         _check_planes("u9", u9, f32, (9, n), dev)
@@ -346,7 +366,7 @@ def shade_strided_step(fstate: torch.Tensor, istate: torch.Tensor,
     with torch.cuda.device(dev):  # the launch uses the current device
         err = lib.rtw_shade_strided(
             fstate.data_ptr(), istate.data_ptr(), buf.data_ptr(), t.data_ptr(),
-            attrs.data_ptr(), cam.data_ptr(),
+            idx.data_ptr(), amat.data_ptr(), cam.data_ptr(),
             None if u9 is None else u9.data_ptr(), n, k, W, H, dpx, dpy,
             p_end, int(first_sample), int(max_depth), seed & 0xFFFFFFFF,
             iteration & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)

@@ -19,9 +19,10 @@ sample in place when its ray ends (sky or depth exhaustion):
   film coordinates (a non-contiguous tile); its step is K9
   (``cuda/shade_kernel.shade_and_regen``).
 
-Every persistent iteration is three steps: the closest-hit sweep, the
-winner-attribute fetch (a gather), and the shade / scatter / regenerate
-step. ``impl`` picks how they run. ``"kernels"`` (the default for CUDA
+Every persistent iteration is the closest-hit sweep, the winner-attribute
+fetch and the shade / scatter / regenerate step; the strided step (K2)
+fetches the winner's row itself, the pinned one takes a gather's planes.
+``impl`` picks how they run. ``"kernels"`` (the default for CUDA
 tensors) runs K1 and the kernel step. ``"plain"`` (the default on the CPU,
 and selectable on a card for comparison) runs the dot-form
 ``intersect_spheres`` and the step's plain version, which is also what the
@@ -161,31 +162,38 @@ def init_strided_state(cam, n_pix: int, W: int, H: int, seed: int,
                         k * spg * max_depth + max_depth)
 
 
+def sweep_hits(scene_tables: tuple, rays: torch.Tensor, tmin: float,
+               impl: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sweep of one persistent iteration: ``(t [R], idx [R] int32)`` of
+    ``rays`` [6, R] through K1 (``"kernels"``) or the dot-form sweep
+    (``"plain"``). ``scene_tables`` = (scene, sphere_consts [N,4], attr_mat
+    [N,10])."""
+    scene, spheres, _ = scene_tables
+    if impl == "kernels":
+        return intersect_kernel.sweep(rays, spheres, tmin)
+    hit = intersect_spheres(rays[0:3].T, rays[3:6].T, scene, tmin=tmin)
+    return hit.t.contiguous(), hit.index.to(torch.int32)
+
+
 def sweep_attr_planes(scene_tables: tuple, rays: torch.Tensor, tmin: float,
                       impl: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """The sweep and fetch of one persistent iteration: ``(t [R], attrs
-    [10, R])`` of ``rays`` [6, R] through K1 and a gather (``"kernels"``) or
-    the dot-form sweep and a gather (``"plain"``). ``scene_tables`` =
-    (scene, sphere_consts [N,4], attr_mat [N,10])."""
-    scene, spheres, attrs_tab = scene_tables
-    if impl == "kernels":
-        t, idx = intersect_kernel.sweep(rays, spheres, tmin)
-    else:
-        hit = intersect_spheres(rays[0:3].T, rays[3:6].T, scene, tmin=tmin)
-        t, idx = hit.t.contiguous(), hit.index
-    return t, fetch_attr_planes(idx, attrs_tab)
+    """The sweep and fetch of one pinned iteration: ``(t [R], attrs
+    [10, R])``, :func:`sweep_hits` and a gather."""
+    t, idx = sweep_hits(scene_tables, rays, tmin, impl)
+    return t, fetch_attr_planes(idx, scene_tables[2])
 
 
 def strided_step(scene_tables: tuple, st: StridedState, cam_consts, seed: int,
                  it: int, sample_offset: int, max_depth: int, tmin: float,
                  impl: str, u9: torch.Tensor | None = None) -> None:
-    """One iteration (sweep, fetch, strided step) on ``st``, in place.
-    ``scene_tables`` = (scene, sphere_consts [N,4], attr_mat [N,10])."""
-    t, attrs = sweep_attr_planes(scene_tables, st.fstate[0:6], tmin, impl)
+    """One iteration (sweep, then the strided step with its winner fetch)
+    on ``st``, in place. ``scene_tables`` = (scene, sphere_consts [N,4],
+    attr_mat [N,10])."""
+    t, idx = sweep_hits(scene_tables, st.fstate[0:6], tmin, impl)
     step = (shade_kernel.shade_strided_step if impl == "kernels"
-            else shade_kernel.shade_strided_step_ref)
-    step(st.fstate, st.istate, st.buf, t, attrs, cam_consts, st.geom, seed,
-         it, sample_offset, max_depth, u9)
+            else shade_kernel.shade_strided_fetch_ref)
+    step(st.fstate, st.istate, st.buf, t, idx, scene_tables[2], cam_consts,
+         st.geom, seed, it, sample_offset, max_depth, u9)
 
 
 def resolve_impl(impl: str | None, device: torch.device) -> str:

@@ -50,9 +50,17 @@ def attr_mat(scene: Scene) -> torch.Tensor:
         scene.ir[:, None].to(f32), scene.mat[:, None].to(f32)], dim=1)
 
 
+#: Calls of :func:`fetch_attr_planes` since the last reset: on the card
+#: each is a cast and a gather launch (the strided and record loops fetch
+#: inside K2 and K4 and make none).
+fetch_calls = 0
+
+
 def fetch_attr_planes(index: torch.Tensor, attr: torch.Tensor) -> torch.Tensor:
     """Winner attributes in ``[10, R]`` plane-major layout: ``attr[index].T``,
     contiguous."""
+    global fetch_calls
+    fetch_calls += 1
     return attr.T[:, index.long()].contiguous()
 
 

@@ -8,11 +8,11 @@ record phase runs one iteration per step until every lane is dead or the
 phase's slot cap is reached:
 
 1. the occupancy-masked sweep (K3, ``cuda/intersect_kernel.sweep_masked``);
-2. the winner-attribute gather;
-3. the record step (K4, ``cuda/persist_grad_kernel.persist_record_step``),
-   which shades, banks, advances, refills and writes one record slot.
+2. the record step (K4, ``cuda/persist_grad_kernel.persist_record_step``),
+   which fetches the winner's attributes from the sweep's index, shades,
+   banks, advances, refills and writes one record slot.
 
-With ``fused_step=True`` the three run as one launch of K11
+With ``fused_step=True`` the two run as one launch of K11
 (``cuda/persist_grad_kernel.persist_record_fused_step``), which also writes
 the winner indices; the replay is unchanged.
 
@@ -155,8 +155,9 @@ def _run_record_phase(scene_tabs, strips, sf, si, rad, n_slots: int,
     """Record iterations ``i0 .. i0 + n_slots - 1`` over the given planes,
     stopping early once every lane is dead (checked every
     ``ACTIVE_CHECK_EVERY`` iterations; an all-dead iteration writes a zero
-    record and changes nothing). Each iteration is K3, the gather and K4,
-    or with ``cfg.fused_step`` one K11, which writes ``rec_idx`` itself."""
+    record and changes nothing). Each iteration is K3 and K4 (which fetches
+    the winner's attributes itself), or with ``cfg.fused_step`` one K11,
+    which writes ``rec_idx`` itself."""
     spheres, amat = scene_tabs
     W = sf.shape[1]
     dev = sf.device
@@ -165,7 +166,7 @@ def _run_record_phase(scene_tabs, strips, sf, si, rad, n_slots: int,
         sweep, step = intersect_kernel.sweep_masked, PK.persist_record_step
     else:
         sweep = intersect_kernel.sweep_masked_ref
-        step = PK.persist_record_step_ref
+        step = PK.persist_record_fetch_ref
     fused = (PK.persist_record_fused_step if kern
              else PK.persist_record_fused_step_ref)
     n_rec = PK.N_REC if cfg.rec_attrs else PK.N_REC_LEAN
@@ -183,9 +184,8 @@ def _run_record_phase(scene_tabs, strips, sf, si, rad, n_slots: int,
                   seed, i0 + s, cfg.max_depth, cfg.tmin, u5)
             continue
         t, idx = sweep(sf[0:6], si[2], spheres, cfg.tmin)
-        attrs = fetch_attr_planes(idx, amat)
         rec_idx[s] = idx
-        step(t, attrs, strips, sf, si, rad, rec[s], seed, i0 + s,
+        step(t, idx, amat, strips, sf, si, rad, rec[s], seed, i0 + s,
              cfg.max_depth, u5)
     return _Phase(rec, rec_idx, counts, i0)
 
@@ -435,7 +435,7 @@ def trace_recorded_persist(scene: Scene, origin: torch.Tensor,
     slot (K6), refetching the winner attributes. ``fused_step=True`` runs
     each record iteration as one launch of K11 (sweep, winner attributes
     and record step) with the same draws, so the radiance and the gradients
-    are the three-launch iteration's; it takes neither ``tail_compact`` nor
+    are the two-launch iteration's; it takes neither ``tail_compact`` nor
     ``rec_attrs=False`` (``ValueError``, as the JAX package). Test hooks:
     ``u5_fn(i, width)`` -> [5, width] replaces the draws of absolute
     iteration ``i`` (record and replay), ``stats`` (a dict) collects the

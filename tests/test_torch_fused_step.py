@@ -289,9 +289,9 @@ def test_fused_step_kernel_matches_plain_on_card(cuda_device):
     spheres, amat = K.sphere_consts(scene), attr_mat(scene)
     for i in range(6):
         t, idx = K.sweep_masked(sf[0:6], si[2], spheres)
-        PK.persist_record_step(t, fetch_attr_planes(idx, amat), strips, sf,
-                               si, rad, torch.zeros((PK.N_REC, W), device=dev),
-                               3, i, DEPTH)
+        PK.persist_record_step(t, idx, amat, strips, sf, si, rad,
+                               torch.zeros((PK.N_REC, W), device=dev), 3, i,
+                               DEPTH)
     g = torch.Generator(device=dev).manual_seed(2)
     for u5 in (torch.rand((5, W), generator=g, device=dev), None):
         outs = []

@@ -460,10 +460,12 @@ def test_wrappers_on_cpu_run_plain_versions(record):
         K.sweep_masked(sf[0:6], si[2], spheres),
         K.sweep_masked_ref(sf[0:6], si[2], spheres)))
     outs = []
-    for step in (PK.persist_record_step, PK.persist_record_step_ref):
+    amat = attr_mat(pt.scene_from_numpy(record["scene_j"]))
+    for step, table in ((PK.persist_record_step, (st["idx"], amat)),
+                        (PK.persist_record_step_ref, (st["attrs"],))):
         state = [x.clone() for x in (sf, si, rad)]
         slot = torch.zeros((PK.N_REC, W))
-        step(st["t"], st["attrs"], strips, *state, slot, 9, 5, DEPTH)
+        step(st["t"], *table, strips, *state, slot, 9, 5, DEPTH)
         outs.append(state + [slot])
     assert all(torch.equal(a, b) for a, b in zip(*outs))
     rec = torch.stack([s["slot"] for s in record["steps"]])
@@ -523,8 +525,8 @@ def test_gradient_kernels_match_plain_on_card(cuda_device):
         ref = [x.clone() for x in (sf, si, rad)]
         slot_ref = torch.zeros((PK.N_REC, W), device=dev)
         n4 = PK.record_launches
-        PK.persist_record_step(t, attrs, strips, sf, si, rad, rec[i], seed,
-                               i, DEPTH)
+        PK.persist_record_step(t, idx, amat, strips, sf, si, rad, rec[i],
+                               seed, i, DEPTH)
         PK.persist_record_step_ref(t, attrs, strips, *ref, slot_ref, seed, i,
                                    DEPTH)
         torch.cuda.synchronize()
