@@ -27,9 +27,16 @@ launch counters show no gather in either loop, ``shade_variants`` builds,
 checks and times the designs they were chosen over
 (``scripts/torch_k2_k4_variants.py``), and ``shade_redesign`` times K1, K2
 and K4 by one event pair around many launches, by an event pair around
-each and by the profiler, with the flagship render and step profiled. It
-times the kernels, the renders, the steps and the fit against the plain
-path. Each phase prints one JSON line; a failed
+each and by the profiler, with the flagship render and step profiled. K6
+fetches the winner's row itself and K5 stages the next three slots'
+record words while it replays one: both are held against their plain
+versions (``k5_vs_plain``, ``k6_vs_plain``, with injected and Philox
+draws; K6's walk bit for bit K5's), the lean flagship step launches no
+gather, and ``replay_redesign`` builds, checks bit for bit and times the
+designs they were chosen over (``scripts/torch_k5_k6_variants.py``), then
+times K5 and K6 by both methods and profiles the default and lean
+flagship steps. It times the kernels, the renders, the steps and the fit
+against the plain path. Each phase prints one JSON line; a failed
 check raises and the script exits non-zero without printing a result. The
 line before the card line lists every kernel with its launches on its main
 path, its error against its plain version, its time, the plain version's
@@ -328,8 +335,7 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
     from raytracingweekend_jl_tpu_torch.ops import persist_grad as PG
     from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
     from raytracingweekend_jl_tpu_torch.ops.cuda import persist_grad_kernel as PK
-    from raytracingweekend_jl_tpu_torch.ops.materials import (
-        attr_mat, fetch_attr_planes)
+    from raytracingweekend_jl_tpu_torch.ops.materials import attr_mat
 
     S, DEPTH, B1, SEED = 8, 16, 44, 0x5EED
     spheres, amat = K1.sphere_consts(scene), attr_mat(scene)
@@ -430,47 +436,63 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
         torch.cuda.synchronize()
         return cot, dep, dattr
 
-    def k6_run(step):  # the lean 11-plane record, attributes refetched
+    def k6_run(step, u5_all=None):  # the lean 11-plane record
         cot, dep = cot0.clone(), dep0.clone()
         dattr = torch.empty((B1, 9, lanes), device=dev)
         for s in reversed(range(B1)):
-            step(cot, dep, rec[s, :PK.N_REC_LEAN], gstrips, SEED, s, None,
-                 fetch_attr_planes(rec_idx[s], amat), out=dattr[s])
+            step(cot, dep, rec[s, :PK.N_REC_LEAN], rec_idx[s], amat, gstrips,
+                 SEED, s, None if u5_all is None else u5_all[s], out=dattr[s])
         torch.cuda.synchronize()
         return cot, dep, dattr
 
+    u5_all = torch.stack([rng.philox_uniforms(SEED, i, lanes, 5, device=dev)
+                          for i in range(B1)])
+    u5_rand = torch.rand((B1, 5, lanes), generator=g, device=dev)
     k5 = k5_run(PK.persist_replay_fused)
     bad5, k5_err = lanes_outside(
         list(zip(k5, k5_run(PK.persist_replay_fused_ref))), 1e-5)
-    u5_all = torch.stack([rng.philox_uniforms(SEED, i, lanes, 5, device=dev)
-                          for i in range(B1)])
+    bad5i, k5i_err = lanes_outside(
+        list(zip(k5_run(PK.persist_replay_fused, u5_rand),
+                 k5_run(PK.persist_replay_fused_ref, u5_rand))), 1e-5)
     philox_bitwise = all(torch.equal(a, b) for a, b in
                          zip(k5, k5_run(PK.persist_replay_fused, u5_all)))
-    del u5_all
     k6 = k6_run(PK.persist_replay_step)
     bad6, k6_err = lanes_outside(
-        list(zip(k6, k6_run(PK.persist_replay_step_ref))), 1e-5)
-    k6_is_k5 = all(torch.equal(a, b) for a, b in zip(k6, k5))
+        list(zip(k6, k6_run(PK.persist_replay_step_fetch_ref))), 1e-5)
+    bad6i, k6i_err = lanes_outside(
+        list(zip(k6_run(PK.persist_replay_step, u5_rand),
+                 k6_run(PK.persist_replay_step_fetch_ref, u5_rand))), 1e-5)
+    k6_philox_bitwise = all(torch.equal(a, b) for a, b in
+                            zip(k6, k6_run(PK.persist_replay_step, u5_all)))
+    k6_is_k5 = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(k6, k5))
+    del u5_all, u5_rand
+    k5_err, k6_err = max(k5_err, k5i_err), max(k6_err, k6i_err)
     tol = "cot, dep, dattr within 1e-5*max(1,|x|) on >= 99.9% of lanes"
     emit({"phase": "k5_vs_plain", "lanes": lanes, "slots": B1,
-          "lanes_outside": bad5, "max_abs_err": k5_err,
+          "lanes_outside": {"philox": bad5, "injected": bad5i},
+          "max_abs_err": k5_err,
           "philox_vs_injected_bitwise": philox_bitwise, "tolerance": tol
           + "; own Philox draws bitwise equal to injected philox_uniforms"})
     emit({"phase": "k6_vs_plain", "lanes": lanes, "slots": B1,
-          "record": "lean (11 planes, attributes refetched)",
-          "lanes_outside": bad6, "max_abs_err": k6_err,
-          "bitwise_equal_to_k5": k6_is_k5, "tolerance": tol})
+          "record": "lean (11 planes, winner rows fetched in the kernel)",
+          "lanes_outside": {"philox": bad6, "injected": bad6i},
+          "max_abs_err": k6_err, "philox_vs_injected_bitwise":
+          k6_philox_bitwise, "bitwise_equal_to_k5": k6_is_k5,
+          "tolerance": tol + "; K6's walk bit for bit K5's"})
     limit = int(1e-3 * lanes)
-    check(bad5 <= limit, f"K5: {bad5} lanes outside")
+    check(bad5 <= limit and bad5i <= limit, f"K5: {bad5}, {bad5i} lanes "
+          "outside")
     check(philox_bitwise, "K5 Philox draws differ from philox_uniforms")
-    check(bad6 <= limit, f"K6: {bad6} lanes outside")
+    check(bad6 <= limit and bad6i <= limit, f"K6: {bad6}, {bad6i} lanes "
+          "outside")
+    check(k6_philox_bitwise, "K6 Philox draws differ from philox_uniforms")
+    check(k6_is_k5, "K6's walk differs from K5's")
 
     # -- times at these shapes (CUDA events) --------------------------------
     live4 = [sf20.clone(), si20.clone(), rad20.clone()]
     slot4 = torch.empty((PK.N_REC, lanes), device=dev)
     carry = [cot0.clone(), dep0.clone()]
     lean10 = rec[10, :PK.N_REC_LEAN]
-    attrs10 = fetch_attr_planes(rec_idx[10], amat)
     out6 = torch.empty((9, lanes), device=dev)
     fns = {
         "sweep_masked": lambda: K1.sweep_masked(sf20[0:6], si20[2], spheres),
@@ -485,9 +507,9 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
         "persist_replay_fused_plain": lambda: PK.persist_replay_fused_ref(
             *carry, rec, gstrips, 0, SEED),
         "persist_replay_step": lambda: PK.persist_replay_step(
-            *carry, lean10, gstrips, SEED, 10, None, attrs10, out=out6),
-        "persist_replay_step_plain": lambda: PK.persist_replay_step_ref(
-            *carry, lean10, gstrips, SEED, 10, None, attrs10, out=out6),
+            *carry, lean10, rec_idx[10], amat, gstrips, SEED, 10, out=out6),
+        "persist_replay_step_plain": lambda: PK.persist_replay_step_fetch_ref(
+            *carry, lean10, rec_idx[10], amat, gstrips, SEED, 10, out=out6),
     }
     setups = {"persist_record": lambda: [x.copy_(y) for x, y in
                                          zip(live4, (sf20, si20, rad20))],
@@ -547,13 +569,13 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
             + (B1 * lanes - live_slots5) * 9 * 4
             + live_slots5 * (20 + 9) * 4 + strips5 * 3 * 4
             + regen5 * 6 * 4, live_slots5 * ADJOINT_OPS),
-        # every lane's flag; live: 10 record words, 10 attributes, 3 strip
-        # cotangents and the carry in, the carry and 9 rows out; dead: 9
-        # zero rows out.
+        # every lane's flag; live: 10 record words, the winner index, 3
+        # strip cotangents and the carry in, the carry and 9 rows out; dead:
+        # 9 zero rows out; the attribute table once.
         "persist_replay_step": bound(
             lanes * 4 + (lanes - live6) * 9 * 4
-            + live6 * ((10 + 10 + 3 + 9) + (9 + 9)) * 4 + regen6 * 6 * 4,
-            live6 * ADJOINT_OPS),
+            + live6 * ((10 + 1 + 3 + 9) + (9 + 9)) * 4 + regen6 * 6 * 4
+            + n_sph * 40, live6 * ADJOINT_OPS),
     }
     emit({"phase": "grad_kernel_bounds", "bounds": bounds,
           "live_lanes_k3_k4": n_live, "lanes": lanes, "misses_k4": miss4,
@@ -670,6 +692,8 @@ def grad_entry_phases(dev, card, W: int = 1920, w2: int = 480) -> dict:
     check(all(lean_launches[k] > 0 for k in
               ("sweep_masked", "persist_record", "persist_replay_step")),
           f"lean gradient step launched {lean_launches}")
+    check(lean_launches["gather"] == 0,
+          f"the lean record or replay loop gathered: {lean_launches}")
     check(lean_same, "lean-record gradients differ from the default's")
 
     # -- kernels against the plain versions at 480x270, the persistent pair
@@ -2371,6 +2395,108 @@ def shade_redesign_phases(dev, card, fwd, snap, W: int = 1920,
     return {k: v["event_ms"] for k, v in batch.items()}
 
 
+def replay_redesign_phases(dev, card, W: int = 1920, H: int = 1080) -> dict:
+    """K5 and K6 with the winner fetch inside, beside the designs they were
+    chosen over: ``scripts/torch_k5_k6_variants.py`` builds the previous
+    kernels and each change alone (K5's staged walk, its row on hit lanes,
+    the cache hints, the launch shapes), holds each build bit for bit
+    against the previous kernel on the flagship step's own record phases
+    (and phase 1 as K11 records it), and times it once by :func:`batch_ms`.
+    Then K5 (phase 1) and K6 (slot 10 of the lean record) through their
+    wrappers by :func:`batch_ms` and by an event pair around each launch
+    (:func:`device_ms`), and the lean flagship step under the profiler
+    (K6's device time, no gather). Returns the ``event_ms`` of K5 and K6
+    for the ``kernels`` line."""
+    import os
+    import tempfile
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops.cuda import build
+    from raytracingweekend_jl_tpu_torch.ops.cuda import persist_grad_kernel as PK
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import torch_k5_k6_variants as V
+
+    ph = V.phases(dev, W, H)
+    out = os.path.join(os.path.dirname(build.BUILD_DIR), "variants")
+    os.makedirs(out, exist_ok=True)
+    k5_libs, k6_libs, ptxas = V.build_variants(tempfile.mkdtemp(dir=out))
+    bad = V.check_variants(dev, k5_libs, k6_libs, ph)
+    tabs = V.variant_tables(dev, k5_libs, k6_libs, ph)
+    emit({"phase": "replay_variants", "card": card, "ptxas": ptxas,
+          "shapes": {k: list(v["rec"].shape) for k, v in ph.items()
+                     if k != "amat"},
+          "cases_bitwise": len(bad), "lanes_differing": sum(bad.values()),
+          **tabs, "changes_alone": V.changes_alone(tabs),
+          "note": "one pass; event_ms: one CUDA event pair around n "
+                  "launches, each on its own copy of the carry, queue "
+                  "pre-filled; profiler_ms: the kernels of a second such run "
+                  "by torch.profiler, per launch (gather+previous: the "
+                  "gather, the cast and the previous kernel together)"})
+
+    amat, p1 = ph["amat"], ph["phase1"]
+    q = V._k6_slot(ph, 10)
+    lanes = p1["cot"].shape[1]
+    k5 = lambda cot, dep: PK.persist_replay_fused(
+        cot, dep, p1["rec"], p1["gs"], p1["i0"], V.SEED)
+    k6 = lambda cot, dep, o: PK.persist_replay_step(
+        cot, dep, q["slot"], q["idx"], amat, q["gs"], V.SEED, q["it"], out=o)
+    make5 = lambda: (p1["cot"].clone(), p1["dep"].clone())
+    make6 = lambda: make5() + (torch.empty((9, lanes), device=dev),)
+    batch = {"persist_replay_fused": batch_ms(k5, make5, 10, V.K5_RE),
+             "persist_replay_step": batch_ms(k6, make6, 50, V.K6_RE)}
+    carry = list(make6())
+    reset = lambda: [x.copy_(y) for x, y in zip(carry, make5())]
+    pair = {"persist_replay_fused": device_ms(lambda: k5(*carry[:2]), 10,
+                                              setup=reset),
+            "persist_replay_step": device_ms(lambda: k6(*carry), 50,
+                                             setup=reset)}
+    del ph, k5_libs, k6_libs
+
+    flag_scene, flag_cam = pt.scene_random_spheres(seed=1), pt.t_cam1()
+    bad_scene = flag_scene._replace(albedo=torch.clamp(
+        flag_scene.albedo * 0.8, 0, 1))
+    target = pt.render_radiance(flag_scene, flag_cam, W, 1, seed=123,
+                                device=dev, persistent=True)
+    sums = {"persist_replay_fused": V.K5_RE,
+            "persist_replay_step": V.K6_RE,
+            "gather": RENDER_SUMS["gather"], "cast": RENDER_SUMS["cast"]}
+    steps, step_counts = {}, {}
+    for route, kw in (("default", {}),
+                      ("lean", dict(recorded_persist=(8, None, (44, 16),
+                                                      False),
+                                    persist_strict=True))):
+        reset_counts()
+        steps[route] = profile_call(lambda: pt.render_grads(
+            bad_scene, flag_cam, target, W, 1, device=dev, **kw), sums)
+        step_counts[route] = {k: v for k, v in counts().items()
+                              if k in ("gather", "persist_replay_fused",
+                                       "persist_replay_step")}
+    keep = ("top_kernels", "top_host_ops")
+    emit({"phase": "replay_redesign", "card": card, "batch": batch,
+          "device_ms_pair_per_launch": pair,
+          "flagship_steps": {r: {k: v for k, v in x.items()
+                                 if k not in keep}
+                             for r, x in steps.items()},
+          "flagship_step_launches": step_counts,
+          "note": "batch: K5 over phase 1 of the flagship step (262 144 "
+                  "lanes) and K6 at its slot 10 (lean record) through their "
+                  "wrappers by batch_ms; device_ms_pair_per_launch: an event "
+                  "pair around each launch; flagship_steps: the default and "
+                  "lean flagship steps profiled (gather: every index kernel "
+                  "of the step, the boundary's and the contraction's among "
+                  "them; the lean replay adds none)"})
+    check(all(c["gather"] == 0 for c in step_counts.values()),
+          f"a flagship step's loops gathered: {step_counts}")
+    gathers = {r: x["device_ms_by_match"]["gather"]["count"]
+               for r, x in steps.items()}
+    check(gathers["lean"] == gathers["default"],
+          f"the lean replay launched gather kernels: {gathers}")
+    check(step_counts["lean"]["persist_replay_step"] > 0,
+          f"the lean step launched {step_counts['lean']}")
+    return {k: v["event_ms"] for k, v in batch.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2648,6 +2774,10 @@ def main() -> int:
                geom=st.geom, seed=seed32, rays=rays_f, spheres=spheres,
                cam=cam)
     batch = shade_redesign_phases(dev, card, fwd, snap)
+    del fwd, snap
+
+    # -- 16. K5 and K6 beside their previous forms, by both timing methods
+    batch.update(replay_redesign_phases(dev, card))
 
     # -- the kernels line: every ported kernel, with its bound -------------
     n_rays, n_sph = rays_f.shape[1], spheres.shape[0]
@@ -2679,8 +2809,9 @@ def main() -> int:
     fwd_rows[0]["launches"] = launches["sweep"]
     fwd_rows[1]["launches"] = launches["shade_strided"]
     for row in grad_rows:
-        if row["name"] == "persist_record":
-            row["ms"] = batch["persist_record"]
+        if row["name"] in ("persist_record", "persist_replay_fused",
+                           "persist_replay_step"):
+            row["ms"] = batch[row["name"]]
     rows = fwd_rows + grad_rows + fit_rows + trace_rows + last_rows
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} never launched on its "

@@ -68,10 +68,10 @@ _SIGNATURES = {
     # u5[K,5,W] or NULL, W, S, K, seed, i0, stream
     "rtw_persist_replay_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
                                  _P],
-    # cot[9,W], dep[6S,W], rec slot[n_rec,W], attrs[10,W] or NULL,
+    # cot[9,W], dep[6S,W], rec slot[11,W], idx[W], amat[N,10],
     # gs[3S,W], dattr[9,W], u5[5,W] or NULL, W, S, seed, iteration, stream
-    "rtw_persist_replay_step": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U,
-                                _P],
+    "rtw_persist_replay_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U,
+                                _U, _P],
     # t[R], attrs[10,R], st[13,R], rec slot[21,R], u5[5,R] or NULL, R,
     # seed, bounce, stream
     "rtw_record_shade": [_P, _P, _P, _P, _P, _I, _U, _U, _P],

@@ -19,7 +19,9 @@ Layout (every tensor contiguous, lanes last):
   winner attributes): o, d, T, t, the packed flags
   ``act | hit<<1 | term<<2 | regen<<3 | strip<<4`` stored bit for bit
   (``slot[10].view(torch.int32)``), then the 10 winner attributes. A phase's
-  record is [n_slots, 21, W], slot-major.
+  record is [n_slots, 21, W], slot-major, beside its winner indices
+  ``rec_idx`` int32 [n_slots, W]: K4 and K6 take the indices and the
+  [N, 10] attribute table and read a winner's row themselves.
 
 Draws: 5 uniforms per lane and iteration, Philox4x32-10 keyed by
 ``(seed, absolute iteration)`` with the lane as the counter
@@ -374,6 +376,22 @@ def persist_replay_step_ref(cot, dep, rec_slot, grad_strips, seed: int,
     return out
 
 
+def persist_replay_step_fetch_ref(cot, dep, rec_slot, idx, amat, grad_strips,
+                                  seed: int, iteration: int,
+                                  u5: torch.Tensor | None = None,
+                                  out: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
+    """Plain PyTorch K6 as the lean replay calls it: the winner fetch
+    (``materials.fetch_attr_planes`` of the slot's ``idx`` [W] int32 into
+    ``amat`` [N, 10]; sphere 0's row on a miss), then
+    :func:`persist_replay_step_ref` of the lean record's slot ``rec_slot``
+    [11, W] (other arguments as there)."""
+    from ..materials import fetch_attr_planes  # materials imports shade_kernel
+    return persist_replay_step_ref(cot, dep, rec_slot, grad_strips, seed,
+                                   iteration, u5,
+                                   fetch_attr_planes(idx, amat), out)
+
+
 def _check_replay(what, cot, dep, grad_strips, dev):
     W = cot.shape[1] if cot.dim() == 2 else -1
     S = grad_strips.shape[0] // 3
@@ -419,25 +437,28 @@ def persist_replay_fused(cot, dep, rec, grad_strips, i0: int, seed: int,
     return dattr
 
 
-def persist_replay_step(cot, dep, rec_slot, grad_strips, seed: int,
-                        iteration: int, u5: torch.Tensor | None = None,
-                        attrs: torch.Tensor | None = None,
+def persist_replay_step(cot, dep, rec_slot, idx, amat, grad_strips,
+                        seed: int, iteration: int,
+                        u5: torch.Tensor | None = None,
                         out: torch.Tensor | None = None) -> torch.Tensor:
-    """K6: one reverse slot (arguments as :func:`persist_replay_step_ref`).
-    CPU tensors run the plain version."""
+    """K6: one reverse slot with its winner fetch (arguments as
+    :func:`persist_replay_step_fetch_ref`). CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
     global replay_step_launches
     if cot.device.type == "cpu":
-        return persist_replay_step_ref(cot, dep, rec_slot, grad_strips, seed,
-                                       iteration, u5, attrs, out)
+        return persist_replay_step_fetch_ref(cot, dep, rec_slot, idx, amat,
+                                             grad_strips, seed, iteration,
+                                             u5, out)
     dev = cot.device
     if dev.type != "cuda":
         raise ValueError(f"persist_replay_step: unsupported device {dev}")
     W, S = _check_replay("persist_replay_step", cot, dep, grad_strips, dev)
     f32 = torch.float32
-    n_rec = N_REC if attrs is None else N_REC_LEAN
-    _check("persist_replay_step: rec_slot", rec_slot, f32, (n_rec, W), dev)
-    if attrs is not None:
-        _check("persist_replay_step: attrs", attrs, f32, (10, W), dev)
+    _check("persist_replay_step: rec_slot", rec_slot, f32, (N_REC_LEAN, W),
+           dev)
+    _check("persist_replay_step: idx", idx, torch.int32, (W,), dev)
+    _check("persist_replay_step: amat", amat, f32,
+           (amat.shape[0] if amat.dim() == 2 else -1, 10), dev)
     if u5 is not None:
         _check("persist_replay_step: u5", u5, f32, (5, W), dev)
     if out is None:
@@ -447,10 +468,10 @@ def persist_replay_step(cot, dep, rec_slot, grad_strips, seed: int,
     with torch.cuda.device(dev):
         err = lib.rtw_persist_replay_step(
             cot.data_ptr(), dep.data_ptr(), rec_slot.data_ptr(),
-            None if attrs is None else attrs.data_ptr(),
-            grad_strips.data_ptr(), out.data_ptr(),
-            None if u5 is None else u5.data_ptr(), W, S, seed & 0xFFFFFFFF,
-            iteration & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+            idx.data_ptr(), amat.data_ptr(), grad_strips.data_ptr(),
+            out.data_ptr(), None if u5 is None else u5.data_ptr(), W, S,
+            seed & 0xFFFFFFFF, iteration & 0xFFFFFFFF,
+            torch.cuda.current_stream().cuda_stream)
     build.check(err, "persist_replay_step")
     replay_step_launches += 1
     return out

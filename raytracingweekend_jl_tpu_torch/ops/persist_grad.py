@@ -20,9 +20,10 @@ With tail compaction ``(b1, wdiv)`` the lanes still alive after ``b1``
 iterations are gathered into a ``W / wdiv``-wide second phase. The backward
 walks each phase's slots newest first: one launch of the fused replay (K5)
 per phase over the 21-plane record, or one launch of the per-slot replay
-(K6) per slot over the lean 11-plane record, whose winner attributes are
-refetched from the recorded indices. The per-lane attribute cotangent rows
-are summed onto the spheres by the deterministic ``dattr_contract``.
+(K6) per slot over the lean 11-plane record, which takes the recorded
+winner indices and reads the winners' rows itself. The per-lane attribute
+cotangent rows are summed onto the spheres by the deterministic
+``dattr_contract``.
 
 ``impl`` picks the kernels (``"kernels"``, the default on CUDA) or their
 plain PyTorch versions (``"plain"``, the default on the CPU, and selectable
@@ -38,7 +39,7 @@ import torch
 from ..scene import Scene
 from .integrator import ACTIVE_CHECK_EVERY, resolve_impl
 from .intersect import DEFAULT_TMIN
-from .materials import attr_mat, fetch_attr_planes
+from .materials import attr_mat
 from .cuda import intersect_kernel, persist_grad_kernel as PK
 from .cuda.grad_kernel import base_seed, dattr_contract
 
@@ -295,19 +296,21 @@ def _replay_phase(ph: _Phase, amat, grad_strips, cot, dep,
         u5_all = torch.stack([cfg.u5_fn(ph.i0 + s, W)
                               for s in range(n_walk)]).to(cot.device)
     kern = cfg.impl == "kernels"
+    rec_idx = ph.rec_idx[:n_walk]
     if cfg.rec_attrs:
         fused = PK.persist_replay_fused if kern else PK.persist_replay_fused_ref
         dattr = fused(cot, dep, ph.rec[:n_walk], grad_strips, ph.i0, seed,
                       u5_all)
     else:
-        step = PK.persist_replay_step if kern else PK.persist_replay_step_ref
+        step = (PK.persist_replay_step if kern
+                else PK.persist_replay_step_fetch_ref)
         dattr = torch.empty((n_walk, 9, W), dtype=torch.float32,
                             device=cot.device)
         for s in reversed(range(n_walk)):
-            step(cot, dep, ph.rec[s], grad_strips, seed, ph.i0 + s,
-                 None if u5_all is None else u5_all[s],
-                 fetch_attr_planes(ph.rec_idx[s], amat), out=dattr[s])
-    return dattr_contract(dattr, ph.rec_idx[:n_walk], n)
+            step(cot, dep, ph.rec[s], rec_idx[s], amat, grad_strips, seed,
+                 ph.i0 + s, None if u5_all is None else u5_all[s],
+                 out=dattr[s])
+    return dattr_contract(dattr, rec_idx, n)
 
 
 def grad_strip_planes(g_rad: torch.Tensor, n_strips: int,

@@ -469,6 +469,7 @@ def test_wrappers_on_cpu_run_plain_versions(record):
         outs.append(state + [slot])
     assert all(torch.equal(a, b) for a, b in zip(*outs))
     rec = torch.stack([s["slot"] for s in record["steps"]])
+    rec_idx = torch.stack([s["idx"] for s in record["steps"]])
     gs = torch.ones((3 * S, W))
     outs = []
     for fused in (PK.persist_replay_fused, PK.persist_replay_fused_ref):
@@ -476,7 +477,9 @@ def test_wrappers_on_cpu_run_plain_versions(record):
         outs.append((fused(cot, dep, rec, gs, 0, 9), cot, dep))
     assert all(torch.equal(a, b) for a, b in zip(*outs))
     outs = []
-    for step in (PK.persist_replay_step, PK.persist_replay_step_ref):
+    for step in (lambda c, d, r, *a: PK.persist_replay_step(
+                     c, d, r[:PK.N_REC_LEAN], rec_idx[3], amat, *a),
+                 PK.persist_replay_step_ref):
         cot, dep = torch.zeros((9, W)), torch.zeros((6 * S, W))
         outs.append((step(cot, dep, rec[3], gs, 9, 3), cot, dep))
     assert all(torch.equal(a, b) for a, b in zip(*outs))
@@ -484,7 +487,8 @@ def test_wrappers_on_cpu_run_plain_versions(record):
                       PK.replay_fused_launches, PK.replay_step_launches)
     meta = torch.empty((9, W), device="meta")
     with pytest.raises(ValueError):
-        PK.persist_replay_step(meta, meta, rec[3], gs, 9, 3)
+        PK.persist_replay_step(meta, meta, rec[3, :PK.N_REC_LEAN], rec_idx[3],
+                               amat, gs, 9, 3)
     with pytest.raises(ValueError):
         K.sweep_masked(sf[0:6].to("meta"), si[2], spheres)
 
@@ -552,8 +556,8 @@ def test_gradient_kernels_match_plain_on_card(cuda_device):
         cot, dep = cot0.clone(), dep0.clone()
         dattr = torch.zeros((n_slots, 9, W), device=dev)
         for s in reversed(range(n_slots)):
-            fn(cot, dep, rec[s, :PK.N_REC_LEAN], gs, seed, s, None,
-               fetch_attr_planes(rec_idx[s], amat), out=dattr[s])
+            fn(cot, dep, rec[s, :PK.N_REC_LEAN], rec_idx[s], amat, gs, seed,
+               s, None, out=dattr[s])
         return dattr, cot, dep
 
     n5, n6 = PK.replay_fused_launches, PK.replay_step_launches
@@ -563,7 +567,7 @@ def test_gradient_kernels_match_plain_on_card(cuda_device):
     assert PK.replay_fused_launches == n5 + 1
     assert PK.replay_step_launches == n6 + n_slots
     assert within(zip(k5, fused(PK.persist_replay_fused_ref)), 1e-5) >= 0.999
-    assert within(zip(k6, per_slot(PK.persist_replay_step_ref)),
+    assert within(zip(k6, per_slot(PK.persist_replay_step_fetch_ref)),
                   1e-5) >= 0.999
     u5_all = torch.stack([rng.philox_uniforms(seed, i, W, 5, device=dev)
                           for i in range(n_slots)])
