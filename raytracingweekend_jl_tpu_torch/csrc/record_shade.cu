@@ -1,12 +1,16 @@
 // K7a: one bounce of the fixed-depth record (the forward of the small-image
-// gradient path) for Hopper (sm_90a).
+// gradient path) for Hopper (sm_90a), with the sweep winner's fetch inside.
 //
 // Replaces the TPU kernel raytracingweekend_jl_tpu/ops/pallas/grad_kernel.py
-// :: _record_shade_kernel (launched by record_shade_step). The plain PyTorch
-// version is raytracingweekend_jl_tpu_torch/ops/cuda/grad_kernel.py ::
-// record_shade_step_ref.
+// :: _record_shade_kernel (launched by record_shade_step), and the gather
+// that fed it its winner's attributes (materials.fetch_attr_planes; a
+// one-hot matrix product in XLA on the TPU). The plain PyTorch version is
+// raytracingweekend_jl_tpu_torch/ops/cuda/grad_kernel.py ::
+// record_shade_fetch_ref: that gather, then record_shade_step_ref.
 //
-// What it computes, per lane: the bounce after the masked sweep. It writes
+// What it computes, per lane: the bounce after the masked sweep. It reads
+// the winner's 10 attributes, row idx[i] of the [N, 10] table (a live lane
+// that missed has idx 0 and reads sphere 0's row, as the gather does), writes
 // slot `bounce` of the residual record (the bounce's inputs o, d, T, the hit
 // distance t, the alive flag, the winner's 10 attributes), shades the bounce
 // (shade_core.cuh: a miss banks T * sky(d) into the radiance), and advances
@@ -24,16 +28,24 @@
 // a float plane (plane 12 of the state, plane 10 of the record), as K4 keeps
 // its flag word.
 //
-// What bounds it on the card: memory traffic. A live lane reads ~96 bytes
-// (state, hit distance, attributes) and writes ~136 (state and 21 record
-// words); a dead lane reads its flag and writes the zero slot. At bounce 2
-// of the inverse demo (22 400 lanes, 9 295 live) one launch moves ~3.3 MB,
-// ~1 us of HBM time, so the launch itself costs more than the work.
+// What bounds it on the card: memory traffic. A live lane reads ~60 bytes
+// (state, hit distance, winner index; the table is a few hundred bytes that
+// every lane shares through the read-only cache) and writes ~136 (state and
+// 21 record words); a dead lane reads its flag and writes the zero slot. At
+// bounce 2 of the inverse demo (22 400 lanes, 9 295 live) one launch moves
+// ~3 MB, ~1 us of HBM time: the launch and one lane's load -> draw -> shade
+// -> store chain cost more than the bytes.
 //
 // Design: one thread per lane, [plane, lane] layout so a warp's accesses are
-// one coalesced segment per plane. Draws: 5 uniforms, Philox4x32-10 keyed by
-// (seed, bounce) with the lane as the counter, so the replay kernels redraw
-// exactly these numbers at any launch shape; or read from `u5` when given.
+// one coalesced segment per plane; the winner's row through the read-only
+// path (rtw_fetch_row), which takes the gather, its index cast and its copy
+// off the bounce: three launches fewer per bounce. The record is stored
+// evict-first (__stcs), as K4 stores its record. Draws: 5 uniforms,
+// Philox4x32-10 keyed by (seed, bounce) with the lane as the counter, so the
+// replay kernels redraw exactly these numbers at any launch shape; or read
+// from `u5` when given. scripts/torch_k7a_k8_variants.py holds the designs
+// this one was chosen over (block sizes, a shared-memory table, default
+// stores, the draws issued first), each bit for bit this kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,18 +53,25 @@
 #include "philox.cuh"
 #include "shade_core.cuh"
 
-__global__ void record_shade_kernel(const float* __restrict__ t_in,
-                                    const float* __restrict__ attrs,
-                                    float* __restrict__ st,
-                                    float* __restrict__ rec,
-                                    const float* __restrict__ u5, int n_lanes,
-                                    uint32_t seed, uint32_t bounce) {
+#define RTW_K7A_THREADS 128
+
+// One word of the record slot, stored evict-first: nothing reads the
+// record before the replay, after the last bounce.
+__device__ __forceinline__ void rtw_rec_store(float* p, float v) {
+  __stcs(p, v);
+}
+
+__global__ void __launch_bounds__(RTW_K7A_THREADS) record_shade_kernel(
+    const float* __restrict__ t_in, const int* __restrict__ idx,
+    const float* __restrict__ amat, float* __restrict__ st,
+    float* __restrict__ rec, const float* __restrict__ u5, int n_lanes,
+    uint32_t seed, uint32_t bounce) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_lanes) return;
   const size_t n = n_lanes;
   if (__float_as_int(st[12 * n + i]) == 0) {
 #pragma unroll
-    for (int p = 0; p < 21; ++p) rec[p * n + i] = 0.0f;
+    for (int p = 0; p < 21; ++p) rtw_rec_store(rec + p * n + i, 0.0f);
     return;
   }
 
@@ -70,17 +89,15 @@ __global__ void record_shade_kernel(const float* __restrict__ t_in,
   }
   const float t = t_in[i];
   float a[10];
-#pragma unroll
-  for (int j = 0; j < 10; ++j) a[j] = attrs[j * n + i];
+  rtw_fetch_row(idx, amat, i, a);
 
   // Residual record: this bounce's inputs.
-  rec[0 * n + i] = ox; rec[1 * n + i] = oy; rec[2 * n + i] = oz;
-  rec[3 * n + i] = dx; rec[4 * n + i] = dy; rec[5 * n + i] = dz;
-  rec[6 * n + i] = tx; rec[7 * n + i] = ty; rec[8 * n + i] = tz;
-  rec[9 * n + i] = t;
-  rec[10 * n + i] = __int_as_float(1);
+  const float r10[10] = {ox, oy, oz, dx, dy, dz, tx, ty, tz, t};
 #pragma unroll
-  for (int j = 0; j < 10; ++j) rec[(11 + j) * n + i] = a[j];
+  for (int j = 0; j < 10; ++j) rtw_rec_store(rec + j * n + i, r10[j]);
+  rtw_rec_store(rec + 10 * n + i, __int_as_float(1));
+#pragma unroll
+  for (int j = 0; j < 10; ++j) rtw_rec_store(rec + (11 + j) * n + i, a[j]);
 
   const RtwShade s = rtw_shade_core(u, t, a, ox, oy, oz, dx, dy, dz, tx, ty,
                                     tz, true, rx, ry, rz);
@@ -96,17 +113,18 @@ __global__ void record_shade_kernel(const float* __restrict__ t_in,
   st[12 * n + i] = __int_as_float(s.hitm ? 1 : 0);
 }
 
-// t [R] f32, attrs [10, R] f32; st [13, R] f32 (o, d, T, radiance, alive
-// flag bits) is updated in place; rec points at one record slot [21, R],
-// written. u5 [5, R] f32 may be NULL (in-kernel Philox).
-extern "C" int rtw_record_shade(const float* t, const float* attrs, float* st,
-                                float* rec, const float* u5, int n_lanes,
+// t [R] f32, idx [R] int32 (the sweep's winners), amat [N, 10] f32; st
+// [13, R] f32 (o, d, T, radiance, alive flag bits) is updated in place; rec
+// points at one record slot [21, R], written. u5 [5, R] f32 may be NULL
+// (in-kernel Philox).
+extern "C" int rtw_record_shade(const float* t, const int* idx,
+                                const float* amat, float* st, float* rec,
+                                const float* u5, int n_lanes,
                                 unsigned int seed, unsigned int bounce,
                                 void* stream) {
   if (n_lanes <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n_lanes + threads - 1) / threads;
-  record_shade_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      t, attrs, st, rec, u5, n_lanes, seed, bounce);
+  const int blocks = (n_lanes + RTW_K7A_THREADS - 1) / RTW_K7A_THREADS;
+  record_shade_kernel<<<blocks, RTW_K7A_THREADS, 0, (cudaStream_t)stream>>>(
+      t, idx, amat, st, rec, u5, n_lanes, seed, bounce);
   return (int)cudaGetLastError();
 }

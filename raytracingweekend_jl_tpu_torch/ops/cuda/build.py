@@ -72,18 +72,20 @@ _SIGNATURES = {
     # gs[3S,W], dattr[9,W], u5[5,W] or NULL, W, S, seed, iteration, stream
     "rtw_persist_replay_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U,
                                 _U, _P],
-    # t[R], attrs[10,R], st[13,R], rec slot[21,R], u5[5,R] or NULL, R,
-    # seed, bounce, stream
-    "rtw_record_shade": [_P, _P, _P, _P, _P, _I, _U, _U, _P],
+    # t[R], idx[R], amat[N,10], st[13,R], rec slot[21,R], u5[5,R] or NULL,
+    # R, seed, bounce, stream
+    "rtw_record_shade": [_P, _P, _P, _P, _P, _P, _I, _U, _U, _P],
     # rec[K,21,R], g3[3,R], cot[9,R], dattr[K,9,R], u5[K,5,R] or NULL, R, K,
     # seed, stream
     "rtw_replay_bwd_fused": [_P, _P, _P, _P, _P, _I, _I, _U, _P],
     # rec slot[21,R], g3[3,R], cot[9,R], dattr[9,R], u5[5,R] or NULL, R,
     # seed, bounce, stream
     "rtw_replay_bwd_step": [_P, _P, _P, _P, _P, _I, _U, _U, _P],
-    # rays[6,R], spheres[11,N], rad[3,R], u5[depth,5,R] or NULL, R, N,
-    # max_depth, tmin, seed, stream
-    "rtw_inline": [_P, _P, _P, _P, _I, _I, _I, _F, _U, _P],
+    # rays[6,R], spheres[11,N], rad[3,R], u5[depth,5,R] or NULL, the
+    # zeroed lane counter next[1], R, N, max_depth, tmin, seed, stream
+    "rtw_inline": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _P],
+    # N, &regs, &blocks_per_sm, &sm_count
+    "rtw_inline_occupancy": [_I, _IP, _IP, _IP],
     # strips[6S,W], sf[9,W], si[3,W], rad[3S,W], rec slot[21,W], idx[W],
     # spheres[N,4], amat[N,10], N, tmin, u5[5,W] or NULL, W, S, max_depth,
     # seed, iteration, stream

@@ -4,7 +4,10 @@ attribute contraction of the gradient path.
 Counterparts of ``raytracingweekend_jl_tpu/ops/pallas/grad_kernel.py``:
 
 - :func:`record_shade_step` is K7a, ``_record_shade_kernel``
-  (csrc/record_shade.cu): one bounce of the fixed-depth record.
+  (csrc/record_shade.cu): one bounce of the fixed-depth record, which reads
+  the sweep winner's row of the attribute table itself (its plain entry
+  :func:`record_shade_fetch_ref` is the gather, then
+  :func:`record_shade_step_ref`).
 - :func:`replay_bwd_step` is K7b, ``_replay_bwd_kernel``, and
   :func:`replay_bwd_fused` is K7c, ``_replay_bwd_fused_kernel``
   (csrc/replay_bwd.cu): the replay of one recorded bounce, and of the whole
@@ -322,30 +325,47 @@ def record_shade_step_ref(t, attrs, st, rec_slot, seed: int, bounce: int,
     st[12].view(torch.int32).copy_(hitm.to(torch.int32))
 
 
-def record_shade_step(t, attrs, st, rec_slot, seed: int, bounce: int,
+def record_shade_fetch_ref(t, idx, amat, st, rec_slot, seed: int,
+                           bounce: int, u5: torch.Tensor | None = None) -> None:
+    """Plain PyTorch K7a as the record loop calls it: the winner fetch
+    (``materials.fetch_attr_planes`` of the sweep's ``idx`` [R] into
+    ``amat`` [N, 10]; sphere 0's row on a live lane that missed, where
+    ``idx`` is 0), then :func:`record_shade_step_ref`."""
+    from ..materials import fetch_attr_planes  # materials imports shade_kernel
+    record_shade_step_ref(t, fetch_attr_planes(idx, amat), st, rec_slot, seed,
+                          bounce, u5)
+
+
+def record_shade_step(t, idx, amat, st, rec_slot, seed: int, bounce: int,
                       u5: torch.Tensor | None = None) -> None:
-    """K7a: one record bounce in place (arguments as
-    :func:`record_shade_step_ref`). CPU tensors run the plain version."""
+    """K7a: one record bounce with its winner fetch, in place (arguments as
+    :func:`record_shade_fetch_ref`; ``idx`` int32). CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise."""
     global record_launches
     if st.device.type == "cpu":
-        return record_shade_step_ref(t, attrs, st, rec_slot, seed, bounce, u5)
+        return record_shade_fetch_ref(t, idx, amat, st, rec_slot, seed,
+                                      bounce, u5)
     dev = st.device
     if dev.type != "cuda":
         raise ValueError(f"record_shade_step: unsupported device {dev}")
     R = st.shape[1] if st.dim() == 2 else -1
     f32 = torch.float32
-    for name, x, shape in (("t", t, (R,)), ("attrs", attrs, (10, R)),
-                           ("st", st, (N_STATE, R)),
-                           ("rec_slot", rec_slot, (N_REC, R))):
-        build.check_arg(f"record_shade_step: {name}", x, f32, shape, dev)
+    for name, x, dtype, shape in (
+            ("t", t, f32, (R,)), ("idx", idx, torch.int32, (R,)),
+            ("amat", amat, f32,
+             (amat.shape[0] if amat.dim() == 2 else -1, 10)),
+            ("st", st, f32, (N_STATE, R)),
+            ("rec_slot", rec_slot, f32, (N_REC, R))):
+        build.check_arg(f"record_shade_step: {name}", x, dtype, shape, dev)
     if u5 is not None:
         build.check_arg("record_shade_step: u5", u5, f32, (5, R), dev)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.rtw_record_shade(
-            t.data_ptr(), attrs.data_ptr(), st.data_ptr(), rec_slot.data_ptr(),
-            None if u5 is None else u5.data_ptr(), R, base_seed(seed),
-            bounce & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+            t.data_ptr(), idx.data_ptr(), amat.data_ptr(), st.data_ptr(),
+            rec_slot.data_ptr(), None if u5 is None else u5.data_ptr(), R,
+            base_seed(seed), bounce & 0xFFFFFFFF,
+            torch.cuda.current_stream().cuda_stream)
     build.check(err, "record_shade_step")
     record_launches += 1
 

@@ -7,9 +7,9 @@ Every ray owns a lane for all ``max_depth`` bounces. The forward runs one
 record bounce per step:
 
 1. the occupancy-masked sweep (K3, ``cuda/intersect_kernel.sweep_masked``);
-2. the winner-attribute gather;
-3. the record step (K7a, ``cuda/grad_kernel.record_shade_step``), which
-   shades and advances the lanes and writes the bounce's record slot.
+2. the record step (K7a, ``cuda/grad_kernel.record_shade_step``), which
+   reads each sweep winner's attribute row, shades and advances the lanes
+   and writes the bounce's record slot.
 
 The backward walks the slots newest first: one launch of the fused replay
 (K7c, ``replay_bwd_fused``), or one launch of the per-bounce replay (K7b,
@@ -31,7 +31,7 @@ import torch
 from ..scene import Scene
 from .integrator import resolve_impl
 from .intersect import DEFAULT_TMIN
-from .materials import attr_mat, fetch_attr_planes
+from .materials import attr_mat
 from .cuda import grad_kernel as GK, intersect_kernel
 
 
@@ -67,7 +67,7 @@ def _record_forward(scene: Scene, origin, direction, cfg: _Config):
     if cfg.impl == "kernels":
         sweep, step = intersect_kernel.sweep_masked, GK.record_shade_step
     else:
-        sweep, step = intersect_kernel.sweep_masked_ref, GK.record_shade_step_ref
+        sweep, step = intersect_kernel.sweep_masked_ref, GK.record_shade_fetch_ref
     rec = torch.empty((cfg.max_depth, GK.N_REC, R), dtype=torch.float32,
                       device=dev)
     rec_idx = torch.empty((cfg.max_depth, R), dtype=torch.int32, device=dev)
@@ -75,7 +75,7 @@ def _record_forward(scene: Scene, origin, direction, cfg: _Config):
         t, idx = sweep(st[0:6], st[12].view(torch.int32), spheres, cfg.tmin)
         rec_idx[b] = idx
         u5 = None if cfg.u5_fn is None else cfg.u5_fn(b, R).to(dev)
-        step(t, fetch_attr_planes(idx, amat), st, rec[b], cfg.seed, b, u5)
+        step(t, idx, amat, st, rec[b], cfg.seed, b, u5)
     return st[9:12].T.contiguous(), rec, rec_idx
 
 

@@ -278,8 +278,9 @@ def test_trace_inline_wrapper_runs_plain_on_the_cpu():
 @pytest.mark.cuda
 def test_inline_kernel_matches_plain_on_card(cuda_device):
     # K8 against trace_inline_ref on the card, 4_spheres and hollow glass at
-    # 256x144 camera rays, with injected and with Philox draws: within
-    # 1e-6 * max(1, |x|) on >= 99.99% of lanes; one launch per call.
+    # 256x144 camera rays, with injected and with Philox draws: bit for bit
+    # on every lane, whatever order the work queue handed the lanes out in;
+    # one launch per call.
     dev = cuda_device
     for scene_j, cam_j in ((rtw.scene_4_spheres(), rtw.t_default_cam()),
                            (rtw.scene_diel_spheres_hollow(),
@@ -294,5 +295,4 @@ def test_inline_kernel_matches_plain_on_card(cuda_device):
             a = K8.trace_inline(scene, o, d, 9, 16, 1e-4, u5)
             assert K8.launches == before + 1
             b = K8.trace_inline_ref(scene, o, d, 9, 16, 1e-4, u5)
-            ok = ((a - b).abs() <= 1e-6 * b.abs().clamp(min=1)).all(1)
-            assert ok.float().mean() >= 0.9999
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
