@@ -16,10 +16,11 @@ last the flagship gradient step through the fused record step
 the megakernel (``persistent_render_sum_mega``) and the cluster sweep
 (``intersect_spheres_grid``) on the flagship's rays in five lane orders.
 K1 and K3 split each ray's sweep over a group of threads and are held bit
-for bit against K10, which keeps the one-thread loop, at every split
-(``k1_vs_plain``, ``k3_vs_plain``, ``sweep_redesign``), and
-``sweep_redesign`` times them at the main paths' widths. K2 and K4 fetch
-the sweep winner's attributes themselves: they are held bit for bit
+for bit against the kept one-thread kernel (the previous K10,
+``sweep_fetch_one_thread``) at every split (``k1_vs_plain``,
+``k3_vs_plain``, ``sweep_redesign``), and ``sweep_redesign`` times them at
+the main paths' widths. K2 and K4 fetch the sweep winner's attributes
+themselves: they are held bit for bit
 against their plain versions (the gather, then the attribute-level step;
 ``k2_vs_plain``, ``k2_loop_vs_plain`` over the render's first 32
 iterations, ``k4_vs_plain`` at the step's iterations 20 and 40), the
@@ -42,7 +43,15 @@ demo's first pass, ``k8_vs_plain`` on the demo and a 64-sphere table), the
 fit and the small-image step launch no gather, and ``fit_redesign`` builds,
 checks bit for bit and times the designs they were chosen over
 (``scripts/torch_k7a_k8_variants.py``), then times K7a, K7b, K7c and K8 by
-both methods and profiles one fit step. It times the kernels, the renders,
+both methods and profiles one fit step. K10 sweeps with K1's split loop
+and reads the winner's row by index, and K12 sweeps and shades only its
+active lanes: ``k10_k12_redesign`` holds K10 bit for bit against the
+one-thread kernel on four ray sets at every split, K12 against K1, the
+gather and K9 at four iterations of the flagship film, and times the
+previous and the shipped designs in turns and per render
+(``scripts/torch_k10_k12_variants.py``, which alone also builds and
+times the designs they were chosen over). It
+times the kernels, the renders,
 the steps and the fit against the plain path. Each phase prints one JSON
 line; a failed check raises and the script exits non-zero without printing
 a result. The line before the card line lists every kernel with its
@@ -310,16 +319,16 @@ def lanes_outside(close_pairs, rel: float, exact_pairs=()) -> tuple:
 SPLIT_PARTS = (None, 1, 2, 4, 8, 16, 32)
 
 
-def split_vs_k10(rays, spheres, amat, alive=None) -> dict:
+def split_vs_one_thread(rays, spheres, amat, alive=None) -> dict:
     """The lanes on which K1 (with ``alive``: K3, dead lanes held to
-    ``(BIG, 0)``) differs from K10 in any bit of t or idx, for each P of
-    :data:`SPLIT_PARTS` (``"auto"`` for the wrapper's pick). K10 keeps the
-    one-thread loop, so this holds the split schedule against it in one
-    call."""
+    ``(BIG, 0)``) differs in any bit of t or idx from the kept one-thread
+    kernel (``sweep_fetch_one_thread``, the previous K10), for each P of
+    :data:`SPLIT_PARTS` (``"auto"`` for the wrapper's pick): the split
+    schedule against the one-thread loop in one call."""
     import torch
     from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
     n = rays.shape[1]
-    t10, i10, _ = K1.sweep_fetch(rays, spheres, amat)
+    t10, i10, _ = K1.sweep_fetch_one_thread(rays, spheres, amat)
     runs = {}
     if alive is None:
         for P in SPLIT_PARTS:
@@ -383,7 +392,7 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
     dead_ok = bool(((t3[~live] == K1.BIG) & (i3[~live] == 0)).all())
     k3_err = (t3 - t3r).abs().max().item()
     k3_states = {20: (sf20[0:6], si20[2]), 40: (sf40[0:6], si40[2])}
-    vs_k10 = {it: split_vs_k10(r, spheres, amat, a)
+    vs_one = {it: split_vs_one_thread(r, spheres, amat, a)
               for it, (r, a) in k3_states.items()}
     emit({"phase": "k3_vs_plain", "lanes": lanes, "spheres": scene.n_spheres,
           "iteration": 20, "live_share": live.float().mean().item(),
@@ -392,16 +401,16 @@ def grad_kernel_phases(dev, card, scene, cam, W: int, H: int) -> tuple:
           "live_share_by_iteration": {
               it: (a != 0).float().mean().item()
               for it, (_, a) in k3_states.items()},
-          "lanes_differing_from_k10_by_iteration_and_p": vs_k10,
+          "lanes_differing_from_one_thread_by_iteration_and_p": vs_one,
           "tolerance": "idx identical; t bit-equal on >= 99.99% of live "
-                       "lanes; dead lanes exactly (BIG, 0); against K10 "
-                       "(the one-thread loop), at iterations 20 and 40 and "
+                       "lanes; dead lanes exactly (BIG, 0); against the "
+                       "one-thread kernel, at iterations 20 and 40 and "
                        "every P: 0 lanes differ in any bit"})
     check(idx_same, "K3 idx differs from sweep_masked_ref")
     check(t_bit >= 0.9999, f"K3 t bit-equal on only {t_bit} of live lanes")
     check(dead_ok, "K3 dead lanes are not (BIG, 0)")
-    check(all(v == 0 for d in vs_k10.values() for v in d.values()),
-          f"K3 differs from K10: {vs_k10}")
+    check(all(v == 0 for d in vs_one.values() for v in d.values()),
+          f"K3 differs from the one-thread kernel: {vs_one}")
 
     # -- K4 against its plain version (the gather, then
     # persist_record_step_ref) at iterations 20 and 40, both record widths,
@@ -1275,6 +1284,32 @@ def fit_slice_phases(dev, card, W: int = 200, H: int = 112, SPP: int = 8,
 REGEN_OPS = 40
 
 
+def mega_bound(fs, ist, spheres) -> dict:
+    """K12's bound on the pinned state ``fs``/``ist``: per active lane, 15
+    state words in and out and the film coordinates in; per idle lane, its
+    flag read; the two tables and the camera once. Active lanes: the
+    sweep, the shade and the regeneration (an upper count); their hits:
+    the advance."""
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    n, n_sph = fs.shape[1], spheres.shape[0]
+    active = ist[2] != 0
+    n_active = int(active.sum())
+    t, _ = K1.sweep(fs[0:6].contiguous(), spheres)
+    hit_live = int((active & (t < K1.BIG)).sum())
+    return bound(n_active * (15 * 4 * 2 + 8) + (n - n_active) * 4
+                 + n_sph * (16 + 40) + 21 * 4,
+                 n_active * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS * n_sph
+                             + SHADE_OPS + REGEN_OPS)
+                 + hit_live * ADVANCE_OPS)
+
+
+def sweep_fetch_bound(n_rays: int, n_sph: int) -> dict:
+    """K10's bound: rays in (24 B), t, idx and 10 attributes out (48 B), the
+    two tables once; every ray against every sphere."""
+    return bound(n_rays * (24 + 48) + n_sph * (16 + 40),
+                 n_rays * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS * n_sph))
+
+
 def field_stats(ga, gb) -> dict:
     """Per field of two ``SceneGrads``: cosine and norm ratio (1.0 each
     when both are zero)."""
@@ -1333,11 +1368,7 @@ def trace_slice_phases(dev, card, scene, cam, rays, lin_strided,
     k10_ms = device_ms(lambda: K1.sweep_fetch(rays, spheres, amat), 20)
     k10_plain_ms = device_ms(lambda: K1.sweep_fetch_ref(rays, spheres, amat),
                              3, sleep_cycles=long_sleep)
-    n_rays = rays.shape[1]
-    # rays in (24 B), t, idx and 10 attributes out (48 B), the two tables
-    # once; every ray against every sphere.
-    k10_bound = bound(n_rays * (24 + 48) + n_sph * (16 + 40),
-                      n_rays * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS * n_sph))
+    k10_bound = sweep_fetch_bound(rays.shape[1], n_sph)
 
     # -- K9 against shade_and_regen_ref: the whole flagship film pinned,
     # 2 073 600 lanes, after 24 iterations --------------------------------
@@ -2038,20 +2069,9 @@ def last_kernel_phases(dev, card, snap, W: int = 1920, H: int = 1080,
         3, setup=restore12, sleep_cycles=long_sleep)
     pinned_ms = device_ms(lambda: pinned_iter(*live12), 20, setup=restore12)
     del live12
-    active = ist[2] != 0
-    n_active = int(active.sum())
-    t24, _ = K1.sweep(fs[0:6], spheres)
-    hit_live = int((active & (t24 < K1.BIG)).sum())
-    # active lanes: 15 state words in and out and the film coordinates in;
-    # an idle lane: its flag read; the two tables and the camera once.
-    # Active lanes: the sweep, the shade and the regeneration (an upper
-    # count); their hits: the advance.
-    k12_bound = bound(n_active * (15 * 4 * 2 + 8) + (n - n_active) * 4
-                      + n_sph * (16 + 40) + 21 * 4,
-                      n_active * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS * n_sph
-                                  + SHADE_OPS + REGEN_OPS)
-                      + hit_live * ADVANCE_OPS)
-    del fs, ist, t24
+    n_active = int((ist[2] != 0).sum())
+    k12_bound = mega_bound(fs, ist, spheres)
+    del fs, ist
     emit({"phase": "k12", "card": card, "lanes": n, "iteration": 24,
           "active_lanes": n_active, "lanes_outside_injected_u9": bad12_inj,
           "max_abs_err_injected": err12_inj,
@@ -2121,7 +2141,8 @@ def last_kernel_phases(dev, card, snap, W: int = 1920, H: int = 1080,
                        "channel means within 1% of the strided route's "
                        "(other draws)"})
     check(mega_launches["mega"] > 0 and mega_launches["sweep"] == 0
-          and mega_launches["shade_pinned"] == 0,
+          and mega_launches["shade_pinned"] == 0
+          and mega_launches["gather"] == 0,
           f"megakernel render launched {mega_launches}")
     check(bitwise, "megakernel image differs from the pinned route's")
     check(bool(torch.isfinite(img_m).all()) and rel_s <= 0.01,
@@ -2245,9 +2266,10 @@ def sweep_redesign_phases(dev, card, cam, rays_f, snap, W: int = 1920,
     paths give them: K1 at the flagship's 32 400 mid-render lanes, at the
     gradient step's 262 144 lanes (iteration 20, every lane) and at the
     2 073 600 camera rays of one film pass, for the P the wrapper picks and
-    for each forced P, beside K10 (the one-thread loop plus its 40-byte
-    fetch) on the same rays; K3 at iterations 20 and 40 of the step's record
-    phase; every run bitwise against K10; the kernels' registers and
+    for each forced P, beside the kept one-thread kernel (the previous K10:
+    the one-thread loop plus its 40-byte fetch) on the same rays; K3 at
+    iterations 20 and 40 of the step's record phase; every run bitwise
+    against the one-thread kernel; the kernels' registers and
     resident blocks; K1's device time per flagship render and K3's per
     flagship step from the profiler."""
     import torch
@@ -2267,15 +2289,16 @@ def sweep_redesign_phases(dev, card, cam, rays_f, snap, W: int = 1920,
     k1, bitwise = {}, {}
     for name, r in sets.items():
         n = r.shape[1]
-        bitwise[name] = split_vs_k10(r, spheres, amat)
+        bitwise[name] = split_vs_one_thread(r, spheres, amat)
         ms = {("auto" if P is None else str(P)): device_ms(
             lambda P=P: K1.sweep(r, spheres, parts=P), 20)
             for P in SPLIT_PARTS}
         k1[name] = {"rays": n,
                     "parts_chosen": K1.sweep_parts(n, n_sph, resident),
                     "device_ms_by_p": ms,
-                    "k10_device_ms": device_ms(
-                        lambda: K1.sweep_fetch(r, spheres, amat), 20)}
+                    "one_thread_device_ms": device_ms(
+                        lambda: K1.sweep_fetch_one_thread(r, spheres, amat),
+                        20)}
     k3 = {}
     for it, (r, a) in snap["k3_states"].items():
         ms = {("auto" if P is None else str(P)): device_ms(
@@ -2285,10 +2308,11 @@ def sweep_redesign_phases(dev, card, cam, rays_f, snap, W: int = 1920,
                   "device_ms_by_p": ms,
                   "k1_all_lanes_device_ms": device_ms(
                       lambda: K1.sweep(r, spheres), 20),
-                  "k10_all_lanes_device_ms": device_ms(
-                      lambda: K1.sweep_fetch(r, spheres, amat), 20)}
+                  "one_thread_all_lanes_device_ms": device_ms(
+                      lambda: K1.sweep_fetch_one_thread(r, spheres, amat),
+                      20)}
     occ = {kern: K1.occupancy(kern, n_sph, dev)
-           for kern in ("sweep", "sweep_masked", "sweep_fetch")}
+           for kern in ("sweep", "sweep_masked", "sweep_fetch_one_thread")}
 
     # K1 per flagship render, K3 per flagship step (torch.profiler)
     flag_scene, flag_cam = pt.scene_random_spheres(seed=1), pt.t_cam1()
@@ -2306,7 +2330,7 @@ def sweep_redesign_phases(dev, card, cam, rays_f, snap, W: int = 1920,
     per_step = step["device_ms_by_match"]["sweep_masked"]
     emit({"phase": "sweep_redesign", "card": card, "spheres": n_sph,
           "resident_threads_k1": resident, "k1": k1, "k3": k3,
-          "occupancy": occ, "lanes_differing_from_k10_by_p": bitwise,
+          "occupancy": occ, "lanes_differing_from_one_thread_by_p": bitwise,
           "k1_per_flagship_render": {
               **per_render, "wall_s_profiled": render["wall_s_profiled"],
               "device_idle_share": render["device_idle_share"]},
@@ -2314,12 +2338,12 @@ def sweep_redesign_phases(dev, card, cam, rays_f, snap, W: int = 1920,
               **per_step, "wall_s_profiled": step["wall_s_profiled"],
               "device_idle_share": step["device_idle_share"]},
           "note": "device_ms: card time only (queue pre-filled), 20 "
-                  "launches; K10 sweeps with the one-thread loop and "
-                  "fetches 40 bytes per ray more",
-          "tolerance": "0 lanes differ from K10 in any bit of t or idx, "
-                       "on every ray set at every P"})
+                  "launches; the one-thread kernel sweeps with the "
+                  "one-thread loop and fetches 40 bytes per ray more",
+          "tolerance": "0 lanes differ from the one-thread kernel in any "
+                       "bit of t or idx, on every ray set at every P"})
     check(all(v == 0 for d in bitwise.values() for v in d.values()),
-          f"K1 differs from K10: {bitwise}")
+          f"K1 differs from the one-thread kernel: {bitwise}")
     check(per_render["count"] > 0 and per_step["count"] > 0,
           "the profiles found no K1 or K3 launch")
 
@@ -2649,6 +2673,193 @@ def fit_redesign_phases(dev, card, f: dict) -> dict:
             "inline": k8_alone["event_ms"]}
 
 
+def k10_k12_redesign_phases(dev, card, rays, rays_f) -> dict:
+    """K10 with K1's split loop and the winner's row by index, and K12
+    sweeping and shading only its active lanes, beside the designs they
+    were chosen over. K10 through its wrapper, bit for bit against the kept
+    one-thread kernel (t, idx and the ten planes) at every P and the
+    wrapper's own, on four ray sets: the K1 phase's 2^20 rays (``rays``),
+    bounces 0 and 3 of the ``fused_attrs`` render's first pass (2 073 600
+    rays each, captured at its launches) and the flagship's 32 400
+    mid-render lanes (``rays_f``); K12 through its wrapper, every state
+    word bit for bit against K1 + gather + K9 at iterations 0, 8, 24 and 40
+    of the flagship film pinned, with injected and Philox draws (P per
+    block, as the kernel chooses it). K10 also against its plain version
+    on the 2 073 600 camera rays, with ``k10_vs_plain``'s tolerances: its
+    row of the ``kernels`` line is measured at that shape, every column.
+    Both kernels timed through their wrappers by
+    :func:`batch_ms` at those shapes, with their bounds, registers and
+    resident blocks. Then one pass of ``scripts/torch_k10_k12_variants.py``
+    over the previous and the shipped designs: it builds the previous K12
+    and the shipped sources, checks them bit for bit, times them in turns,
+    then the megakernel and ``fused_attrs`` renders with each (host clock,
+    the kernel's device time per render from the profiler, the images
+    bitwise equal); the designs not chosen run in the script alone. Returns
+    K10's ms, plain ms, bound and max_abs_err at the 2 073 600 camera rays
+    (the shape its main-path launches sweep), and K12's ms at iteration
+    24."""
+    import os
+    import torch
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    from raytracingweekend_jl_tpu_torch.ops.cuda import mega_kernel as K12
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import torch_k10_k12_variants as V
+
+    scene, cam, spheres, amat = V.flagship(dev)
+    n_sph = spheres.shape[0]
+    captured = V.fused_attrs_rays(dev)
+    sets = {"rays_2p20": rays, "camera_2073600": captured[0],
+            "bounce3_2073600": captured[3], "mid_render_32400": rays_f}
+    del captured
+
+    # K10 against the one-thread kernel, every P, every set
+    k10 = {}
+    for name, r in sets.items():
+        ref = K1.sweep_fetch_one_thread(r, spheres, amat)
+        diff = {}
+        for P in SPLIT_PARTS:
+            got = K1.sweep_fetch(r, spheres, amat, parts=P)
+            torch.cuda.synchronize()
+            diff["auto" if P is None else str(P)] = int(_bitwise_lanes(
+                list(zip(got, ref)), r.shape[1]).sum())
+        del got, ref
+        ms = batch_ms(lambda: K1.sweep_fetch(r, spheres, amat), lambda: (),
+                      20, V.K10_RE)
+        k10[name] = {"rays": r.shape[1], "parts_chosen": K1.sweep_parts(
+            r.shape[1], n_sph, K1._resident_threads(dev, n_sph,
+                                                    "sweep_fetch")),
+                     "lanes_differing_from_one_thread_by_p": diff,
+                     "batch": ms, "bound": sweep_fetch_bound(r.shape[1],
+                                                             n_sph)}
+    # K10 against its plain version at the camera rays
+    cam_rays = sets["camera_2073600"]
+    t10, i10, a10 = K1.sweep_fetch(cam_rays, spheres, amat)
+    t10r, i10r, a10r = K1.sweep_fetch_ref(cam_rays, spheres, amat)
+    t1, _ = K1.sweep(cam_rays, spheres)
+    torch.cuda.synchronize()
+    k10_plain = {"rays": cam_rays.shape[1],
+                 "idx_identical": bool(torch.equal(i10, i10r)),
+                 "t_bitwise_k1": bool(torch.equal(t10, t1)),
+                 "attrs_identical": bool(torch.equal(a10, a10r)),
+                 "max_abs_err": max((t10 - t10r).abs().max().item(),
+                                    (a10 - a10r).abs().max().item())}
+    del t10, i10, a10, t10r, i10r, a10r, t1
+    k10_plain_ms = device_ms(lambda: K1.sweep_fetch_ref(cam_rays, spheres,
+                                                        amat), 3,
+                             sleep_cycles=3_000_000_000)
+
+    # K12 against K1 + gather + K9, four iterations
+    st = V.k12_states(dev, scene, cam, spheres, amat)
+    g = torch.Generator(device=dev).manual_seed(12)
+    k12 = {}
+    for it, (fs, ist, n_act) in st["at"].items():
+        n = fs.shape[1]
+        diff = {}
+        for draws, u9 in (("injected", torch.rand((9, n), generator=g,
+                                                   device=dev)),
+                          ("philox", None)):
+            ref, got = [fs.clone(), ist.clone()], [fs.clone(), ist.clone()]
+            V.pinned_iteration(st, *ref, it, u9)
+            K12.mega_step(*got, spheres, amat, st["u"], st["v"], st["cc"],
+                          st["seed"], it, V.SPP - 1, V.DEPTH, V.TMIN, u9)
+            torch.cuda.synchronize()
+            diff[draws] = int(_bitwise_lanes(list(zip(got, ref)), n).sum())
+            del ref, got
+        ms = batch_ms(lambda f, i: K12.mega_step(
+            f, i, spheres, amat, st["u"], st["v"], st["cc"], st["seed"], it,
+            V.SPP - 1, V.DEPTH, V.TMIN), lambda: (fs.clone(), ist.clone()),
+            20, V.K12_RE)
+        k12[f"iteration{it}"] = {
+            "active_lanes": n_act, "lanes_differing_from_k1_gather_k9": diff,
+            "batch": ms, "bound": mega_bound(fs, ist, spheres)}
+        torch.cuda.empty_cache()
+    occ = {"sweep_fetch": K1.occupancy("sweep_fetch", n_sph, dev),
+           "sweep_fetch_one_thread": K1.occupancy("sweep_fetch_one_thread",
+                                                  n_sph, dev),
+           "mega": K12.occupancy(n_sph, dev)}
+    emit({"phase": "k10_k12_redesign", "card": card, "spheres": n_sph,
+          "k10": k10, "k12": k12, "occupancy": occ,
+          "k10_vs_plain_camera_2073600": k10_plain,
+          "k10_plain_ms_camera_2073600": k10_plain_ms,
+          "note": "batch: batch_ms through the wrapper (event_ms: one "
+                  "event pair around 20 launches; K12 each on its own copy "
+                  "of the state); bound: from this run's inputs",
+          "tolerance": "K10: t, idx and the ten planes bit for bit the "
+                       "one-thread kernel's on every set at every P; at the "
+                       "camera rays idx and planes identical to the plain "
+                       "version's, t bitwise K1's; K12: every state word "
+                       "bit for bit K1 + gather + K9's at every iteration "
+                       "and draw"})
+    check(all(v == 0 for c in k10.values()
+              for v in c["lanes_differing_from_one_thread_by_p"].values()),
+          f"K10 differs from the one-thread kernel: {k10}")
+    check(k10_plain["idx_identical"] and k10_plain["t_bitwise_k1"]
+          and k10_plain["attrs_identical"],
+          f"K10 differs from its plain version: {k10_plain}")
+    check(all(v == 0 for c in k12.values()
+              for v in c["lanes_differing_from_k1_gather_k9"].values()),
+          f"K12 differs from K1 + gather + K9: {k12}")
+    del st
+
+    out = V.run_pass_set(dev, 1, sets=sets, k10_builds=("shipped",),
+                         k12_builds=("shipped", "previous"))
+    emit({"phase": "k10_k12_variants", "card": card, **out,
+          "note": "one pass of the previous and the shipped designs (the "
+                  "others: scripts/torch_k10_k12_variants.py alone); "
+                  "event_ms: one CUDA event pair around n launches (K12: "
+                  "each on its own copy of the state); profiler_ms: the "
+                  "profiler's per-launch mean; renders: host-clock seconds "
+                  "and the kernel's device time per render by the "
+                  "profiler, medians of 3 in turns"})
+    return {"sweep_fetch": {"ms": k10["camera_2073600"]["batch"]["event_ms"],
+                            "plain_ms": k10_plain_ms,
+                            "max_abs_err": k10_plain["max_abs_err"],
+                            "bound": k10["camera_2073600"]["bound"]},
+            "mega": {"ms": k12["iteration24"]["batch"]["event_ms"]}}
+
+
+def k1_phase_rays(dev, cam, spheres, g=None):
+    """The K1 phase's 2^20 rays [6, 2^20] of the flagship: 2^19 camera rays
+    (film points and lens samples from ``g``, by default a generator seeded
+    with 0), then 2^19 rays leaving their hit points (or the camera, on a
+    miss) in random unit directions."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    if g is None:
+        g = torch.Generator(device=dev).manual_seed(0)
+    n_half = 1 << 19
+    s = torch.rand(n_half, generator=g, device=dev)
+    t = torch.rand(n_half, generator=g, device=dev)
+    disk = pt.unit_disk_points((n_half,), generator=g, device=dev)
+    o_cam, d_cam = pt.make_rays(cam, s, t, disk)
+    rays_cam = torch.cat([o_cam.T, d_cam.T]).contiguous()
+    t_cam, _ = K1.sweep_ref(rays_cam, spheres)
+    hit = t_cam < K1.BIG
+    p = o_cam + torch.where(hit, t_cam, torch.ones_like(t_cam))[:, None] * d_cam
+    d_sc = pt.unit_sphere_directions((n_half,), generator=g, device=dev)
+    return torch.cat([rays_cam, torch.cat([p.T, d_sc.T])], dim=1).contiguous()
+
+
+def mid_render_state(scene, cam, W: int, H: int, SPP: int, k: int = 64):
+    """The flagship's strided state after 24 iterations (32 400 lanes at
+    k = 64): ``(state, camera constants, tables, seed)``."""
+    from raytracingweekend_jl_tpu_torch import rng
+    from raytracingweekend_jl_tpu_torch.ops import integrator as I
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    from raytracingweekend_jl_tpu_torch.ops.cuda import shade_kernel as K2
+    from raytracingweekend_jl_tpu_torch.ops.materials import attr_mat
+    st = I.init_strided_state(cam, W * H, W, H, 5, SPP, 0, 16, k,
+                              device=scene.device)
+    cc = K2.pack_camera_consts(cam, W, H)
+    tables = (scene, K1.sphere_consts(scene), attr_mat(scene))
+    seed32 = rng.persistent_seed(5, 0)
+    for it in range(24):  # a realistic mid-render state
+        I.strided_step(tables, st, cc, seed32, it, 0, 16, 1e-4, "kernels")
+    return st, cc, tables, seed32
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2657,12 +2868,10 @@ def main() -> int:
         return 2
 
     import raytracingweekend_jl_tpu_torch as pt
-    from raytracingweekend_jl_tpu_torch import rng
     from raytracingweekend_jl_tpu_torch.ops import integrator as I
     from raytracingweekend_jl_tpu_torch.ops.cuda import build
     from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
     from raytracingweekend_jl_tpu_torch.ops.cuda import shade_kernel as K2
-    from raytracingweekend_jl_tpu_torch.ops.materials import attr_mat
 
     # Full float32 in every matrix product of the plain path (no TF32).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2690,28 +2899,11 @@ def main() -> int:
 
     # -- 2. K1 against sweep_ref: 2^20 rays and the flagship's lanes -------
     g = torch.Generator(device=dev).manual_seed(0)
-    n_half = 1 << 19
-    s = torch.rand(n_half, generator=g, device=dev)
-    t = torch.rand(n_half, generator=g, device=dev)
-    disk = pt.unit_disk_points((n_half,), generator=g, device=dev)
-    o_cam, d_cam = pt.make_rays(cam, s, t, disk)
-    rays_cam = torch.cat([o_cam.T, d_cam.T]).contiguous()
-    t_cam, _ = K1.sweep_ref(rays_cam, spheres)
-    hit = t_cam < K1.BIG
-    p = o_cam + torch.where(hit, t_cam, torch.ones_like(t_cam))[:, None] * d_cam
-    d_sc = pt.unit_sphere_directions((n_half,), generator=g, device=dev)
-    rays = torch.cat([rays_cam, torch.cat([p.T, d_sc.T])], dim=1).contiguous()
-
-    # the flagship's mid-render lanes: 32 400 at k = 64, after 24 iterations
+    rays = k1_phase_rays(dev, cam, spheres, g)
     k = 64
-    st = I.init_strided_state(cam, W * H, W, H, 5, SPP, 0, 16, k, device=dev)
+    st, cc, tables, seed32 = mid_render_state(scene, cam, W, H, SPP, k)
     n_lanes = st.fstate.shape[1]
     check(n_lanes == 32400, f"flagship lanes {n_lanes}")
-    cc = K2.pack_camera_consts(cam, W, H)
-    tables = (scene, spheres, attr_mat(scene))
-    seed32 = rng.persistent_seed(5, 0)
-    for it in range(24):  # a realistic mid-render state
-        I.strided_step(tables, st, cc, seed32, it, 0, 16, 1e-4, "kernels")
     rays_f = st.fstate[0:6].contiguous()
 
     # K1 at the P its rule picks for each set (1 and 8 on an H100)
@@ -2732,14 +2924,15 @@ def main() -> int:
                               / t_r.abs().clamp(min=1e-30)).max().item(),
             "t_max_abs_err": (t_k - t_r).abs().max().item()}
     k1_err = by_set["mid_render_32400"]["t_max_abs_err"]  # the main path's
-    vs_k10 = {"rays_2p20": split_vs_k10(rays, spheres, tables[2]),
-              "mid_render_32400": split_vs_k10(rays_f, spheres, tables[2])}
+    vs_one = {"rays_2p20": split_vs_one_thread(rays, spheres, tables[2]),
+              "mid_render_32400": split_vs_one_thread(rays_f, spheres,
+                                                      tables[2])}
     emit({"phase": "k1_vs_plain", "by_set": by_set,
-          "lanes_differing_from_k10_by_p": vs_k10,
+          "lanes_differing_from_one_thread_by_p": vs_one,
           "tolerance": "against sweep_ref, on both ray sets at the P the "
                        "rule picks: idx identical; t bit-equal on >= "
-                       "99.99%, rel 1e-6 on all; against K10 (the "
-                       "one-thread loop), on both ray sets at every P: 0 "
+                       "99.99%, rel 1e-6 on all; against the kept "
+                       "one-thread kernel, on both ray sets at every P: 0 "
                        "lanes differ in any bit"})
     for name, c in by_set.items():
         check(c["idx_identical"], f"K1 idx differs from sweep_ref ({name})")
@@ -2747,8 +2940,8 @@ def main() -> int:
               f"K1 t bit-equal on only {c['t_bit_equal_share']} ({name})")
         check(c["t_max_rel_err"] <= 1e-6,
               f"K1 t relative error {c['t_max_rel_err']} ({name})")
-    check(all(v == 0 for d in vs_k10.values() for v in d.values()),
-          f"K1 differs from K10: {vs_k10}")
+    check(all(v == 0 for d in vs_one.values() for v in d.values()),
+          f"K1 differs from the one-thread kernel: {vs_one}")
 
     # -- 3. K2 against its plain version (the gather, then
     # shade_strided_step_ref) at the flagship lane count, injected and
@@ -2936,6 +3129,18 @@ def main() -> int:
     del fit_in
     for row in fit_rows:
         row["ms"] = fit_batch[row["name"]]
+
+    # -- 18. K10 and K12 beside their previous forms; both per render -----
+    redesign = k10_k12_redesign_phases(dev, card, rays, rays_f)
+    for row in trace_rows + last_rows:
+        r = redesign.get(row["name"])
+        if r is not None:
+            row["ms"] = r["ms"]
+            if "bound" in r:
+                row.update(plain_ms=r["plain_ms"],
+                           max_abs_err=r["max_abs_err"],
+                           bound_ms=r["bound"]["bound_ms"],
+                           bound_by=r["bound"]["bound_by"])
 
     # -- the kernels line: every ported kernel, with its bound -------------
     n_rays, n_sph = rays_f.shape[1], spheres.shape[0]

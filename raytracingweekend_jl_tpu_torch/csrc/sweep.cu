@@ -1,10 +1,11 @@
-// K1 and K3: the closest-hit ray-sphere sweep and its occupancy-masked
-// form, for Hopper (sm_90a).
+// K1, K3 and K10: the closest-hit ray-sphere sweep, its occupancy-masked
+// form and its form fused with the winner's attribute fetch, for Hopper
+// (sm_90a).
 //
 // K1 replaces the TPU kernel raytracingweekend_jl_tpu/ops/pallas/
 // intersect_kernel.py :: _sweep_kernel (launched by _sweep_forward),
 // forward only; K3 replaces :: _sweep_masked_kernel (launched by
-// sweep_masked_planes).
+// sweep_masked_planes); K10 replaces :: _sweep_fetch_kernel (below).
 //
 // What they compute: for each ray (each live lane, for K3), the closest
 // sphere hit in [tmin, inf) with the half-b quadratic for unit directions
@@ -40,8 +41,9 @@
 //     lane of the others.
 // Each lane's result lands in its own slot: no atomics, no allocation, no
 // grid-wide synchronisation, and the output does not depend on block
-// order. The (t, idx) of both kernels is bit for bit rtw_sweep_closest's,
-// the one-thread loop that K10-K13 keep.
+// order. The (t, idx) of the three kernels is bit for bit
+// rtw_sweep_closest's, the one-thread loop that K11 and K13 keep and that
+// sweep_fetch_one_thread_kernel keeps as their reference.
 
 #include <cuda_runtime.h>
 
@@ -49,20 +51,24 @@
 
 #define RTW_SWEEP_THREADS 256
 
-__global__ void __launch_bounds__(RTW_SWEEP_THREADS)
-    sweep_kernel(const float* __restrict__ rays,
-                 const float4* __restrict__ spheres, int n_rays,
-                 int n_spheres, float tmin, int log2p,
-                 float* __restrict__ t_out, int* __restrict__ idx_out) {
-  extern __shared__ float4 sph[];
+// The split sweep of K1 and K10 up to the merge: stages the sphere table in
+// `sph` (shared memory), then the group of P = 2^log2p threads that holds
+// this thread sweeps ray i, part p of it, and merges. Afterwards every
+// thread of the group holds ray i's (t, idx), or (BIG, 0) where i is past
+// the rays. Every thread of the block calls it.
+__device__ __forceinline__ void rtw_split_sweep(
+    float4* sph, const float4* __restrict__ spheres,
+    const float* __restrict__ rays, int n_rays, int n_spheres, float tmin,
+    int log2p, long long& i, int& p, float& best_t, int& best_i) {
   for (int s = threadIdx.x; s < n_spheres; s += blockDim.x) sph[s] = spheres[s];
   __syncthreads();
 
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long i = g >> log2p;
-  const int P = 1 << log2p, p = (int)(g & (P - 1));
-  float best_t = RTW_BIG;
-  int best_i = 0;
+  const int P = 1 << log2p;
+  i = g >> log2p;
+  p = (int)(g & (P - 1));
+  best_t = RTW_BIG;
+  best_i = 0;
   if (i < n_rays) {
     const size_t n = n_rays;
     rtw_sweep_part(sph, n_spheres, p, P, rays[i], rays[n + i],
@@ -70,24 +76,38 @@ __global__ void __launch_bounds__(RTW_SWEEP_THREADS)
                    rays[5 * n + i], tmin, best_t, best_i);
   }
   rtw_merge_closest(best_t, best_i, P);  // every lane of the warp
+}
+
+__global__ void __launch_bounds__(RTW_SWEEP_THREADS)
+    sweep_kernel(const float* __restrict__ rays,
+                 const float4* __restrict__ spheres, int n_rays,
+                 int n_spheres, float tmin, int log2p,
+                 float* __restrict__ t_out, int* __restrict__ idx_out) {
+  extern __shared__ float4 sph[];
+  long long i;
+  int p, best_i;
+  float best_t;
+  rtw_split_sweep(sph, spheres, rays, n_rays, n_spheres, tmin, log2p, i, p,
+                  best_t, best_i);
   if (i < n_rays && p == 0) {
     t_out[i] = best_t;
     idx_out[i] = best_i;
   }
 }
 
-static int log2_of(int p) {
-  int l = 0;
-  while ((1 << l) < p) ++l;
-  return l;
-}
-
-// Dynamic shared memory of the kernels (bytes), raised above 48 KB first.
-static cudaError_t rtw_reserve_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+// The launch of K1 and K10: log2 of `parts` (a power of two in [1, 32]),
+// the block count, and the sphere table's shared memory reserved for
+// `kernel`. Returns the error, or cudaSuccess.
+static cudaError_t rtw_split_launch(const void* kernel, int n_rays,
+                                    int n_spheres, int parts, int* log2p,
+                                    int* blocks, size_t* smem) {
+  if (parts < 1 || parts > 32 || (parts & (parts - 1)))
+    return cudaErrorInvalidValue;
+  *log2p = __builtin_ctz(parts);
+  const long long threads = (long long)n_rays << *log2p;
+  *blocks = (int)((threads + RTW_SWEEP_THREADS - 1) / RTW_SWEEP_THREADS);
+  *smem = (size_t)n_spheres * sizeof(float4);
+  return rtw_reserve_smem(kernel, *smem);
 }
 
 // rays: [6, n_rays] f32 planes (ox, oy, oz, dx, dy, dz); spheres: [n, 4] f32
@@ -97,14 +117,10 @@ extern "C" int rtw_sweep(const float* rays, const float* spheres, int n_rays,
                          int n_spheres, float tmin, float* t_out, int* idx_out,
                          int parts, void* stream) {
   if (n_rays <= 0) return 0;
-  if (parts < 1 || parts > 32 || (parts & (parts - 1)))
-    return (int)cudaErrorInvalidValue;
-  const int log2p = log2_of(parts);
-  const long long threads = (long long)n_rays << log2p;
-  const int blocks = (int)((threads + RTW_SWEEP_THREADS - 1) /
-                           RTW_SWEEP_THREADS);
-  const size_t smem = (size_t)n_spheres * sizeof(float4);
-  cudaError_t e = rtw_reserve_smem((const void*)sweep_kernel, smem);
+  int log2p, blocks;
+  size_t smem;
+  cudaError_t e = rtw_split_launch((const void*)sweep_kernel, n_rays,
+                                   n_spheres, parts, &log2p, &blocks, &smem);
   if (e != cudaSuccess) return (int)e;
   sweep_kernel<<<blocks, RTW_SWEEP_THREADS, smem, (cudaStream_t)stream>>>(
       rays, reinterpret_cast<const float4*>(spheres), n_rays, n_spheres, tmin,
@@ -189,13 +205,6 @@ __global__ void __launch_bounds__(RTW_SWEEP_THREADS, 8)
   }
 }
 
-// The largest power of two <= min(32, n_spheres): every part has a sphere.
-static int parts_cap(int n_spheres) {
-  int p = 1;
-  while (p < 32 && 2 * p <= n_spheres) p *= 2;
-  return p;
-}
-
 // rays: [6, n_rays] f32 planes; alive: [n_rays] i32; spheres: [n, 4] f32;
 // parts: 0 (per block) or a power of two in [1, 32].
 extern "C" int rtw_sweep_masked(const float* rays, const int* alive,
@@ -213,7 +222,7 @@ extern "C" int rtw_sweep_masked(const float* rays, const int* alive,
   sweep_masked_kernel<<<blocks, RTW_SWEEP_THREADS, smem,
                         (cudaStream_t)stream>>>(
       rays, alive, reinterpret_cast<const float4*>(spheres), n_rays,
-      n_spheres, tmin, parts, parts_cap(n_spheres), t_out, idx_out);
+      n_spheres, tmin, parts, rtw_parts_cap(n_spheres), t_out, idx_out);
   return (int)cudaGetLastError();
 }
 
@@ -223,30 +232,79 @@ extern "C" int rtw_sweep_masked(const float* rays, const int* alive,
 // :: _sweep_fetch_kernel (launched by _sweep_fetch_forward), the
 // `fused_attrs=True` route of the fixed-depth wavefront.
 //
-// What it computes: the closest hit through rtw_sweep_closest, one thread
-// per ray (K1's split loop gives the same (t, idx) bit for bit, and
-// chip_smoke.py holds K1 against this kernel on every lane); then the
-// winner's 10 attributes in
-// materials.attr_mat column order (center xyz, radius, albedo rgb, fuzz, ir,
-// mat as a float). A miss writes (BIG, 0) and ten zeros, the TPU kernel's
-// raw outputs; the wrapper applies the miss defaults.
+// What it computes: K1's closest hit (t, idx), bit for bit; then the
+// winner's 10 attributes in materials.attr_mat column order (center xyz,
+// radius, albedo rgb, fuzz, ir, mat as a float) as [10, R] planes. A miss
+// writes (BIG, 0) and ten zeros, the TPU kernel's raw outputs; the wrapper
+// applies the miss defaults.
 //
 // What bounds it: as K1, arithmetic (~20 flops per ray and sphere); it
 // writes 40 more bytes per ray than K1.
 //
 // Design: the TPU carried ten running selects per sphere because its vector
-// unit had no gather. Here the loop is the one-thread sweep, and after it
-// one thread reads its winner's row from the attribute table staged in
-// shared memory beside the sphere table (56 bytes per sphere, 27 KB for the
-// flagship's 488): the same function with ten fewer live registers in the
-// loop.
-__global__ void sweep_fetch_kernel(const float* __restrict__ rays,
-                                   const float4* __restrict__ spheres,
-                                   const float* __restrict__ amat,
-                                   int n_rays, int n_spheres, float tmin,
-                                   float* __restrict__ t_out,
-                                   int* __restrict__ idx_out,
-                                   float* __restrict__ attrs_out) {
+// unit had no gather. Here K1's launch does the sweep (256 threads, the
+// sphere table alone in shared memory, P threads of a warp per ray with the
+// roots behind `disc > 0`, P from the wrapper's rule), and after the merge
+// the group's first thread writes (t, idx) and reads the winner's row of
+// the [N, 10] table (19.5 KB at 488 spheres, held in L1 and L2) through the
+// read-only path, as rtw_fetch_row does, and writes the ten planes. No
+// attribute table is staged: a shared one costs every block 19.5 KB of
+// copying for one row read per ray.
+__global__ void __launch_bounds__(RTW_SWEEP_THREADS)
+    sweep_fetch_kernel(const float* __restrict__ rays,
+                       const float4* __restrict__ spheres,
+                       const float* __restrict__ amat, int n_rays,
+                       int n_spheres, float tmin, int log2p,
+                       float* __restrict__ t_out, int* __restrict__ idx_out,
+                       float* __restrict__ attrs_out) {
+  extern __shared__ float4 sph[];
+  long long i;
+  int p, best_i;
+  float best_t;
+  rtw_split_sweep(sph, spheres, rays, n_rays, n_spheres, tmin, log2p, i, p,
+                  best_t, best_i);
+  const size_t n = n_rays;
+  if (i < n_rays && p == 0) {
+    t_out[i] = best_t;
+    idx_out[i] = best_i;
+    const bool hit = best_t < RTW_BIG;
+    const float* row = amat + 10 * (size_t)best_i;
+#pragma unroll
+    for (int j = 0; j < 10; ++j)
+      attrs_out[j * n + i] = hit ? __ldg(row + j) : 0.0f;
+  }
+}
+
+// rays: [6, n_rays] f32 planes; spheres: [n, 4] f32 rows (cx, cy, cz, ck);
+// amat: [n, 10] f32 rows (materials.attr_mat); attrs: [10, n_rays] f32;
+// parts: P, a power of two in [1, 32].
+extern "C" int rtw_sweep_fetch(const float* rays, const float* spheres,
+                               const float* amat, int n_rays, int n_spheres,
+                               float tmin, float* t_out, int* idx_out,
+                               float* attrs_out, int parts, void* stream) {
+  if (n_rays <= 0) return 0;
+  int log2p, blocks;
+  size_t smem;
+  cudaError_t e = rtw_split_launch((const void*)sweep_fetch_kernel, n_rays,
+                                   n_spheres, parts, &log2p, &blocks, &smem);
+  if (e != cudaSuccess) return (int)e;
+  sweep_fetch_kernel<<<blocks, RTW_SWEEP_THREADS, smem,
+                       (cudaStream_t)stream>>>(
+      rays, reinterpret_cast<const float4*>(spheres), amat, n_rays, n_spheres,
+      tmin, log2p, t_out, idx_out, attrs_out);
+  return (int)cudaGetLastError();
+}
+
+// The previous K10, kept as the independent reference of the split
+// schedule: one thread per ray through rtw_sweep_closest (the roots on
+// every pair), 128 threads per block, the sphere and attribute tables
+// staged in shared memory (56 bytes per sphere). No route launches it; the
+// card checks hold K1, K3 and K10 bit for bit against it.
+__global__ void sweep_fetch_one_thread_kernel(
+    const float* __restrict__ rays, const float4* __restrict__ spheres,
+    const float* __restrict__ amat, int n_rays, int n_spheres, float tmin,
+    float* __restrict__ t_out, int* __restrict__ idx_out,
+    float* __restrict__ attrs_out) {
   extern __shared__ float4 sph[];
   float* sattr = reinterpret_cast<float*>(sph + n_spheres);
   for (int s = threadIdx.x; s < n_spheres; s += blockDim.x) sph[s] = spheres[s];
@@ -273,31 +331,32 @@ __global__ void sweep_fetch_kernel(const float* __restrict__ rays,
   for (int j = 0; j < 10; ++j) attrs_out[j * n + i] = hit ? row[j] : 0.0f;
 }
 
-// rays: [6, n_rays] f32 planes; spheres: [n, 4] f32 rows (cx, cy, cz, ck);
-// amat: [n, 10] f32 rows (materials.attr_mat); attrs: [10, n_rays] f32.
-extern "C" int rtw_sweep_fetch(const float* rays, const float* spheres,
-                               const float* amat, int n_rays, int n_spheres,
-                               float tmin, float* t_out, int* idx_out,
-                               float* attrs_out, void* stream) {
+#define RTW_ONE_THREAD_THREADS 128
+
+// Arguments as rtw_sweep_fetch's, without parts.
+extern "C" int rtw_sweep_fetch_one_thread(const float* rays,
+                                          const float* spheres,
+                                          const float* amat, int n_rays,
+                                          int n_spheres, float tmin,
+                                          float* t_out, int* idx_out,
+                                          float* attrs_out, void* stream) {
   if (n_rays <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n_rays + threads - 1) / threads;
+  const int blocks = (n_rays + RTW_ONE_THREAD_THREADS - 1) /
+                     RTW_ONE_THREAD_THREADS;
   const size_t smem = (size_t)n_spheres * (sizeof(float4) + 10 * sizeof(float));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sweep_fetch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  sweep_fetch_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  cudaError_t e =
+      rtw_reserve_smem((const void*)sweep_fetch_one_thread_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  sweep_fetch_one_thread_kernel<<<blocks, RTW_ONE_THREAD_THREADS, smem,
+                                  (cudaStream_t)stream>>>(
       rays, reinterpret_cast<const float4*>(spheres), amat, n_rays, n_spheres,
       tmin, t_out, idx_out, attrs_out);
   return (int)cudaGetLastError();
 }
 
-// The registers per thread of kernel `which` (0: K1, 1: K3, 2: K10), the
-// blocks of it that one SM holds at the launch's block size and shared
-// memory for `n_spheres`, and the device's SM count.
+// The registers per thread of kernel `which` (0: K1, 1: K3, 2: K10, 3: the
+// one-thread reference), the blocks of it that one SM holds at the launch's
+// block size and shared memory for `n_spheres`, and the device's SM count.
 extern "C" int rtw_sweep_occupancy(int which, int n_spheres, int* regs,
                                    int* blocks_per_sm, int* sm_count) {
   const void* k;
@@ -309,7 +368,9 @@ extern "C" int rtw_sweep_occupancy(int which, int n_spheres, int* regs,
     k = (const void*)sweep_masked_kernel;
   } else if (which == 2) {
     k = (const void*)sweep_fetch_kernel;
-    threads = 128;
+  } else if (which == 3) {
+    k = (const void*)sweep_fetch_one_thread_kernel;
+    threads = RTW_ONE_THREAD_THREADS;
     smem += (size_t)n_spheres * 10 * sizeof(float);
   } else {
     return (int)cudaErrorInvalidValue;

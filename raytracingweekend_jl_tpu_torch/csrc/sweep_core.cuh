@@ -1,17 +1,18 @@
 // The closest-hit loops of the sphere sweeps.
 //
 // rtw_sweep_closest: one thread sweeps one ray over the whole table. It is
-// the loop of the fused kernels: K10 (sweep.cu), the fused record step K11
-// (persist_record.cu), the megakernel K12 (mega.cu) and the cluster sweep
-// K13 (grid_sweep.cu, through rtw_sweep_one).
+// the loop of the fused record step K11 (persist_record.cu) and of the
+// one-thread reference kernel that the split loop is checked against
+// (sweep.cu, sweep_fetch_one_thread_kernel); the cluster sweep K13
+// (grid_sweep.cu) runs its pair test, rtw_sweep_one.
 //
-// rtw_sweep_part + rtw_merge_closest: the split loop of K1 and K3
-// (sweep.cu). A group of P threads of one warp sweeps one ray, part p
-// taking spheres s == p (mod P), and the parts merge on the lexicographic
-// minimum of (t, idx). rtw_sweep_closest accepts only a strictly smaller t,
-// in increasing index order, so its winner is the least accepted t and,
-// among equal t, the least index: exactly that minimum, whatever the
-// order of the parts. A part that accepts nothing holds (BIG, 0); a NaN t
+// rtw_sweep_part + rtw_merge_closest: the split loop of K1, K3 and K10
+// (sweep.cu) and of the megakernel K12 (mega.cu). A group of P threads of
+// one warp sweeps one ray, part p taking spheres s == p (mod P), and the
+// parts merge on the lexicographic minimum of (t, idx). rtw_sweep_closest
+// accepts only a strictly smaller t, in increasing index order, so its
+// winner is the least accepted t and, among equal t, the least index:
+// exactly that minimum, whatever the order of the parts. A part that accepts nothing holds (BIG, 0); a NaN t
 // is accepted by neither loop. So both loops give (t, idx) bit for bit.
 //
 // The TPU kernel's expanded form of the half-b quadratic for unit
@@ -26,6 +27,8 @@
 // the plain version's order (intersect_kernel.py::sweep_ref).
 
 #pragma once
+
+#include <cuda_runtime.h>
 
 #ifndef RTW_BIG
 #define RTW_BIG 3.0e38f
@@ -125,4 +128,25 @@ __device__ __forceinline__ void rtw_merge_closest(float& t, int& idx, int P) {
       idx = io;
     }
   }
+}
+
+// -- host side of the split sweeps (K1, K3, K10, K12) -----------------------
+
+// The largest power of two <= min(32, n_spheres): every part has a sphere.
+static inline int rtw_parts_cap(int n_spheres) {
+  int p = 1;
+  while (p < 32 && 2 * p <= n_spheres) p *= 2;
+  return p;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory. By default it
+// may take 48 KB less its static shared memory; past that the limit is
+// raised first.
+static inline cudaError_t rtw_reserve_smem(const void* kernel, size_t smem) {
+  cudaFuncAttributes a = {};
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess || smem <= (size_t)a.maxDynamicSharedSizeBytes)
+    return e;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }

@@ -48,8 +48,11 @@ _SIGNATURES = {
     "rtw_shade_strided": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _U, _U, _P],
     # rays[6,R], spheres[N,4], amat[N,10], R, N, tmin, t[R], idx[R],
+    # attrs[10,R], parts, stream
+    "rtw_sweep_fetch": [_P, _P, _P, _I, _I, _F, _P, _P, _P, _I, _P],
+    # rays[6,R], spheres[N,4], amat[N,10], R, N, tmin, t[R], idx[R],
     # attrs[10,R], stream
-    "rtw_sweep_fetch": [_P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
+    "rtw_sweep_fetch_one_thread": [_P, _P, _P, _I, _I, _F, _P, _P, _P, _P],
     # fstate[12,R], istate[3,R], t[R], attrs[10,R], u[R], v[R], cam[21],
     # u9[9,R] or NULL, R, last_sample, max_depth, seed, iteration, stream
     "rtw_shade_pinned": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
@@ -96,6 +99,8 @@ _SIGNATURES = {
     # iteration, stream
     "rtw_mega": [_P, _P, _P, _P, _I, _F, _P, _P, _P, _P, _I, _I, _I, _U, _U,
                  _P],
+    # N, &regs, &blocks_per_sm, &sm_count
+    "rtw_mega_occupancy": [_I, _IP, _IP, _IP],
     # rays[6,R], sph[G+K*P,4], im[G+K*P], bnd[K,4], R, G, K, P, tmin, t[R],
     # idx[R], skips[ceil(R/32)], stream
     "rtw_grid_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],

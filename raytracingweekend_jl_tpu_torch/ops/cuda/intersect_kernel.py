@@ -9,12 +9,16 @@ Counterparts of ``raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py``
 kernels on CUDA tensors and run :func:`sweep_ref`, :func:`sweep_masked_ref`
 and :func:`sweep_fetch_ref` on CPU tensors; nothing else.
 
-K1 and K3 split each ray's sweep over a group of P threads of one warp and
-merge the parts on the lexicographic minimum of ``(t, idx)``, which gives
-the one-thread loop's result bit for bit (``csrc/sweep_core.cuh``). K1
-takes P from the ray count (:func:`sweep_parts`), K3 per block from its
-live lanes. :func:`sweep_split_ref` is the plain mirror of that schedule,
-for the tests and ``chip_smoke.py``; no route runs it.
+K1, K3 and K10 split each ray's sweep over a group of P threads of one
+warp and merge the parts on the lexicographic minimum of ``(t, idx)``,
+which gives the one-thread loop's result bit for bit
+(``csrc/sweep_core.cuh``). K1 and K10 take P from the ray count
+(:func:`sweep_parts`), K3 per block from its live lanes; K10 then reads the
+winner's row of the ``[N, 10]`` table by index. :func:`sweep_split_ref` and
+:func:`sweep_fetch_split_ref` are the plain mirrors of those schedules, and
+:func:`sweep_fetch_one_thread` launches the previous K10 (one thread per
+ray), the independent reference the card checks hold the split kernels
+against; no route runs any of the three.
 
 :func:`intersect_spheres_kernel` and :func:`intersect_fetch_kernel` (the
 reference's ``intersect_spheres_pallas`` and ``intersect_fetch_pallas``)
@@ -45,12 +49,16 @@ masked_launches = 0
 #: Number of K10 launches since the last reset.
 fetch_launches = 0
 
-#: Threads per block of K1 and K3 (``RTW_SWEEP_THREADS`` in csrc/sweep.cu),
-#: and K3's lanes per block.
+#: Threads per block of K1, K3 and K10 (``RTW_SWEEP_THREADS`` in
+#: csrc/sweep.cu), and K3's lanes per block.
 SWEEP_THREADS = 256
 
+#: Threads per block of the one-thread reference kernel.
+ONE_THREAD_THREADS = 128
+
 #: The kernels of :func:`occupancy`.
-OCCUPANCY_KERNELS = {"sweep": 0, "sweep_masked": 1, "sweep_fetch": 2}
+OCCUPANCY_KERNELS = {"sweep": 0, "sweep_masked": 1, "sweep_fetch": 2,
+                     "sweep_fetch_one_thread": 3}
 
 
 def sphere_consts(scene: Scene) -> torch.Tensor:
@@ -187,9 +195,9 @@ _RESIDENT = {}
 
 def occupancy(kernel: str, n_spheres: int, device) -> dict:
     """``{"registers", "blocks_per_sm", "threads_per_block", "sm_count"}``
-    of a sweep kernel (``"sweep"``, ``"sweep_masked"`` or
-    ``"sweep_fetch"``) on ``device``, from the CUDA runtime, at the launch's
-    block size and shared memory for ``n_spheres`` spheres."""
+    of a sweep kernel (a key of :data:`OCCUPANCY_KERNELS`) on ``device``,
+    from the CUDA runtime, at the launch's block size and shared memory for
+    ``n_spheres`` spheres."""
     import ctypes
     out = [ctypes.c_int(0) for _ in range(3)]
     lib = build.load()
@@ -199,15 +207,17 @@ def occupancy(kernel: str, n_spheres: int, device) -> dict:
     build.check(err, "sweep occupancy")
     regs, blocks, sms = (x.value for x in out)
     return {"registers": regs, "blocks_per_sm": blocks,
-            "threads_per_block": 128 if kernel == "sweep_fetch"
-            else SWEEP_THREADS, "sm_count": sms}
+            "threads_per_block": ONE_THREAD_THREADS
+            if kernel == "sweep_fetch_one_thread" else SWEEP_THREADS,
+            "sm_count": sms}
 
 
-def _resident_threads(device, n_spheres: int) -> int:
-    """The threads of K1 that ``device`` holds at once (cached)."""
-    key = (torch.device(device).index, n_spheres)
+def _resident_threads(device, n_spheres: int, kernel: str = "sweep") -> int:
+    """The threads of K1 (or ``kernel``, K10) that ``device`` holds at once
+    (cached)."""
+    key = (torch.device(device).index, n_spheres, kernel)
     if key not in _RESIDENT:
-        o = occupancy("sweep", n_spheres, device)
+        o = occupancy(kernel, n_spheres, device)
         _RESIDENT[key] = o["blocks_per_sm"] * SWEEP_THREADS * o["sm_count"]
     return _RESIDENT[key]
 
@@ -310,41 +320,102 @@ def sweep_fetch_ref(rays: torch.Tensor, spheres: torch.Tensor,
     on a miss (the kernel's raw outputs; the wrappers apply the miss
     defaults)."""
     t, idx = sweep_ref(rays, spheres, tmin)
+    return t, idx, _winner_rows(t, idx, amat)
+
+
+def _winner_rows(t, idx, amat):
     rows = amat.T[:, idx.long()]
-    return t, idx, torch.where(t < BIG, rows, torch.zeros_like(rows))
+    return torch.where(t < BIG, rows, torch.zeros_like(rows))
+
+
+def sweep_fetch_split_ref(rays: torch.Tensor, spheres: torch.Tensor,
+                          amat: torch.Tensor, parts: int,
+                          tmin: float = DEFAULT_TMIN
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain mirror of K10's schedule: :func:`sweep_split_ref` with
+    ``parts`` threads per ray, then the winner's row of ``amat`` read by
+    index, zeros on a miss. Bitwise :func:`sweep_fetch_ref`. For the tests
+    and ``chip_smoke.py``; no route runs it."""
+    t, idx = sweep_split_ref(rays, spheres, parts, tmin)
+    return t, idx, _winner_rows(t, idx, amat)
+
+
+def _check_fetch_args(what, rays, spheres, amat):
+    _check_sweep_args(what, rays, spheres)
+    build.check_arg(f"{what}: amat", amat, torch.float32,
+                    (spheres.shape[0], 10), rays.device)
+
+
+def _fetch_outputs(rays):
+    n_rays, dev = rays.shape[1], rays.device
+    return (torch.empty(n_rays, dtype=torch.float32, device=dev),
+            torch.empty(n_rays, dtype=torch.int32, device=dev),
+            torch.empty((10, n_rays), dtype=torch.float32, device=dev))
 
 
 def sweep_fetch(rays: torch.Tensor, spheres: torch.Tensor, amat: torch.Tensor,
-                tmin: float = DEFAULT_TMIN
+                tmin: float = DEFAULT_TMIN, parts: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K10: :func:`sweep` of ``rays`` [6, R] against ``spheres`` [N, 4] plus
-    the winner's 10 attributes ``[10, R]`` from ``amat`` [N, 10] (zeros on a
-    miss).
+    """K10: :func:`sweep` of ``rays`` [6, R] against ``spheres`` [N, 4],
+    each ray swept by ``parts`` threads (a power of two <= 32; by default
+    :func:`sweep_parts` for this card), plus the winner's 10 attributes
+    ``[10, R]`` read by index from ``amat`` [N, 10] (zeros on a miss). Every
+    P gives the same result.
 
     CPU tensors run :func:`sweep_fetch_ref`. CUDA tensors launch the kernel
     on the current stream; anything the kernel does not take raises."""
     global fetch_launches
+    if parts is not None:
+        _check_parts("sweep_fetch", parts)
     if rays.device.type == "cpu" and spheres.device.type == "cpu" \
             and amat.device.type == "cpu":
         return sweep_fetch_ref(rays, spheres, amat, tmin)
-    _check_sweep_args("sweep_fetch", rays, spheres)
+    _check_fetch_args("sweep_fetch", rays, spheres, amat)
     n_rays, n_sph = rays.shape[1], spheres.shape[0]
-    build.check_arg("sweep_fetch: amat", amat, torch.float32, (n_sph, 10),
-                    rays.device)
-    if n_sph * 56 > 227 * 1024:
-        raise ValueError(f"sweep_fetch: {n_sph} spheres exceed the kernel's "
-                         f"shared-memory tables (max {227 * 1024 // 56})")
-    t = torch.empty(n_rays, dtype=torch.float32, device=rays.device)
-    idx = torch.empty(n_rays, dtype=torch.int32, device=rays.device)
-    attrs = torch.empty((10, n_rays), dtype=torch.float32, device=rays.device)
+    if parts is None:
+        parts = sweep_parts(n_rays, n_sph, _resident_threads(
+            rays.device, n_sph, "sweep_fetch"))
+    t, idx, attrs = _fetch_outputs(rays)
     lib = build.load()
     with torch.cuda.device(rays.device):
         err = lib.rtw_sweep_fetch(
             rays.data_ptr(), spheres.data_ptr(), amat.data_ptr(), n_rays,
             n_sph, float(tmin), t.data_ptr(), idx.data_ptr(), attrs.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            parts, torch.cuda.current_stream().cuda_stream)
     build.check(err, "sweep_fetch")
     fetch_launches += 1
+    return t, idx, attrs
+
+
+def sweep_fetch_one_thread(rays: torch.Tensor, spheres: torch.Tensor,
+                           amat: torch.Tensor, tmin: float = DEFAULT_TMIN
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The previous K10 (``sweep_fetch_one_thread_kernel``): one thread per
+    ray through the one-thread loop, both tables staged in shared memory.
+    The independent reference that the card checks hold K1, K3, K10 and
+    K12's sweep against bit for bit; no route runs it, and its launches are
+    not counted.
+
+    CPU tensors run :func:`sweep_fetch_ref`. CUDA tensors launch the kernel
+    on the current stream; anything the kernel does not take raises."""
+    if rays.device.type == "cpu" and spheres.device.type == "cpu" \
+            and amat.device.type == "cpu":
+        return sweep_fetch_ref(rays, spheres, amat, tmin)
+    _check_fetch_args("sweep_fetch_one_thread", rays, spheres, amat)
+    n_rays, n_sph = rays.shape[1], spheres.shape[0]
+    if n_sph * 56 > 227 * 1024:
+        raise ValueError(f"sweep_fetch_one_thread: {n_sph} spheres exceed "
+                         f"the kernel's shared-memory tables (max "
+                         f"{227 * 1024 // 56})")
+    t, idx, attrs = _fetch_outputs(rays)
+    lib = build.load()
+    with torch.cuda.device(rays.device):
+        err = lib.rtw_sweep_fetch_one_thread(
+            rays.data_ptr(), spheres.data_ptr(), amat.data_ptr(), n_rays,
+            n_sph, float(tmin), t.data_ptr(), idx.data_ptr(), attrs.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "sweep_fetch_one_thread")
     return t, idx, attrs
 
 

@@ -15,7 +15,8 @@ The script builds ``raytracingweekend_jl_tpu_torch/csrc/sweep.cu`` each way
 registers and spills. On the flagship gradient step's record states at
 iterations 20 (about 62% of the lanes live) and 40 (about 5%), from
 ``chip_smoke.grad_kernel_phases``, it holds every run bit for bit against
-K10 (the one-thread loop) and times it with CUDA events: each variant at P
+the one-thread kernel (``sweep_fetch_one_thread``, the previous K10) and
+times it with CUDA events: each variant at P
 chosen per block, ``shipped`` also at fixed P = 1, 2, 4, 8 and 16, and
 ``unbounded`` at P = 1 and 16, in the order a, b, ..., b, a, twice. One
 JSON object per line; a failed check raises.
@@ -145,7 +146,7 @@ def main() -> int:
     for it, (r, a) in snap["k3_states"].items():
         r = r.contiguous()
         live = a != 0
-        t10, i10, _ = K.sweep_fetch(r, spheres, amat)
+        t10, i10, _ = K.sweep_fetch_one_thread(r, spheres, amat)
         t10 = torch.where(live, t10, torch.full_like(t10, K.BIG))
         i10 = torch.where(live, i10, torch.zeros_like(i10))
         for name, parts in RUNS:
@@ -154,7 +155,8 @@ def main() -> int:
             n_diff = int(C._bitwise_lanes([(t, t10), (i, i10)],
                                           r.shape[1]).sum())
             C.check(n_diff == 0, f"{name} P={parts} iteration {it}: "
-                                 f"{n_diff} lanes differ from K10")
+                                 f"{n_diff} lanes differ from the "
+                                 "one-thread kernel")
         ms = {}
         for _ in range(2):
             for name, parts in RUNS + RUNS[::-1]:

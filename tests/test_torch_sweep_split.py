@@ -9,7 +9,8 @@ on the lexicographic minimum of (t, idx).
 - ``sweep_split_ref`` against the JAX package's sweep in interpret mode.
 - K1's choice of P (``sweep_parts``) and the wrappers' argument checks.
 - Card-only: the kernels with each P forced, bitwise against the plain
-  version's winners and against K10, which keeps the one-thread loop.
+  version's winners and against the kept one-thread kernel
+  (``sweep_fetch_one_thread``, the previous K10).
 """
 
 import numpy as np
@@ -244,13 +245,13 @@ def test_wrappers_check_parts_and_run_plain_on_cpu():
 @pytest.mark.parametrize("parts", PARTS)
 def test_split_kernels_match_plain_and_k10_on_card(cuda_device, parts):
     # K1 with P forced: idx identical to sweep_ref's, t and idx bitwise
-    # K10's (the one-thread loop). K3 with P forced: bitwise K10 on the
-    # live lanes, (BIG, 0) on the dead ones.
+    # the one-thread kernel's. K3 with P forced: bitwise the one-thread
+    # kernel on the live lanes, (BIG, 0) on the dead ones.
     sc, _ = _flagship()
     sc = sc.to(cuda_device)
     sph, amat = K.sphere_consts(sc), attr_mat(sc)
     rays = _camera_and_scattered(n=1 << 14).to(cuda_device)
-    t10, i10, _ = K.sweep_fetch(rays, sph, amat)
+    t10, i10, _ = K.sweep_fetch_one_thread(rays, sph, amat)
     got = K.sweep(rays, sph, parts=parts)
     torch.cuda.synchronize()
     _assert_bitwise(got, (t10, i10))
