@@ -50,7 +50,16 @@ one-thread kernel on four ray sets at every split, K12 against K1, the
 gather and K9 at four iterations of the flagship film, and times the
 previous and the shipped designs in turns and per render
 (``scripts/torch_k10_k12_variants.py``, which alone also builds and
-times the designs they were chosen over). It
+times the designs they were chosen over). ``remat_passes_step`` takes
+the flagship step at spp 4 with a 2 GiB record budget, which recomputes
+each pass in the backward, bit for bit the same chunks with every record
+kept, beside their peak memory. K7c stages a lane's next live slots'
+forward halves on two threads (the one-thread walk where the lanes fill
+the card) and K11 sweeps each block's packed live lanes with the split
+loop: ``k7c_k11_variants`` and ``k7c_k11_redesign`` hold them bit for bit
+against K7b's walk, K3 + K4 and their plain versions, time them beside
+the previous kernels (``scripts/torch_k7c_k11_variants.py``) and rerun
+the fit with the previous K7c, its losses bit for bit. It
 times the kernels, the renders,
 the steps and the fit against the plain path. Each phase prints one JSON
 line; a failed check raises and the script exits non-zero without printing
@@ -1275,7 +1284,7 @@ def fit_slice_phases(dev, card, W: int = 200, H: int = 112, SPP: int = 8,
     inputs = dict(R=R, st2=st2, t2=t2, idx2=idx2, amat=amat, rec=rec, g3=g3,
                   cot2=cot2, seed32=seed32, sc0=sc0, o8=o8, d8=d8,
                   seed8=seed8, scene0=scene0, cam=cam, target=target, W=W,
-                  H=H, SPP=SPP, pair_ms=dev_ms)
+                  H=H, SPP=SPP, pair_ms=dev_ms, losses=losses)
     return out, dev_ms, call, inputs
 
 
@@ -1798,6 +1807,22 @@ def _k13_vs_k1(o, d, center, radius, t13, i13, t1, i1, start=None,
             "t_max_gap_over_rounding_bound": gap[same].max().item()}
 
 
+def fused_record_bound(lanes: int, n_live: int, n_miss: int, n_regen: int,
+                       n_sph: int) -> dict:
+    """K11's bound for one iteration: every lane's flag in and winner out;
+    a dead lane a zero slot; a live lane 9 + 2 state words in (its ray read
+    once), the 21-word slot and 9 + 3 state words out; a miss banks 3
+    words, a regeneration reads 6 strip words; the two tables once. Live
+    lanes: the sweep, the shade and the advance."""
+    from raytracingweekend_jl_tpu_torch.ops.cuda import persist_grad_kernel as PK
+    return bound(
+        lanes * (4 + 4) + (lanes - n_live) * PK.N_REC * 4
+        + n_live * ((9 + 2) + (PK.N_REC + 9 + 3)) * 4 + n_miss * 3 * 4
+        + n_regen * 6 * 4 + n_sph * (16 + 40),
+        n_live * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS * n_sph + SHADE_OPS
+                  + ADVANCE_OPS))
+
+
 def last_kernel_phases(dev, card, snap, W: int = 1920, H: int = 1080,
                        SPP: int = 4) -> list:
     """The last three TPU kernels and their paths. K11 (the fused record
@@ -1896,17 +1921,7 @@ def last_kernel_phases(dev, card, snap, W: int = 1920, H: int = 1080,
     n_live = int(alive.sum())
     miss11 = int((alive & ~hit).sum())
     regen11 = int(((fl & PK.F_REGEN) != 0).sum())
-    # every lane: its flag in, its winner out; a dead lane: a zero slot; a
-    # live lane: 9 + 2 state words in (its ray read once), the 21-word slot
-    # and 9 + 3 state words out; a miss banks 3 words, a regeneration reads
-    # 6 strip words; the two tables once. Live lanes: the sweep, the shade
-    # and the advance.
-    k11_bound = bound(
-        lanes * (4 + 4) + (lanes - n_live) * PK.N_REC * 4
-        + n_live * ((9 + 2) + (PK.N_REC + 9 + 3)) * 4 + miss11 * 3 * 4
-        + regen11 * 6 * 4 + n_sph * (16 + 40),
-        n_live * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS * n_sph + SHADE_OPS
-                  + ADVANCE_OPS))
+    k11_bound = fused_record_bound(lanes, n_live, miss11, regen11, n_sph)
     emit({"phase": "k11", "card": card, "lanes": lanes, "strips": 8,
           "iteration": IT, "live_lanes": n_live,
           "lanes_outside_injected_u5": bad11_inj,
@@ -2819,6 +2834,247 @@ def k10_k12_redesign_phases(dev, card, rays, rays_f) -> dict:
             "mega": {"ms": k12["iteration24"]["batch"]["event_ms"]}}
 
 
+def remat_passes_phases(dev, card, W: int = 1920, SPP: int = 4) -> None:
+    """The flagship gradient step at spp 4 through the public
+    ``render_grads`` with ``RECORD_HBM_BUDGET`` at 2 GiB: below the four
+    passes' records, even lean, so the plan sets ``remat_passes=True``
+    (each pass's record rebuilt in the backward), and it chunks the image
+    to fit one pass's record. Beside it, the same chunks with the card's
+    default budget (every pass's record kept: the same function, so the
+    loss and the five gradient fields bit for bit equal), and the default
+    step (one chunk). The plans the entry point made, each step's peak
+    device memory above what was allocated before it and its time, the
+    three in turns (twice)."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch import grad as G
+    from raytracingweekend_jl_tpu_torch.ops.persist_grad import (
+        persist_record_bytes)
+
+    H = W * 9 // 16
+    scene, cam = pt.scene_random_spheres(seed=1), pt.t_cam1()
+    target = pt.render_radiance(scene, cam, W, 1, seed=123, device=dev,
+                                persistent=True)
+    bad = scene._replace(albedo=torch.clamp(scene.albedo * 0.8, 0, 1))
+    saved, real = G.RECORD_HBM_BUDGET, G.render_radiance
+    plans, seen = {}, {}
+
+    def spy(*a, **kw):  # the flags render_loss hands the render
+        seen.update(kw)
+        return real(*a, **kw)
+
+    def step(name, budget, **kw):
+        G.RECORD_HBM_BUDGET = budget
+        seen.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = pt.render_grads(bad, cam, target, W, SPP, device=dev,
+                                      **kw)
+        torch.cuda.synchronize()
+        run = {"seconds": time.perf_counter() - t0,
+               "peak_bytes_above_start":
+                   torch.cuda.max_memory_allocated() - before}
+        plans[name] = {"budget_bytes": G.record_hbm_budget(dev),
+                       **{k: seen.get(k) for k in (
+                           "pixel_chunk", "remat_passes",
+                           "recorded_persist")}}
+        return run, (loss, *grads)
+
+    runs = {"forced_2gib": [], "kept_same_chunks": [], "default": []}
+    outs = {}
+    G.render_radiance = spy
+    try:
+        for _ in range(2):
+            r, outs["forced_2gib"] = step("forced_2gib", 2 << 30)
+            runs["forced_2gib"].append(r)
+            chunk = plans["forced_2gib"]["pixel_chunk"]
+            r, outs["kept_same_chunks"] = step("kept_same_chunks", None,
+                                               pixel_chunk=chunk)
+            runs["kept_same_chunks"].append(r)
+            r, outs["default"] = step("default", None)
+            runs["default"].append(r)
+    finally:
+        G.RECORD_HBM_BUDGET, G.render_radiance = saved, real
+    same = all(torch.equal(_bits(a), _bits(b)) for a, b in
+               zip(outs["forced_2gib"], outs["kept_same_chunks"]))
+    chunk = plans["forced_2gib"]["pixel_chunk"] or W * H
+    emit({"phase": "remat_passes_step", "card": card, "size": [W, H],
+          "spp": SPP, "plans": plans, "runs": runs,
+          "record_bytes_per_pass_and_chunk": persist_record_bytes(
+              chunk, 8, None, (44, 16), 16, True),
+          "loss": {k: float(v[0]) for k, v in outs.items()},
+          "bitwise_equal_to_kept": same,
+          "tolerance": "the 2 GiB budget plans remat_passes=True, the "
+                       "default budget does not; the loss and every "
+                       "gradient field bit for bit those of the same "
+                       "chunks with every pass's record kept; the "
+                       "recomputing step's peak memory below theirs"})
+    check(plans["forced_2gib"]["remat_passes"]
+          and not plans["kept_same_chunks"]["remat_passes"]
+          and not plans["default"]["remat_passes"],
+          f"remat_passes plans {plans}")
+    check(same, "the step with recomputed passes differs from the step "
+                "that keeps every pass's record")
+    check(all(bool(torch.isfinite(v[0])) for v in outs.values()),
+          "non-finite loss")
+    check(runs["forced_2gib"][-1]["peak_bytes_above_start"]
+          < runs["kept_same_chunks"][-1]["peak_bytes_above_start"],
+          f"recomputed passes took no less memory: {runs}")
+
+
+def k7c_k11_redesign_phases(dev, card, fit_losses) -> dict:
+    """K7c (groups of G threads per lane stage a lane's next G live slots'
+    forward halves at once, lanes ordered by depth; the one-thread walk
+    where the lanes fill the card) and K11 (K3's compaction and split
+    sweep, the winner's row by index, K4's step on the packed lanes),
+    beside the kernels they replaced. One pass of
+    ``scripts/torch_k7c_k11_variants.py`` over the previous and the
+    shipped builds: every build bit for bit (K7c against K7b's walk at the
+    fit's walk and at 131 071 lanes, at every G, injected and Philox; K11
+    against K3 + K4 at iterations 0, 20, 44 and 70 of the flagship fused
+    step), timed in turns by :func:`batch_ms` with registers and resident
+    blocks, and K11's device time per fused step by the profiler. Then
+    through the wrappers: K7c (the wrapper's G) and K11 bit for bit their
+    plain versions at those shapes, injected and Philox, and timed; the
+    120-step fit with the previous K7c routed in, its losses bit for bit
+    the shipped fit's (``fit_losses``). Returns K11's row of the
+    ``kernels`` line at iteration 20 of the fused step."""
+    import os
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops.cuda import grad_kernel as GK
+    from raytracingweekend_jl_tpu_torch.ops.cuda import persist_grad_kernel as PK
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import torch_k7c_k11_variants as V
+
+    libs = {}
+    out = V.run_pass_set(dev, 1, k7c_builds=("shipped", "previous"),
+                         k11_builds=("shipped", "previous"), libs=libs)
+    emit({"phase": "k7c_k11_variants", "card": card, **out,
+          "note": "one pass; event_ms: one CUDA event pair around n "
+                  "launches, each on its own copy of the state; "
+                  "profiler_ms: the kernel's per-launch mean from a second "
+                  "such run (k3_k4: the sweep, the record step and the "
+                  "miss planes' zeroing summed); fused_step: the flagship "
+                  "step with fused_step=True, K11's device time per step "
+                  "by the profiler"})
+
+    # -- through the wrappers: K7c and K11 against their plain versions ----
+    g = torch.Generator(device=dev).manual_seed(23)
+    states7, st11 = V.k7c_states(dev), V.k11_states(dev)
+    k7c = {}
+    for shape, (rec, g3, seed) in states7.items():
+        K, _, R = rec.shape
+        group = GK.replay_group(R, GK._resident_threads(dev))
+        row = {"lanes": R, "group": group}
+        for draws, u5 in (("injected", torch.rand((K, 5, R), generator=g,
+                                                  device=dev)),
+                          ("philox", None)):
+            cot0 = torch.randn((9, R), generator=g, device=dev)
+            ck, cp = cot0.clone(), cot0.clone()
+            dk = GK.replay_bwd_fused(rec, g3, ck, seed, u5)
+            torch.cuda.synchronize()
+            dp = GK.replay_bwd_fused_ref(rec, g3, cp, seed, u5)
+            row[f"lanes_differing_{draws}"] = int(_bitwise_lanes(
+                [(dk, dp), (ck, cp)], R).sum())
+            row[f"max_abs_err_{draws}"] = max(
+                (dk - dp).abs().max().item(), (ck - cp).abs().max().item())
+        row["batch"] = batch_ms(
+            lambda c: GK.replay_bwd_fused(rec, g3, c, seed),
+            lambda: (torch.zeros((9, R), device=dev),), 20,
+            r"\breplay_bwd_fused_(one_thread_)?kernel\b")
+        k7c[shape] = row
+    k11, k11_row = {}, None
+    amat, spheres, strips = st11["amat"], st11["spheres"], st11["strips"]
+    n_sph = spheres.shape[0]
+    for it, (sf, si, rad, live) in st11["at"].items():
+        W = sf.shape[1]
+        row = {"live_lanes": live}
+
+        def run(step, u5=None, it=it, sf=sf, si=si, rad=rad):
+            o = V.k11_outputs(sf, si, rad)
+            step(strips, *o, spheres, amat, V.SEED11, it, V.DEPTH, V.TMIN,
+                 u5)
+            torch.cuda.synchronize()
+            return o
+
+        for draws, u5 in (("injected", torch.rand((5, W), generator=g,
+                                                  device=dev)),
+                          ("philox", None)):
+            a = run(PK.persist_record_fused_step, u5)
+            b = run(PK.persist_record_fused_step_ref, u5)
+            row[f"lanes_differing_{draws}"] = int(_bitwise_lanes(
+                list(zip(a, b)), W).sum())
+            row[f"max_abs_err_{draws}"] = max(
+                (x.float() - y.float()).abs().max().item()
+                for x, y in zip(a, b))
+        row["batch"] = batch_ms(
+            lambda *o, it=it: PK.persist_record_fused_step(
+                strips, *o, spheres, amat, V.SEED11, it, V.DEPTH, V.TMIN),
+            lambda sf=sf, si=si, rad=rad: V.k11_outputs(sf, si, rad), 20,
+            V.K11_RE)
+        if it == 20:
+            o = run(PK.persist_record_fused_step)
+            fl = PK.flags_of(o[3])
+            n_miss = int(((fl & PK.F_ACT) != 0).sum()
+                         - ((fl & PK.F_HIT) != 0).sum())
+            n_regen = int(((fl & PK.F_REGEN) != 0).sum())
+            live_now = [x.clone() for x in (sf, si, rad)]
+
+            def reset(live_now=live_now, sf=sf, si=si, rad=rad):
+                for x, y in zip(live_now, (sf, si, rad)):
+                    x.copy_(y)
+
+            slot = torch.empty((PK.N_REC, W), device=dev)
+            idx = torch.empty(W, dtype=torch.int32, device=dev)
+            plain_ms = device_ms(lambda: PK.persist_record_fused_step_ref(
+                strips, *live_now, slot, idx, spheres, amat, V.SEED11, it,
+                V.DEPTH, V.TMIN), 3, setup=reset, sleep_cycles=3_000_000_000)
+            k11_row = {"ms": row["batch"]["event_ms"], "plain_ms": plain_ms,
+                       "max_abs_err": max(row["max_abs_err_injected"],
+                                          row["max_abs_err_philox"]),
+                       "bound": fused_record_bound(W, live, n_miss, n_regen,
+                                                   n_sph)}
+            row["bound"] = k11_row["bound"]
+            row["plain_ms"] = plain_ms
+        k11[f"iteration{it}"] = row
+        torch.cuda.empty_cache()
+
+    # -- the fit's losses with the previous K7c routed in ----------------
+    scene_true, scene0, cam, _, _ = inverse_demo()
+    target = pt.render_radiance(scene_true, cam, 200, 8, image_height=112,
+                                seed=0, persistent=False, recorded_fused=True)
+    with V.patched("rtw_replay_bwd_fused", libs["k7c"]["previous"]):
+        prev_losses = pt.fit_scene(scene0, cam, target, 200, 8,
+                                   steps=len(fit_losses)).losses
+    same_fit = list(prev_losses) == list(fit_losses)
+    occ = {"k7c": {f"g{G}": GK.replay_bwd_fused_occupancy(G, dev)
+                   for G in GK.REPLAY_GROUPS},
+           "k11": PK.persist_record_fused_occupancy(n_sph, dev)}
+    emit({"phase": "k7c_k11_redesign", "card": card, "k7c": k7c,
+          "k11": k11, "occupancy": occ,
+          "k11_device_ms_per_fused_step": {
+              b: r["k11_device_ms"] for b, r in out["fused_step"].items()},
+          "fit_steps": len(fit_losses),
+          "fit_losses_previous_k7c_bitwise": same_fit,
+          "tolerance": "K7c (the wrapper's G) and K11 bit for bit their "
+                       "plain versions on every word, injected and Philox; "
+                       "the fit's losses with the previous K7c bit for bit "
+                       "the shipped fit's"})
+    check(all(r[f"lanes_differing_{d}"] == 0 for r in k7c.values()
+              for d in ("injected", "philox")),
+          f"K7c differs from its plain version: {k7c}")
+    check(all(r[f"lanes_differing_{d}"] == 0 for r in k11.values()
+              for d in ("injected", "philox")),
+          f"K11 differs from its plain version: {k11}")
+    check(same_fit, "the fit's losses differ with the previous K7c")
+    return {"persist_record_fused": k11_row}
+
+
 def k1_phase_rays(dev, cam, spheres, g=None):
     """The K1 phase's 2^20 rays [6, 2^20] of the flagship: 2^19 camera rays
     (film points and lens samples from ``g``, by default a generator seeded
@@ -3126,6 +3382,7 @@ def main() -> int:
 
     # -- 17. K7a and K8 beside their previous forms; the fit step profiled
     fit_batch = fit_redesign_phases(dev, card, fit_in)
+    fit_losses = fit_in["losses"]
     del fit_in
     for row in fit_rows:
         row["ms"] = fit_batch[row["name"]]
@@ -3141,6 +3398,19 @@ def main() -> int:
                            max_abs_err=r["max_abs_err"],
                            bound_ms=r["bound"]["bound_ms"],
                            bound_by=r["bound"]["bound_by"])
+
+    # -- 19. the flagship step with recomputed passes -----------------------
+    remat_passes_phases(dev, card)
+
+    # -- 20. K7c and K11 beside their previous forms ------------------------
+    redesign = k7c_k11_redesign_phases(dev, card, fit_losses)
+    for row in last_rows:
+        r = redesign.get(row["name"])
+        if r is not None:
+            row.update(ms=r["ms"], plain_ms=r["plain_ms"],
+                       max_abs_err=r["max_abs_err"],
+                       bound_ms=r["bound"]["bound_ms"],
+                       bound_by=r["bound"]["bound_by"])
 
     # -- the kernels line: every ported kernel, with its bound -------------
     n_rays, n_sph = rays_f.shape[1], spheres.shape[0]

@@ -39,7 +39,7 @@ from .render import (render, render_radiance, render_tile_sum,
                      image_height_for, pixel_coords)
 from .grad import (render_loss, render_grads, SceneGrads, check_grads_sane,
                    GradSanityError, sgd_inverse_render_step, twin_ad_canary,
-                   DIFF_FIELDS)
+                   resolve_grad_path, DIFF_FIELDS)
 from .optimize import FitResult, fit_scene, movable_mask
 from .ops.persist_grad import trace_recorded_persist, persist_dropped_paths
 from .ops.fused_grad import trace_recorded_fused
@@ -51,10 +51,11 @@ from .ops.integrator import (trace, trace_compacted, trace_occupancy,
                              DEFAULT_MAX_DEPTH)
 from .ops.materials import ScatterResult, scatter
 from .ops.intersect import intersect_spheres, HitResult, DEFAULT_TMIN
-from .ops.vecmath import (dot, squared_length, normalize, reflect, refract,
-                          reflectance, gamma2_encode, NEAR_ZERO_EPS)
+from .ops.vecmath import (dot, squared_length, near_zero, normalize, reflect,
+                          refract, reflectance, gamma2_encode,
+                          color_vec3_in_rgb, NEAR_ZERO_EPS)
 from .ops.sampling import (unit_sphere_directions, unit_disk_points,
-                           concentric_disk_map)
+                           concentric_disk_map, uniform_between)
 from .models.scenes import (scene_2_spheres, scene_4_spheres,
                             scene_diel_spheres, scene_diel_spheres_hollow,
                             scene_blue_red_spheres, scene_random_spheres,

@@ -1,5 +1,5 @@
 // The hand-written adjoint of one recorded bounce, shared by the replay
-// kernels K5 and K6 (persist_replay.cu).
+// kernels K5 and K6 (persist_replay.cu) and K7b and K7c (replay_bwd.cu).
 //
 // Replaces raytracingweekend_jl_tpu/ops/pallas/grad_kernel.py ::
 // _bounce_adjoint, the value-level adjoint every TPU replay kernel calls. The
@@ -16,29 +16,38 @@
 // winner (dt/do = -p/(p.d), dt/dd = -t p/(p.d), dt/dc = p/(p.d),
 // dt/dr = r/(p.d) with p = o + t d - c). Discrete events (winner, material,
 // Schlick coin, front face) are constants.
+//
+// It comes in two halves: rtw_adjoint_forward recomputes the intermediates
+// (no carry needed), rtw_adjoint_reverse transposes with the carry.
+// rtw_bounce_adjoint runs the two in turn; K7c's staged walk runs the
+// forward halves of a lane's next slots on other threads. Either way the
+// same operations are evaluated, so the bits are the same.
 
 #pragma once
 
 #include "shade_core.cuh"
 
+// The bounce's forward intermediates that its adjoint reads: the shade
+// core's math recomputed from the record and the uniforms. They do not
+// depend on the carried cotangent, so a walk can compute the next slot's
+// while it transposes this one.
+struct RtwAdjFwd {
+  float ts, px, py, pz, inv_r, nox, noy, noz, sgn, nx, ny, nz, ux, uy, uz;
+  float lno, lamx, lamy, lamz, dn, mno, metx, mety, metz;
+  float safe_ir, eta, ct, rpx, rpy, rpz, S, par, fno, frx, fry, frz;
+  bool front, degen, choose_ref, is_lam, is_met, is_diel;
+};
+
 // u: 5 uniforms. r: the record's o3 d3 T3 t. a: the winner's 10 attributes.
-// g: the radiance cotangent of the lane's strip. cot: the carried cotangent
-// of this bounce's outputs, replaced by that of its inputs. hitm: the state
-// advanced (hit and continued); missm: the bounce banked T * sky(d).
-// dattr: cotangent rows for center xyz, radius, albedo rgb, fuzz, ir.
-__device__ __forceinline__ void rtw_bounce_adjoint(
-    const float* u, const float* r, const float* a, const float* g,
-    float* cot, bool hitm, bool missm, float* dattr) {
+// hitm: the state advanced (hit and continued).
+__device__ __forceinline__ RtwAdjFwd rtw_adjoint_forward(const float* u,
+                                                         const float* r,
+                                                         const float* a,
+                                                         bool hitm) {
   const float ox = r[0], oy = r[1], oz = r[2], dx = r[3], dy = r[4],
-              dz = r[5], Tx = r[6], Ty = r[7], Tz = r[8], t = r[9];
-  const float acx = a[0], acy = a[1], acz = a[2], arr = a[3], aar = a[4],
-              aag = a[5], aab = a[6], afz = a[7], air = a[8], amt = a[9];
-  const float grx = g[0], gry = g[1], grz = g[2];
-  const float gox_ = cot[0], goy_ = cot[1], goz_ = cot[2], gdx_ = cot[3],
-              gdy_ = cot[4], gdz_ = cot[5], gTx_ = cot[6], gTy_ = cot[7],
-              gTz_ = cot[8];
-  const float hf = hitm ? 1.0f : 0.0f;
-  const float mf = missm ? 1.0f : 0.0f;
+              dz = r[5], t = r[9];
+  const float acx = a[0], acy = a[1], acz = a[2], arr = a[3], afz = a[7],
+              air = a[8], amt = a[9];
 
   // ---- recompute forward intermediates (mirror of the shade core) ----
   const float ts = hitm ? t : 1.0f;
@@ -92,6 +101,114 @@ __device__ __forceinline__ void rtw_bounce_adjoint(
   const float frx = fx * fno, fry = fy * fno, frz = fz_ * fno;
   const bool is_lam = amt == 0.0f, is_met = amt == 1.0f;
   const bool is_diel = !is_lam && !is_met;
+
+  RtwAdjFwd f;
+  f.ts = ts;
+  f.px = px;
+  f.py = py;
+  f.pz = pz;
+  f.inv_r = inv_r;
+  f.nox = nox;
+  f.noy = noy;
+  f.noz = noz;
+  f.sgn = sgn;
+  f.nx = nx;
+  f.ny = ny;
+  f.nz = nz;
+  f.ux = ux;
+  f.uy = uy;
+  f.uz = uz;
+  f.lno = lno;
+  f.lamx = lamx;
+  f.lamy = lamy;
+  f.lamz = lamz;
+  f.dn = dn;
+  f.mno = mno;
+  f.metx = metx;
+  f.mety = mety;
+  f.metz = metz;
+  f.safe_ir = safe_ir;
+  f.eta = eta;
+  f.ct = ct;
+  f.rpx = rpx;
+  f.rpy = rpy;
+  f.rpz = rpz;
+  f.S = S;
+  f.par = par;
+  f.fno = fno;
+  f.frx = frx;
+  f.fry = fry;
+  f.frz = frz;
+  f.front = front;
+  f.degen = degen;
+  f.choose_ref = choose_ref;
+  f.is_lam = is_lam;
+  f.is_met = is_met;
+  f.is_diel = is_diel;
+  return f;
+}
+
+// The adjoint of one recorded bounce given its forward intermediates f
+// (rtw_adjoint_forward of the same u, r, a and hitm). r, a: as there. g: the
+// radiance cotangent of the lane's strip. cot: the carried cotangent of this
+// bounce's outputs, replaced by that of its inputs. hitm: the state advanced
+// (hit and continued); missm: the bounce banked T * sky(d). dattr:
+// cotangent rows for center xyz, radius, albedo rgb, fuzz, ir.
+__device__ __forceinline__ void rtw_adjoint_reverse(
+    const RtwAdjFwd& f, const float* r, const float* a, const float* g,
+    float* cot, bool hitm, bool missm, float* dattr) {
+  const float dx = r[3], dy = r[4], dz = r[5], Tx = r[6], Ty = r[7],
+              Tz = r[8];
+  const float acx = a[0], acy = a[1], acz = a[2], arr = a[3], aar = a[4],
+              aag = a[5], aab = a[6];
+  const float grx = g[0], gry = g[1], grz = g[2];
+  const float gox_ = cot[0], goy_ = cot[1], goz_ = cot[2], gdx_ = cot[3],
+              gdy_ = cot[4], gdz_ = cot[5], gTx_ = cot[6], gTy_ = cot[7],
+              gTz_ = cot[8];
+  const float hf = hitm ? 1.0f : 0.0f;
+  const float mf = missm ? 1.0f : 0.0f;
+  const float ts = f.ts;
+  const float px = f.px;
+  const float py = f.py;
+  const float pz = f.pz;
+  const float inv_r = f.inv_r;
+  const float nox = f.nox;
+  const float noy = f.noy;
+  const float noz = f.noz;
+  const float sgn = f.sgn;
+  const float nx = f.nx;
+  const float ny = f.ny;
+  const float nz = f.nz;
+  const float ux = f.ux;
+  const float uy = f.uy;
+  const float uz = f.uz;
+  const float lno = f.lno;
+  const float lamx = f.lamx;
+  const float lamy = f.lamy;
+  const float lamz = f.lamz;
+  const float dn = f.dn;
+  const float mno = f.mno;
+  const float metx = f.metx;
+  const float mety = f.mety;
+  const float metz = f.metz;
+  const float safe_ir = f.safe_ir;
+  const float eta = f.eta;
+  const float ct = f.ct;
+  const float rpx = f.rpx;
+  const float rpy = f.rpy;
+  const float rpz = f.rpz;
+  const float S = f.S;
+  const float par = f.par;
+  const float fno = f.fno;
+  const float frx = f.frx;
+  const float fry = f.fry;
+  const float frz = f.frz;
+  const bool front = f.front;
+  const bool degen = f.degen;
+  const bool choose_ref = f.choose_ref;
+  const bool is_lam = f.is_lam;
+  const bool is_met = f.is_met;
+  const bool is_diel = f.is_diel;
 
   // ---- adjoint ----
   const float nhf = 1.0f - hf;
@@ -234,4 +351,16 @@ __device__ __forceinline__ void rtw_bounce_adjoint(
   dattr[0] = gc_x; dattr[1] = gc_y; dattr[2] = gc_z; dattr[3] = gr;
   dattr[4] = gA_r; dattr[5] = gA_g; dattr[6] = gA_b; dattr[7] = gfz;
   dattr[8] = gir;
+}
+
+// u: 5 uniforms. r: the record's o3 d3 T3 t. a: the winner's 10 attributes.
+// g: the radiance cotangent of the lane's strip. cot: the carried cotangent
+// of this bounce's outputs, replaced by that of its inputs. hitm: the state
+// advanced (hit and continued); missm: the bounce banked T * sky(d).
+// dattr: cotangent rows for center xyz, radius, albedo rgb, fuzz, ir.
+__device__ __forceinline__ void rtw_bounce_adjoint(
+    const float* u, const float* r, const float* a, const float* g,
+    float* cot, bool hitm, bool missm, float* dattr) {
+  rtw_adjoint_reverse(rtw_adjoint_forward(u, r, a, hitm), r, a, g, cot, hitm,
+                      missm, dattr);
 }

@@ -211,68 +211,128 @@ extern "C" int rtw_persist_record(const float* t, const int* idx,
 // persist_record_fused_step_ref.
 //
 // What it computes, per lane: a dead lane writes a zero record and winner 0
-// and changes nothing (K3 + K4's dead lanes). A live lane runs K1's loop
-// (sweep_core.cuh, so t and idx are K3's bit for bit), takes its winner's
-// attributes from the table in shared memory (zeros on a miss, where K4
-// of the two-launch iteration reads sphere 0's row: every use of the
-// attributes in the shade and in the replay is gated on the hit, so the
+// and changes nothing (K3 + K4's dead lanes). A live lane takes K3's closest
+// hit (t and idx bit for bit), its winner's attributes (zeros on a miss,
+// where K4 of the two-launch iteration reads sphere 0's row: every use of
+// the attributes in the shade and in the replay is gated on the hit, so the
 // record differs only in those ten miss-lane planes), then K4's record
 // state machine (rtw_record_advance) with K4's draws.
 //
 // What bounds it on the card: arithmetic, as K3: ~20 flops per live lane
 // and sphere against ~250 bytes of state and record per live lane; at the
-// flagship step's 262 144 lanes and 488 spheres the sweep dominates.
+// flagship step's 262 144 lanes and 488 spheres the sweep dominates. The
+// live share falls from every lane at iteration 0 to a tail of nearly dead
+// blocks, and fused_step=True runs every iteration at the full width.
 //
-// Design: K3's block-level skip (a block whose lanes are all dead stages no
-// table), K10's post-loop read of the winner's row from shared memory in
-// place of the TPU kernel's ten running selects per sphere, and K4's
-// device function. The TPU kernel tied its block rows to the replay's
-// because its hardware PRNG was seeded per block; Philox keyed by (seed,
-// iteration) with the lane as the counter draws the same numbers at any
-// block size, so the block size here is free (128).
-__global__ void persist_record_fused_kernel(
-    const float* __restrict__ strips, float* __restrict__ sf,
-    int* __restrict__ si, float* __restrict__ rad, float* __restrict__ rec,
-    int* __restrict__ idx_out, const float4* __restrict__ spheres,
-    const float* __restrict__ amat, int n_spheres, float tmin,
-    const float* __restrict__ u5, int n_lanes, int S, int max_depth,
-    uint32_t seed, uint32_t iteration) {
+// Design: K12's, with K4's step for K9's (mega.cu).
+//   - Compact. Each block takes 128 lanes. Its dead lanes write their zero
+//     record and winner 0 first (the slot buffer is not cleared); the block
+//     packs the ids of its live lanes in lane order (__ballot_sync, __popc
+//     and a warp scan of the 4 per-warp counts, as K3). A block with none
+//     returns at once: no table staging.
+//   - Sweep. Only the [N, 4] sphere table is staged (7.8 KB at 488
+//     spheres). A group of P threads of a warp sweeps each packed lane
+//     (rtw_sweep_part, the roots behind `disc > 0`, then rtw_merge_closest),
+//     with P chosen per block as K3 chooses it: the largest P <= min(p_cap,
+//     16) with n_live * P <= 4 * 128. The group's first thread keeps (t,
+//     idx) in shared memory at the lane's packed position.
+//   - Step. Thread j < n_live takes packed lane ids[j]: the winner's row by
+//     index from the [N, 10] table through the read-only path (zeros on a
+//     miss), the draws with the lane id as the Philox counter, K4's
+//     rtw_record_advance (default stores), and the winner index.
+// The ballot, the merge's shuffles and the barriers are reached by every
+// thread of the block: the sweep's round count is block-uniform, and a
+// thread with no lane joins the merge holding (BIG, 0). Philox keyed by
+// (seed, iteration) with the lane as the counter draws the same numbers at
+// any block size and packing.
+#define RTW_K11_THREADS 128
+
+__global__ void __launch_bounds__(RTW_K11_THREADS)
+    persist_record_fused_kernel(
+        const float* __restrict__ strips, float* __restrict__ sf,
+        int* __restrict__ si, float* __restrict__ rad, float* __restrict__ rec,
+        int* __restrict__ idx_out, const float4* __restrict__ spheres,
+        const float* __restrict__ amat, int n_spheres, float tmin,
+        const float* __restrict__ u5, int n_lanes, int S, int max_depth,
+        uint32_t seed, uint32_t iteration, int p_cap) {
+  constexpr int T = RTW_K11_THREADS, NW = T / 32;
   extern __shared__ float4 sph[];
-  float* sattr = reinterpret_cast<float*>(sph + n_spheres);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ int ids[T];
+  __shared__ float win_t[T];
+  __shared__ int win_i[T];
+  __shared__ int base[NW + 1];  // per-warp offsets; base[NW] = total
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // Dead lanes write their zero record and winner 0; each warp counts its
+  // live lanes.
+  const int i0 = blockIdx.x * T + threadIdx.x;
   const size_t n = n_lanes;
-  const bool live = i < n_lanes && si[2 * n + i] != 0;
-  if (!__syncthreads_or(live)) {  // the whole block is dead
-    if (i < n_lanes) {
-      rtw_zero_record<false>(i, n, rec, 21);
-      idx_out[i] = 0;
-    }
-    return;
+  const bool in = i0 < n_lanes;
+  const bool live = in && si[2 * n + i0] != 0;
+  if (in && !live) {
+    rtw_zero_record<false>(i0, n, rec, 21);
+    idx_out[i0] = 0;
   }
-  for (int s = threadIdx.x; s < n_spheres; s += blockDim.x) sph[s] = spheres[s];
-  for (int j = threadIdx.x; j < 10 * n_spheres; j += blockDim.x)
-    sattr[j] = amat[j];
+  const unsigned m = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) base[warp] = __popc(m);
   __syncthreads();
-  if (i >= n_lanes) return;
-  if (!live) {
-    rtw_zero_record<false>(i, n, rec, 21);
-    idx_out[i] = 0;
-    return;
+  if (warp == 0) {  // exclusive scan of the NW per-warp counts
+    const int v = lane < NW ? base[lane] : 0;
+    int incl = v;
+    for (int off = 1; off < NW; off <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += u;
+    }
+    if (lane < NW) base[lane] = incl - v;
+    if (lane == NW - 1) base[NW] = incl;
   }
-  float best_t;
-  int best_i;
-  rtw_sweep_closest(sph, n_spheres, sf[0 * n + i], sf[1 * n + i],
-                    sf[2 * n + i], sf[3 * n + i], sf[4 * n + i],
-                    sf[5 * n + i], tmin, best_t, best_i);
-  const bool hit = best_t < RTW_BIG;
-  const float* row = sattr + 10 * best_i;
+  __syncthreads();
+  const int n_live = base[NW];
+  if (n_live == 0) return;  // the whole block is dead: no staging
+
+  // Pack the live lane ids in lane order, and stage the sphere table.
+  if (live) ids[base[warp] + __popc(m & ((1u << lane) - 1u))] = i0;
+  for (int s = threadIdx.x; s < n_spheres; s += T) sph[s] = spheres[s];
+  __syncthreads();
+
+  // Sweep the packed lanes, P threads each, in block-uniform rounds.
+  int P = p_cap < 16 ? p_cap : 16;
+  while (P > 1 && n_live * P > 4 * T) P >>= 1;
+  const int log2p = __ffs(P) - 1;
+  const int per_round = T >> log2p;
+  const int p = threadIdx.x & (P - 1);
+  for (int r0 = 0; r0 < n_live; r0 += per_round) {
+    const int j = r0 + (threadIdx.x >> log2p);
+    float best_t = RTW_BIG;
+    int best_i = 0;
+    if (j < n_live) {
+      const int i = ids[j];
+      rtw_sweep_part(sph, n_spheres, p, P, sf[0 * n + i], sf[1 * n + i],
+                     sf[2 * n + i], sf[3 * n + i], sf[4 * n + i],
+                     sf[5 * n + i], tmin, best_t, best_i);
+    }
+    rtw_merge_closest(best_t, best_i, P);  // every lane of the warp
+    if (j < n_live && p == 0) {
+      win_t[j] = best_t;
+      win_i[j] = best_i;
+    }
+  }
+  __syncthreads();
+
+  // The record step of the packed lanes, one thread each.
+  if (threadIdx.x >= n_live) return;
+  const int i = ids[threadIdx.x];
+  const float t = win_t[threadIdx.x];
+  const int best_i = win_i[threadIdx.x];
+  const bool hit = t < RTW_BIG;
+  const float* row = amat + 10 * (size_t)best_i;
   float a[10];
 #pragma unroll
-  for (int j = 0; j < 10; ++j) a[j] = hit ? row[j] : 0.0f;
+  for (int j = 0; j < 10; ++j) a[j] = hit ? __ldg(row + j) : 0.0f;
   float u[5];
   rtw_record_uniforms(i, n, u5, seed, iteration, u);
-  rtw_record_advance<false>(i, n, best_t, a, u, strips, sf, si, rad, rec, 21,
-                            S, max_depth);
+  rtw_record_advance<false>(i, n, t, a, u, strips, sf, si, rad, rec, 21, S,
+                            max_depth);
   idx_out[i] = best_i;
 }
 
@@ -286,17 +346,36 @@ extern "C" int rtw_persist_record_fused(
     const float* u5, int n_lanes, int S, int max_depth, unsigned int seed,
     unsigned int iteration, void* stream) {
   if (n_lanes <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n_lanes + threads - 1) / threads;
-  const size_t smem = (size_t)n_spheres * (sizeof(float4) + 10 * sizeof(float));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        persist_record_fused_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  persist_record_fused_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  const int blocks = (n_lanes + RTW_K11_THREADS - 1) / RTW_K11_THREADS;
+  const size_t smem = (size_t)n_spheres * sizeof(float4);
+  cudaError_t e =
+      rtw_reserve_smem((const void*)persist_record_fused_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  persist_record_fused_kernel<<<blocks, RTW_K11_THREADS, smem,
+                                (cudaStream_t)stream>>>(
       strips, sf, si, rad, rec, idx, reinterpret_cast<const float4*>(spheres),
-      amat, n_spheres, tmin, u5, n_lanes, S, max_depth, seed, iteration);
+      amat, n_spheres, tmin, u5, n_lanes, S, max_depth, seed, iteration,
+      rtw_parts_cap(n_spheres));
   return (int)cudaGetLastError();
+}
+
+// K11's registers per thread, the blocks of it that one SM holds at its
+// block size and shared memory for `n_spheres`, and the device's SM count.
+extern "C" int rtw_persist_record_fused_occupancy(int n_spheres, int* regs,
+                                                  int* blocks_per_sm,
+                                                  int* sm_count) {
+  const size_t smem = (size_t)n_spheres * sizeof(float4);
+  cudaFuncAttributes a = {};
+  cudaError_t e = cudaFuncGetAttributes(&a, persist_record_fused_kernel);
+  if (e == cudaSuccess)
+    e = rtw_reserve_smem((const void*)persist_record_fused_kernel, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, persist_record_fused_kernel, RTW_K11_THREADS, smem);
+  int dev = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, dev);
+  *regs = a.numRegs;
+  return (int)e;
 }

@@ -21,20 +21,50 @@
 // written. The fixed-depth chain is never cut: a path that died keeps its
 // carry, which is zero there because nothing after its death depends on it.
 //
-// What bounds them on the card: memory traffic. Per live lane and bounce
-// the replay reads the 21 record words and writes 9 attribute rows (~120
-// bytes) and runs ~400 flops with five transcendental calls; a dead slot
-// reads its flag and writes 9 zero rows. The demo's 16-slot walk at 22 400
-// lanes (64 217 of 358 400 slots live) moves ~21 MB, ~6.4 us of HBM time.
+// What bounds them on the card: memory traffic, on paper. Per live lane and
+// bounce the replay reads the 21 record words and writes 9 attribute rows
+// (~120 bytes) and runs ~400 flops with five transcendental calls; a dead
+// slot reads its flag and writes 9 zero rows. The demo's 16-slot walk at
+// 22 400 lanes (64 217 of 358 400 slots live) moves ~21 MB, ~6.4 us of HBM
+// time. In practice K7c is bound by latency: each lane's walk is one
+// dependent chain, 16 adjoints long for the deepest lanes, and the fit's
+// 22 400 lanes are ~5 warps per SM, too few to hide it. Its record (~30 MB
+// there) stays in L2 from the record phase, so the chain is the adjoint's
+// arithmetic, not its loads.
 //
-// Design: one thread per lane. K7c walks its lane's bounces newest first
-// with the 9 carried cotangents and the 3 radiance cotangents in registers
-// for the whole walk, as the TPU kernel kept them resident in VMEM over a
-// (block, bounce) grid; only the record streams in and the attribute rows
-// stream out, each a coalesced [plane, lane] access. K7b carries the
-// cotangent through device memory between launches. The draws are the
-// record kernel's own: Philox4x32-10 keyed by (seed, bounce) with the lane
-// as the counter, or read from u5. Offsets into the record are 64-bit.
+// K7b: one thread per lane, one slot per launch; the cotangent is carried
+// through device memory between launches.
+//
+// K7c: G threads of a warp per lane, G from the wrapper's rule (1 or 2).
+//   - G = 1 (replay_bwd_fused_one_thread_kernel, the kernel before the
+//     redesign): one thread per lane walks every slot newest first, reading
+//     each slot's flag where the walk meets it, the carry in registers. At
+//     widths that fill the card (131 071 lanes) its 80 registers and six
+//     resident blocks per SM beat every staged form.
+//   - G = 2 (replay_bwd_fused_kernel): the group's threads read the
+//     lane's alive flags at once, G-strided, 32 slots to a chunk, and write
+//     the zero rows of the dead ones; the group ORs its bits into the
+//     chunk's live mask (__shfl_xor_sync, reached by every thread of the
+//     warp: the chunk count is uniform, and a thread past the lanes holds
+//     no bits). The block orders its lanes by their live slots, deepest
+//     first (a counting sort in shared memory: which group walks which lane
+//     is free, since each lane writes only its own rows), so a warp's
+//     lanes end together. Then, for each batch of a lane's next G live
+//     slots, thread k stages the k-th: its record words, its draws and its
+//     forward half (rtw_adjoint_forward, the part of the adjoint that does
+//     not read the carry), into shared memory, all G at once; the group's
+//     first thread transposes them in order (rtw_adjoint_reverse) with the
+//     9 carried and 3 radiance cotangents in registers. The forward halves
+//     of a lane's slots, most of the adjoint's latency, leave its chain.
+//     A dead slot costs nothing on the chain: the carry passes it
+//     unchanged, as the plain version's blend gives.
+// The expressions and their order are the one-thread kernel's (the adjoint
+// split into its two halves evaluates the same operations), so cot and
+// every dattr row are its bits, zeros included (a dead slot's rows +0.0).
+// The draws are the record kernel's own: Philox4x32-10 keyed by (seed,
+// bounce) with the lane as the counter, or read from u5. Offsets into the
+// record are 64-bit. scripts/torch_k7c_k11_variants.py builds and times the
+// designs this one was chosen over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,16 +105,159 @@ __device__ __forceinline__ bool rtw_replay_slot(
   return true;
 }
 
-// K7c. rec [n_slots, 21, n]; g3 [3, n]; cot [9, n] in place (the carry
-// before the newest slot, then after slot 0); dattr [n_slots, 9, n]
-// written; u5 [n_slots, 5, n] or NULL.
-__global__ void replay_bwd_fused_kernel(const float* __restrict__ rec,
-                                        const float* __restrict__ g3,
-                                        float* __restrict__ cot_io,
-                                        float* __restrict__ dattr,
-                                        const float* __restrict__ u5,
-                                        int n_lanes, int n_slots,
-                                        uint32_t seed) {
+#define RTW_K7C_THREADS 128
+
+// What the transpose of one slot reads besides the carry: the slot's
+// forward intermediates, its direction and throughput (r[3..8]), the
+// winner's center, radius and albedo (a[0..6]), and whether it hit.
+struct RtwK7cStage {
+  RtwAdjFwd f;
+  float r[6], a[7];
+  bool hit;
+};
+
+// The record words o3 d3 T3 t (r) and the winner's attributes (a) of slot s
+// [21, n] of lane i.
+__device__ __forceinline__ void rtw_fixed_slot_words(
+    const float* __restrict__ rec, size_t n, int i, int s, float* r,
+    float* a) {
+  const float* rs = rec + (size_t)s * 21 * n + i;
+#pragma unroll
+  for (int j = 0; j < 10; ++j) r[j] = rs[j * n];
+#pragma unroll
+  for (int j = 0; j < 10; ++j) a[j] = rs[(11 + j) * n];
+}
+
+// The 5 uniforms of slot s of lane i: from u5 [n_slots, 5, n] (INJ), else
+// Philox keyed by (seed, s) with the lane as the counter.
+template <bool INJ>
+__device__ __forceinline__ void rtw_fixed_slot_uniforms(
+    const float* __restrict__ u5, size_t n, int i, uint32_t seed, int s,
+    float* u) {
+  if (INJ) {
+#pragma unroll
+    for (int j = 0; j < 5; ++j) u[j] = u5[((size_t)s * 5 + j) * n + i];
+  } else {
+    rtw_uniforms<5>(seed, (uint32_t)s, (uint32_t)i, u);
+  }
+}
+
+// Stages slot s of lane i: its words, its draws and its forward half.
+template <bool INJ>
+__device__ __forceinline__ void rtw_fixed_stage(
+    const float* __restrict__ rec, const float* __restrict__ u5, size_t n,
+    int i, uint32_t seed, int s, RtwK7cStage& st) {
+  float r[10], a[10], u[5];
+  rtw_fixed_slot_words(rec, n, i, s, r, a);
+  rtw_fixed_slot_uniforms<INJ>(u5, n, i, seed, s, u);
+  const bool hit = r[9] < RTW_BIG;
+  st.f = rtw_adjoint_forward(u, r, a, hit);
+#pragma unroll
+  for (int j = 0; j < 6; ++j) st.r[j] = r[3 + j];
+#pragma unroll
+  for (int j = 0; j < 7; ++j) st.a[j] = a[j];
+  st.hit = hit;
+}
+
+// The transpose of a staged slot: the carry updated, the 9 rows returned.
+__device__ __forceinline__ void rtw_fixed_transpose(const RtwK7cStage& st,
+                                                    const float* g,
+                                                    float* cot, float* d9) {
+  float r[10], a[10];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) r[3 + j] = st.r[j];
+#pragma unroll
+  for (int j = 0; j < 7; ++j) a[j] = st.a[j];
+  rtw_adjoint_reverse(st.f, r, a, g, cot, st.hit, !st.hit, d9);
+}
+
+// The live mask of chunk [lo, hi] of lane i (bit b: slot hi - b), for the
+// group of G threads that holds lane i: thread k reads the alive flags of
+// slots hi - k, hi - k - G, ... and writes the zero rows of its dead ones;
+// the group ORs its bits. Every thread of the warp calls it.
+template <int G>
+__device__ __forceinline__ unsigned rtw_k7c_chunk_mask(
+    const float* __restrict__ rec, float* __restrict__ dattr, size_t n,
+    int i, bool in, int k, int hi, int lo) {
+  unsigned m = 0;
+#pragma unroll
+  for (int j = 0; j < 32 / G; ++j) {
+    const int s = hi - k - j * G;
+    if (in && s >= lo &&
+        __float_as_int(rec[((size_t)s * 21 + 10) * n + i]) != 0)
+      m |= 1u << (hi - s);
+  }
+#pragma unroll
+  for (int j = 0; j < 32 / G; ++j) {
+    const int s = hi - k - j * G;
+    if (in && s >= lo && !((m >> (hi - s)) & 1u)) {
+      float* da = dattr + (size_t)s * 9 * n + i;
+#pragma unroll
+      for (int q = 0; q < 9; ++q) da[q * n] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1)
+    m |= __shfl_xor_sync(0xffffffffu, m, off);
+  return m;
+}
+
+// Transposes the live slots of chunk [.., hi] of lane i (mask m), newest
+// first, the carry in the first thread's registers: for each batch of the
+// lane's next G live slots, thread k stages the k-th (words, draws, forward
+// half) into `stage`, all G at once, and the first thread transposes them
+// in order. Every thread of the warp calls it: the batch count is the
+// warp's most, and __syncwarp orders the stage's writes and reads.
+template <int G, bool INJ>
+__device__ __forceinline__ void rtw_k7c_walk_chunk(
+    const float* __restrict__ rec, const float* __restrict__ u5,
+    float* __restrict__ dattr, size_t n, int i, bool in, int k,
+    uint32_t seed, int hi, unsigned m, const float* g, float* cot,
+    RtwK7cStage* stage) {
+  int batches = (__popc(m) + G - 1) / G;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    batches = max(batches, __shfl_xor_sync(0xffffffffu, batches, off));
+  for (int b = 0; b < batches; ++b) {  // warp-uniform
+    unsigned mk = m;  // thread k's slot: the k-th live slot of the batch
+#pragma unroll
+    for (int j = 0; j < G - 1; ++j)
+      if (j < k) mk &= mk - 1;
+    if (in && mk)
+      rtw_fixed_stage<INJ>(rec, u5, n, i, seed, hi - (__ffs(mk) - 1),
+                           stage[threadIdx.x]);
+    __syncwarp();
+    if (in && k == 0) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (!m) break;
+        const int s = hi - (__ffs(m) - 1);
+        m &= m - 1;
+        float d9[9];
+        rtw_fixed_transpose(stage[threadIdx.x + j], g, cot, d9);
+        float* da = dattr + (size_t)s * 9 * n + i;
+#pragma unroll
+        for (int q = 0; q < 9; ++q) da[q * n] = d9[q];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < G; ++j) m &= m - 1;
+    }
+    __syncwarp();
+  }
+}
+
+// K7c at G = 1: one thread per lane walks every slot newest first, the
+// alive flag of each read where the walk meets it, the carry in registers
+// (the kernel before the redesign, kept: at widths that fill the card it
+// is faster than the batched walk, whose staging and forward-half
+// registers cost it resident warps). rec [n_slots, 21, n]; g3 [3, n]; cot
+// [9, n] in place; dattr [n_slots, 9, n] written; u5 [n_slots, 5, n] or
+// NULL.
+__global__ void replay_bwd_fused_one_thread_kernel(
+    const float* __restrict__ rec, const float* __restrict__ g3,
+    float* __restrict__ cot_io, float* __restrict__ dattr,
+    const float* __restrict__ u5, int n_lanes, int n_slots, uint32_t seed) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_lanes) return;
   const size_t n = n_lanes;
@@ -107,6 +280,84 @@ __global__ void replay_bwd_fused_kernel(const float* __restrict__ rec,
   }
 #pragma unroll
   for (int j = 0; j < 9; ++j) cot_io[j * n + i] = cot[j];
+}
+
+// K7c at G = 2. rec [n_slots, 21, n]; g3 [3, n]; cot [9, n] in place
+// (the carry before the newest slot, then after slot 0); dattr [n_slots, 9,
+// n] written; u5 [n_slots, 5, n] (INJ) or unused. G threads per lane, a block
+// of RTW_K7C_THREADS / G lanes: the groups read the lanes' newest chunk of
+// flags (writing its zero rows), the block orders its lanes by their live
+// slots in that chunk, deepest first, and group j walks the j-th deepest.
+template <int G, bool INJ>
+__global__ void __launch_bounds__(RTW_K7C_THREADS)
+    replay_bwd_fused_kernel(const float* __restrict__ rec,
+                            const float* __restrict__ g3,
+                            float* __restrict__ cot_io,
+                            float* __restrict__ dattr,
+                            const float* __restrict__ u5, int n_lanes,
+                            int n_slots, uint32_t seed) {
+  constexpr int L = RTW_K7C_THREADS / G;  // lanes per block
+  __shared__ RtwK7cStage stage[RTW_K7C_THREADS];
+  __shared__ int order[L];
+  __shared__ unsigned masks[L];
+  __shared__ int base[33];
+  const int k = threadIdx.x % G, l = threadIdx.x / G;
+  const int lane0 = blockIdx.x * L;
+  const size_t n = n_lanes;
+
+  // The newest chunk's mask of the block's lane lane0 + l.
+  const int top = n_slots - 1;
+  const int lo = top >= 31 ? top - 31 : 0;
+  bool in = lane0 + l < n_lanes;
+  unsigned m = rtw_k7c_chunk_mask<G>(rec, dattr, n, lane0 + l, in, k, top,
+                                     lo);
+
+  // Order the block's lanes by live slots, deepest first (a counting sort;
+  // the order within a count is free: each lane writes only its own rows).
+  if (threadIdx.x < 33) base[threadIdx.x] = 0;
+  __syncthreads();
+  const int key = 32 - __popc(m);
+  int pos = 0;
+  if (in && k == 0) pos = atomicAdd(&base[key], 1);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int c = 0; c < 33; ++c) {
+      const int v = base[c];
+      base[c] = sum;
+      sum += v;
+    }
+  }
+  __syncthreads();
+  if (in && k == 0) {
+    order[base[key] + pos] = l;
+    masks[base[key] + pos] = m;
+  }
+  __syncthreads();
+
+  // Group l walks the l-th deepest lane.
+  in = lane0 + l < n_lanes;
+  const int i = in ? lane0 + order[l] : 0;
+  m = in ? masks[l] : 0u;
+  float cot[9], g[3];
+  if (in && k == 0) {
+#pragma unroll
+    for (int j = 0; j < 9; ++j) cot[j] = cot_io[j * n + i];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) g[j] = g3[j * n + i];
+  }
+  rtw_k7c_walk_chunk<G, INJ>(rec, u5, dattr, n, i, in, k, seed, top, m, g,
+                             cot, stage);
+  for (int hi = top - 32; hi >= 0; hi -= 32) {  // warp-uniform
+    m = rtw_k7c_chunk_mask<G>(rec, dattr, n, i, in, k, hi,
+                              hi >= 31 ? hi - 31 : 0);
+    rtw_k7c_walk_chunk<G, INJ>(rec, u5, dattr, n, i, in, k, seed, hi, m, g,
+                               cot, stage);
+  }
+  if (in && k == 0) {
+#pragma unroll
+    for (int j = 0; j < 9; ++j) cot_io[j * n + i] = cot[j];
+  }
 }
 
 // K7b. One slot: rec [21, n] of bounce `bounce`; g3 [3, n]; cot [9, n] in
@@ -138,16 +389,58 @@ __global__ void replay_bwd_step_kernel(const float* __restrict__ rec,
   }
 }
 
+template <int G>
+static const void* rtw_k7c_kernel(bool inj) {
+  return inj ? (const void*)replay_bwd_fused_kernel<G, true>
+             : (const void*)replay_bwd_fused_kernel<G, false>;
+}
+
+// K7c for a group size G in {1, 2} (else NULL).
+static const void* rtw_k7c(int group, bool inj) {
+  switch (group) {
+    case 1: return (const void*)replay_bwd_fused_one_thread_kernel;
+    case 2: return rtw_k7c_kernel<2>(inj);
+    default: return nullptr;
+  }
+}
+
+// group: G, the threads per lane, in {1, 2}.
 extern "C" int rtw_replay_bwd_fused(const float* rec, const float* g3,
                                     float* cot, float* dattr, const float* u5,
                                     int n_lanes, int n_slots,
-                                    unsigned int seed, void* stream) {
+                                    unsigned int seed, int group,
+                                    void* stream) {
+  const void* k = rtw_k7c(group, u5 != nullptr);
+  if (!k) return (int)cudaErrorInvalidValue;
   if (n_lanes <= 0 || n_slots <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n_lanes + threads - 1) / threads;
-  replay_bwd_fused_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      rec, g3, cot, dattr, u5, n_lanes, n_slots, seed);
-  return (int)cudaGetLastError();
+  const long long threads = (long long)n_lanes * group;
+  const int blocks = (int)((threads + RTW_K7C_THREADS - 1) / RTW_K7C_THREADS);
+  void* args[] = {(void*)&rec, (void*)&g3, (void*)&cot, (void*)&dattr,
+                  (void*)&u5, (void*)&n_lanes, (void*)&n_slots,
+                  (void*)&seed};
+  return (int)cudaLaunchKernel(k, dim3(blocks), dim3(RTW_K7C_THREADS), args,
+                               0, (cudaStream_t)stream);
+}
+
+// K7c's registers per thread at group size `group` (Philox draws), the
+// blocks of it one SM holds, its threads per block and the SM count.
+extern "C" int rtw_replay_bwd_fused_occupancy(int group, int* regs,
+                                              int* blocks_per_sm,
+                                              int* threads, int* sm_count) {
+  const void* k = rtw_k7c(group, false);
+  if (!k) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a = {};
+  cudaError_t e = cudaFuncGetAttributes(&a, k);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k,
+                                                      RTW_K7C_THREADS, 0);
+  int dev = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, dev);
+  *regs = a.numRegs;
+  *threads = RTW_K7C_THREADS;
+  return (int)e;
 }
 
 extern "C" int rtw_replay_bwd_step(const float* rec, const float* g3,

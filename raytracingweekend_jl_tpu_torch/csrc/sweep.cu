@@ -42,8 +42,8 @@
 // Each lane's result lands in its own slot: no atomics, no allocation, no
 // grid-wide synchronisation, and the output does not depend on block
 // order. The (t, idx) of the three kernels is bit for bit
-// rtw_sweep_closest's, the one-thread loop that K11 and K13 keep and that
-// sweep_fetch_one_thread_kernel keeps as their reference.
+// rtw_sweep_closest's, the one-thread loop that K13 keeps and that
+// sweep_fetch_one_thread_kernel keeps as the split loop's reference.
 
 #include <cuda_runtime.h>
 

@@ -1,13 +1,13 @@
 // The closest-hit loops of the sphere sweeps.
 //
 // rtw_sweep_closest: one thread sweeps one ray over the whole table. It is
-// the loop of the fused record step K11 (persist_record.cu) and of the
-// one-thread reference kernel that the split loop is checked against
-// (sweep.cu, sweep_fetch_one_thread_kernel); the cluster sweep K13
-// (grid_sweep.cu) runs its pair test, rtw_sweep_one.
+// the loop of the one-thread reference kernel that the split loop is
+// checked against (sweep.cu, sweep_fetch_one_thread_kernel); the cluster
+// sweep K13 (grid_sweep.cu) runs its pair test, rtw_sweep_one.
 //
 // rtw_sweep_part + rtw_merge_closest: the split loop of K1, K3 and K10
-// (sweep.cu) and of the megakernel K12 (mega.cu). A group of P threads of
+// (sweep.cu), of the megakernel K12 (mega.cu) and of the fused record step
+// K11 (persist_record.cu). A group of P threads of
 // one warp sweeps one ray, part p taking spheres s == p (mod P), and the
 // parts merge on the lexicographic minimum of (t, idx). rtw_sweep_closest
 // accepts only a strictly smaller t, in increasing index order, so its

@@ -150,7 +150,8 @@ def plan_pass_memory(kwargs: dict, n_pix: int, n_samples: int,
     kwargs), as the reference does: keep every pass's records if they fit,
     else (persistent path) drop the recorded attribute planes
     (``rec_attrs=False``, replay refetches them), else set
-    ``remat_passes=True`` (not ported: the render then raises)."""
+    ``remat_passes=True``: the pass loop then keeps only each pass's
+    radiance sum and recomputes the pass's record in the backward."""
     if not kwargs.get("recorded") or "remat_passes" in kwargs \
             or n_samples <= 1:
         return kwargs

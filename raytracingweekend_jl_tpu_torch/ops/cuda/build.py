@@ -79,8 +79,10 @@ _SIGNATURES = {
     # R, seed, bounce, stream
     "rtw_record_shade": [_P, _P, _P, _P, _P, _P, _I, _U, _U, _P],
     # rec[K,21,R], g3[3,R], cot[9,R], dattr[K,9,R], u5[K,5,R] or NULL, R, K,
-    # seed, stream
-    "rtw_replay_bwd_fused": [_P, _P, _P, _P, _P, _I, _I, _U, _P],
+    # seed, group, stream
+    "rtw_replay_bwd_fused": [_P, _P, _P, _P, _P, _I, _I, _U, _I, _P],
+    # group, &regs, &blocks_per_sm, &threads_per_block, &sm_count
+    "rtw_replay_bwd_fused_occupancy": [_I, _IP, _IP, _IP, _IP],
     # rec slot[21,R], g3[3,R], cot[9,R], dattr[9,R], u5[5,R] or NULL, R,
     # seed, bounce, stream
     "rtw_replay_bwd_step": [_P, _P, _P, _P, _P, _I, _U, _U, _P],
@@ -94,6 +96,8 @@ _SIGNATURES = {
     # seed, iteration, stream
     "rtw_persist_record_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P,
                                  _I, _I, _I, _U, _U, _P],
+    # N, &regs, &blocks_per_sm, &sm_count
+    "rtw_persist_record_fused_occupancy": [_I, _IP, _IP, _IP],
     # fstate[12,R], istate[3,R], spheres[N,4], amat[N,10], N, tmin, u[R],
     # v[R], cam[21], u9[9,R] or NULL, R, last_sample, max_depth, seed,
     # iteration, stream

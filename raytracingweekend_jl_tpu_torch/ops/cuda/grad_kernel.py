@@ -415,6 +415,104 @@ def replay_bwd_fused_ref(rec, g3, cot, seed: int,
     return dattr
 
 
+#: K7c's group sizes: the threads of a warp that take one lane. G = 1 is
+#: one thread per lane walking every slot; G = 2 stages a lane's next two
+#: live slots at once and orders a block's lanes by depth.
+REPLAY_GROUPS = (1, 2)
+
+#: K7c's chunk: the group reads the alive flags of 32 slots at once.
+REPLAY_CHUNK = 32
+
+
+def replay_group(n_lanes: int, resident: dict) -> int:
+    """K7c's G: 2 while the ``n_lanes * 2`` threads of the staged walk fit
+    in one wave of the card (``resident[2]``, the threads it holds at once:
+    the walk is one chain per lane, and a second wave would wait for the
+    first), else 1 (the one-thread walk, the faster where the lanes fill
+    the card)."""
+    return 2 if n_lanes * 2 <= resident[2] else 1
+
+
+def _check_group(what: str, group) -> None:
+    if group not in REPLAY_GROUPS:
+        raise ValueError(f"{what}: group must be one of {REPLAY_GROUPS}, "
+                         f"got {group!r}")
+
+
+def replay_bwd_fused_group_ref(rec, g3, cot, seed: int,
+                               u5_all: torch.Tensor | None = None,
+                               group: int = 1) -> torch.Tensor:
+    """Plain mirror of K7c's schedule (arguments as
+    :func:`replay_bwd_fused_ref`): the slots in chunks of
+    :data:`REPLAY_CHUNK` from the newest; in each, thread ``k`` of a lane's
+    ``group`` reads the flags of slots ``hi - k, hi - k - group, ...`` and
+    writes the zero rows of the dead ones; then the lane's live slots are
+    replayed newest first on the live lanes alone (a dead slot leaves the
+    carry as it is, with no blend), in batches of ``group`` (the kernel
+    stages a batch's forward halves at once and transposes them in order,
+    which changes no value; nor does the order in which a block walks its
+    lanes). The rows start as NaN, so a row nobody writes shows. Bitwise
+    :func:`replay_bwd_fused_ref`. For the tests and ``chip_smoke.py``; no
+    route runs it."""
+    _check_group("replay_bwd_fused_group_ref", group)
+    K, R = rec.shape[0], rec.shape[2]
+    dattr = torch.full((K, 9, R), float("nan"), dtype=torch.float32,
+                       device=rec.device)
+    alive = rec[:, 10].view(torch.int32) != 0
+    for hi in range(K - 1, -1, -REPLAY_CHUNK):
+        lo = max(hi - REPLAY_CHUNK + 1, 0)
+        for k in range(group):
+            for s in range(hi - k, lo - 1, -group):
+                dattr[s][:, ~alive[s]] = 0.0
+        for s in range(hi, lo - 1, -1):
+            live = torch.nonzero(alive[s])[:, 0]
+            if live.numel() == 0:
+                continue
+            slot = rec[s][:, live]
+            u5 = (rng.philox_uniforms(seed, s, live.numel(), 5,
+                                      device=rec.device, lanes=live)
+                  if u5_all is None else u5_all[s][:, live])
+            hit = slot[9] < BIG
+            cot9, d9 = bounce_adjoint(
+                u5, tuple(slot[0:10]) + tuple(slot[11:21]),
+                tuple(g3[:, live]), tuple(cot[:, live]), hit, ~hit)
+            cot[:, live] = torch.stack(cot9)
+            dattr[s][:, live] = torch.stack(d9)
+    return dattr
+
+
+def replay_bwd_fused_occupancy(group: int, device=None) -> dict:
+    """``{"registers", "blocks_per_sm", "threads_per_block", "sm_count"}``
+    of K7c at group size ``group`` (Philox draws) on ``device``, from the
+    CUDA runtime."""
+    import ctypes
+    _check_group("replay_bwd_fused_occupancy", group)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        err = build.load().rtw_replay_bwd_fused_occupancy(
+            group, *(ctypes.byref(x) for x in out))
+    build.check(err, "replay_bwd_fused occupancy")
+    regs, blocks, threads, sms = (x.value for x in out)
+    return {"registers": regs, "blocks_per_sm": blocks,
+            "threads_per_block": threads, "sm_count": sms}
+
+
+_RESIDENT = {}
+
+
+def _resident_threads(device) -> dict:
+    """``{G: threads of K7c at group size G that device holds at once}``
+    (cached)."""
+    key = torch.device(device).index
+    if key not in _RESIDENT:
+        _RESIDENT[key] = {}
+        for g in REPLAY_GROUPS:
+            o = replay_bwd_fused_occupancy(g, device)
+            _RESIDENT[key][g] = (o["blocks_per_sm"] * o["threads_per_block"]
+                                 * o["sm_count"])
+    return _RESIDENT[key]
+
+
 def _check_replay(what, g3, cot, dev) -> int:
     R = cot.shape[1] if cot.dim() == 2 else -1
     build.check_arg(f"{what}: g3", g3, torch.float32, (3, R), dev)
@@ -454,9 +552,12 @@ def replay_bwd_step(rec_slot, g3, cot, seed: int, bounce: int,
 
 
 def replay_bwd_fused(rec, g3, cot, seed: int,
-                     u5_all: torch.Tensor | None = None) -> torch.Tensor:
+                     u5_all: torch.Tensor | None = None,
+                     group: int | None = None) -> torch.Tensor:
     """K7c: the whole reverse walk in one launch (arguments as
-    :func:`replay_bwd_fused_ref`). CPU tensors run the plain version."""
+    :func:`replay_bwd_fused_ref`), ``group`` threads per lane (by default
+    :func:`replay_group`'s; :func:`replay_bwd_fused_group_ref` mirrors the
+    schedule at every group size). CPU tensors run the plain version."""
     global replay_fused_launches
     if cot.device.type == "cpu":
         return replay_bwd_fused_ref(rec, g3, cot, seed, u5_all)
@@ -470,13 +571,16 @@ def replay_bwd_fused(rec, g3, cot, seed: int,
     if u5_all is not None:
         build.check_arg("replay_bwd_fused: u5_all", u5_all, f32, (K, 5, R),
                         dev)
+    if group is None:
+        group = replay_group(R, _resident_threads(dev))
+    _check_group("replay_bwd_fused", group)
     dattr = torch.empty((K, 9, R), dtype=f32, device=dev)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.rtw_replay_bwd_fused(
             rec.data_ptr(), g3.data_ptr(), cot.data_ptr(), dattr.data_ptr(),
             None if u5_all is None else u5_all.data_ptr(), R, K,
-            base_seed(seed), torch.cuda.current_stream().cuda_stream)
+            base_seed(seed), group, torch.cuda.current_stream().cuda_stream)
     build.check(err, "replay_bwd_fused")
     replay_fused_launches += 1
     return dattr

@@ -240,13 +240,88 @@ def persist_record_fused_step_ref(strips, sf, si, rad, rec_slot, idx_out,
     idx_out.copy_(idx)
 
 
+#: K11's lanes (threads) per block.
+FUSED_THREADS = 128
+
+
+def persist_record_fused_compact_ref(strips, sf, si, rad, rec_slot, idx_out,
+                                     spheres, amat, seed: int,
+                                     iteration: int, max_depth: int,
+                                     tmin: float,
+                                     u5: torch.Tensor | None = None,
+                                     block: int = FUSED_THREADS,
+                                     parts: int = 0) -> None:
+    """Plain mirror of K11's schedule, in place (arguments as
+    :func:`persist_record_fused_step_ref`): dead lanes write a zero record
+    and winner 0; each block of ``block`` lanes packs its live lanes in lane
+    order and sweeps them with :func:`intersect_kernel.sweep_split_ref` at
+    ``parts`` threads per lane, or with ``parts=0`` at the block's P
+    (``mega_kernel.block_parts``, K3's rule); then the packed lanes read
+    their winner's row by index (zeros on a miss), draw with their lane id
+    as the Philox counter and take K4's state machine
+    (:func:`advance_record_bank`) on their own columns. Bitwise
+    :func:`persist_record_fused_step_ref`. For the tests and
+    ``chip_smoke.py``; no route runs it."""
+    from .intersect_kernel import _check_parts, _winner_rows, sweep_split_ref
+    from .mega_kernel import block_parts
+    _check_parts("persist_record_fused_compact_ref", parts, allow_zero=True)
+    W = sf.shape[1]
+    live = si[2] != 0
+    rec_slot[:, ~live] = 0.0
+    idx_out[~live] = 0
+    ids = torch.nonzero(live)[:, 0]
+    if ids.numel() == 0:
+        return
+    blk = ids // block
+    if parts:
+        p_lane = torch.full_like(ids, parts)
+    else:
+        n_live = torch.bincount(blk, minlength=-(-W // block))
+        p_lane = block_parts(n_live, spheres.shape[0], block)[blk]
+    t = torch.empty(ids.shape, dtype=sf.dtype, device=sf.device)
+    idx = torch.empty(ids.shape, dtype=torch.int32, device=sf.device)
+    for p in torch.unique(p_lane).tolist():
+        sel = p_lane == p
+        t[sel], idx[sel] = sweep_split_ref(sf[0:6, ids[sel]].contiguous(),
+                                           spheres, p, tmin)
+    u5 = (rng.philox_uniforms(seed, iteration, ids.numel(), 5,
+                              device=sf.device, lanes=ids)
+          if u5 is None else u5[:, ids])
+    rec10, flags, sf2, si2, rad2 = advance_record_bank(
+        u5, t, _winner_rows(t, idx, amat), strips[:, ids], sf[:, ids],
+        si[:, ids], rad[:, ids], max_depth)
+    rec_slot[0:10, ids] = rec10
+    flags_of(rec_slot)[ids] = flags
+    rec_slot[11:21, ids] = _winner_rows(t, idx, amat)
+    sf[:, ids], si[:, ids], rad[:, ids] = sf2, si2, rad2
+    idx_out[ids] = idx
+
+
+def persist_record_fused_occupancy(n_spheres: int, device=None) -> dict:
+    """``{"registers", "blocks_per_sm", "threads_per_block", "sm_count"}``
+    of K11 on ``device`` (the current CUDA device by default), from the
+    CUDA runtime, at its block size and shared memory for ``n_spheres``."""
+    import ctypes
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = build.load().rtw_persist_record_fused_occupancy(
+            n_spheres, *(ctypes.byref(x) for x in out))
+    build.check(err, "persist_record_fused occupancy")
+    regs, blocks, sms = (x.value for x in out)
+    return {"registers": regs, "blocks_per_sm": blocks,
+            "threads_per_block": FUSED_THREADS, "sm_count": sms}
+
+
 def persist_record_fused_step(strips, sf, si, rad, rec_slot, idx_out,
                               spheres, amat, seed: int, iteration: int,
                               max_depth: int, tmin: float,
                               u5: torch.Tensor | None = None) -> None:
     """K11: one record iteration in one launch (arguments as
-    :func:`persist_record_fused_step_ref`). CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise."""
+    :func:`persist_record_fused_step_ref`), each block's live lanes packed
+    and swept by the P threads its block takes from its live count
+    (:func:`persist_record_fused_compact_ref` mirrors the schedule at every
+    P). CPU tensors run the plain version; CUDA tensors launch the kernel
+    or raise."""
     global record_fused_launches
     if sf.device.type == "cpu":
         return persist_record_fused_step_ref(strips, sf, si, rad, rec_slot,
@@ -272,10 +347,12 @@ def persist_record_fused_step(strips, sf, si, rad, rec_slot, idx_out,
         _check(f"persist_record_fused_step: {name}", x, dt, shape, dev)
     if u5 is not None:
         _check("persist_record_fused_step: u5", u5, f32, (5, W), dev)
-    if n_sph * 56 > 227 * 1024:
+    # the packed lane ids, winners and warp offsets take the rest
+    table = 227 * 1024 - 4 * (3 * FUSED_THREADS + FUSED_THREADS // 32 + 1)
+    if n_sph * 16 > table:
         raise ValueError(f"persist_record_fused_step: {n_sph} spheres exceed "
-                         f"the kernel's shared-memory tables "
-                         f"(max {227 * 1024 // 56})")
+                         f"the kernel's shared-memory table "
+                         f"(max {table // 16})")
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.rtw_persist_record_fused(

@@ -53,3 +53,15 @@ def per_ray_uniforms(n_rays: int, n: int,
     """``[R, n]`` U[0,1) draws from ``generator``."""
     return torch.rand((n_rays, n), generator=generator, dtype=dtype,
                       device=device)
+
+
+def uniform_between(generator: torch.Generator | None, shape: tuple, lo, hi,
+                    dtype=torch.float32, device=None) -> torch.Tensor:
+    """Uniform in [lo, hi) (reference: random_between, src/rand.jl:24): the
+    U[0,1) draws ``u`` of ``generator`` mapped as the JAX package maps them,
+    ``max(lo, u * (hi - lo) + lo)`` in ``dtype``."""
+    u = torch.rand(tuple(shape), generator=generator, dtype=dtype,
+                   device=device)
+    lo = torch.as_tensor(lo, dtype=dtype, device=u.device)
+    hi = torch.as_tensor(hi, dtype=dtype, device=u.device)
+    return torch.maximum(lo, u * (hi - lo) + lo)

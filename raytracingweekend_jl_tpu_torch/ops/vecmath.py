@@ -27,6 +27,11 @@ def squared_length(v: torch.Tensor) -> torch.Tensor:
     return dot(v, v)
 
 
+def near_zero(v: torch.Tensor) -> torch.Tensor:
+    """True where ``|v|^2 < 1e-5`` (reference: near_zero, src/vec.jl:20)."""
+    return squared_length(v) < NEAR_ZERO_EPS
+
+
 def normalize(v: torch.Tensor) -> torch.Tensor:
     """Unit-normalise over the trailing axis; a zero vector stays zero."""
     sq = squared_length(v)
@@ -65,3 +70,9 @@ def reflectance(cos_theta: torch.Tensor, eta_ratio: torch.Tensor) -> torch.Tenso
 def gamma2_encode(linear: torch.Tensor) -> torch.Tensor:
     """Gamma-2 encode = sqrt (reference: rgb_gamma2, src/vec.jl:22)."""
     return torch.sqrt(torch.clamp(linear, min=0.0))
+
+
+def color_vec3_in_rgb(v: torch.Tensor) -> torch.Tensor:
+    """A vector field as RGB for debugging, ``0.5 * normalize(v) + 0.5``
+    (reference: color_vec3_in_rgb, src/ray_color.jl:8)."""
+    return 0.5 * normalize(v) + 0.5

@@ -33,9 +33,11 @@ picks them on its device:
 
 ``compact=True`` swaps the wavefront for the forward-only compacting one
 (``trace_compacted``: only live rays are swept, the draws keyed by slot).
-Not ported (they raise ``NotImplementedError``): the XLA recorded path
-(``recorded=True`` alone), ``recorded_stage``, ``remat_passes``,
-``tile_skip`` and ``remat_policy``.
+``remat_passes=True`` keeps only each pass's radiance sum and recomputes the
+pass in the backward (:class:`_RecomputedPass`), the counterpart of the
+reference's ``jax.checkpoint`` of the pass body. Not ported (they raise
+``NotImplementedError``): the XLA recorded path (``recorded=True`` alone),
+``recorded_stage``, ``fused_stages``, ``tile_skip`` and ``remat_policy``.
 """
 
 from __future__ import annotations
@@ -129,15 +131,15 @@ def _resolve_device(device) -> torch.device:
 
 def _check_route(persistent: bool, recorded: bool = False,
                  recorded_fused: bool = False, recorded_stage=None,
-                 recorded_persist=None, remat_passes: bool = False,
+                 recorded_persist=None, fused_stages=None,
                  tile_skip: int = 0, remat_policy: str | None = None) -> None:
     """Raise for the routes that are not ported."""
     if persistent:
         return
     what = None
-    if remat_passes:
-        what = ("remat_passes=True (recomputing each pass's record in the "
-                "backward); lower n_samples or raise the record budget")
+    if fused_stages is not None:
+        what = ("fused_stages (ops/pallas/grad_kernel."
+                "trace_recorded_fused_staged); use recorded_fused")
     elif recorded_stage is not None:
         what = ("recorded_stage (ops/grad_trace.trace_recorded_staged); use "
                 "recorded_fused or recorded_persist")
@@ -186,11 +188,79 @@ def _pass_tracer(scene: Scene, max_depth: int, tmin: float,
                                  fused_attrs=fused_attrs, impl=impl)
 
 
+def _pass_sum(cam: Camera, u: torch.Tensor, v: torch.Tensor, seed: int,
+              s0: int, spp: int, f32_w: float, f32_h: float,
+              trace_fn: Callable) -> torch.Tensor:
+    """Radiance sum ``[n_pix, 3]`` of one sample pass: global samples ``s0
+    .. s0 + spp - 1`` of the pixels at ``u``/``v``, traced in one wavefront
+    by ``trace_fn``."""
+    origin, direction = sample_pass_rays(cam, u, v, seed, s0, spp, f32_w,
+                                         f32_h)
+    radiance = trace_fn(origin, direction,
+                        rng.purpose_seed(seed, rng.SCATTER_DIR, s0)
+                        & 0xFFFFFFFF)
+    return radiance.reshape(spp, u.shape[0], 3).sum(0)
+
+
+class _RecomputedPass(torch.autograd.Function):
+    """One sample pass whose records are not kept (``remat_passes``): the
+    forward runs the pass without building a graph and keeps only its
+    inputs; the backward runs it again from detached copies of them, with
+    the graph, and takes the gradients of the pass's sum. The draws are
+    keyed by (seed, purpose, pass) and by (seed, bounce or iteration) with
+    the lane as the counter, so the recomputed record is the first one bit
+    for bit. A tensor the pass reads once (each scene field, on the
+    recorded pairs) gets the same gradient bit for bit; one it reads more
+    than once (the camera's origin; the scene on the default wavefront)
+    gets its terms of the pass summed before the passes' sums, which can
+    move its last bits.
+
+    ``tensors`` are every tensor the pass reads that may need a gradient:
+    the scene's six fields, then the camera's eight. ``run(scene, cam,
+    audit)`` returns the pass's sum; the forward calls it with ``audit``
+    True, the backward with False (the ``stats`` hook off, so a pass is
+    counted once)."""
+
+    @staticmethod
+    def forward(ctx, run, *tensors):
+        ctx.run = run
+        ctx.save_for_backward(*tensors)
+        return run(Scene(*tensors[:6]), Camera(*tensors[6:]), True)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[1:]
+        inputs = [x.detach().requires_grad_(n)
+                  for x, n in zip(ctx.saved_tensors, need)]
+        wanted = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            out = ctx.run(Scene(*inputs[:6]), Camera(*inputs[6:]), False)
+        grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+        return (None,) + tuple(next(grads) if x.requires_grad else None
+                               for x in inputs)
+
+
+#: The route flags :func:`_pass_tracer` takes.
+_TRACER_FLAGS = ("remat", "fused_attrs", "compact", "recorded_fused",
+                 "recorded_persist", "persist_strict", "replay_fused", "stats")
+
+
+def _retracer(max_depth: int, tmin: float, impl: str | None,
+              flags: dict) -> Callable:
+    """``retrace(scene, audit)`` for :func:`render_tile_sum_traced`: the
+    pass tracer of ``scene`` with the route ``flags``, its ``stats`` hook
+    kept only when ``audit``."""
+    def retrace(scene, audit):
+        return _pass_tracer(scene, max_depth, tmin, impl, **{
+            **flags, "stats": flags.get("stats") if audit else None})
+    return retrace
+
+
 def render_tile_sum_traced(scene: Scene, cam: Camera, u: torch.Tensor,
                            v: torch.Tensor, seed: int, n_samples: int,
                            sample_offset: int, f32_w: float, f32_h: float,
-                           samples_per_pass: int, trace_fn: Callable
-                           ) -> torch.Tensor:
+                           samples_per_pass: int, trace_fn: Callable,
+                           retrace: Callable | None = None) -> torch.Tensor:
     """Radiance *sum* ``[n_pix, 3]`` of the pixels at film coordinates
     ``u``/``v`` [n_pix]: the reference's pass loop.
 
@@ -199,21 +269,33 @@ def render_tile_sum_traced(scene: Scene, cam: Camera, u: torch.Tensor,
     samples_per_pass``, with the camera rays of
     :func:`camera.sample_pass_rays`, through ``trace_fn(origin, direction,
     seed32)`` (:func:`_pass_tracer`), whose draws are keyed by
-    ``purpose_seed(seed, SCATTER_DIR, s0)`` cut to 32 bits."""
+    ``purpose_seed(seed, SCATTER_DIR, s0)`` cut to 32 bits.
+
+    ``retrace(scene, audit)`` (``remat_passes``) returns the pass tracer of
+    ``scene``, with its audit hook (``stats``) on or off: with it and more
+    than one pass, each pass runs as a :class:`_RecomputedPass`, which keeps
+    only the pass's sum and recomputes the pass in the backward (the
+    reference's ``jax.checkpoint`` of the pass body). The sums, and the
+    gradients of the tensors a pass reads once, are bit for bit those of
+    the loop that keeps every pass (:class:`_RecomputedPass`)."""
     spp = samples_per_pass
     if n_samples % spp:
         raise ValueError(f"samples_per_pass={spp} must divide "
                          f"n_samples={n_samples}")
-    n_pix = u.shape[0]
-    acc = torch.zeros((n_pix, 3), dtype=u.dtype, device=u.device)
-    for p in range(n_samples // spp):
+    n_pass = n_samples // spp
+    acc = torch.zeros((u.shape[0], 3), dtype=u.dtype, device=u.device)
+    for p in range(n_pass):
         s0 = sample_offset + p * spp
-        origin, direction = sample_pass_rays(cam, u, v, seed, s0, spp, f32_w,
-                                             f32_h)
-        radiance = trace_fn(origin, direction,
-                            rng.purpose_seed(seed, rng.SCATTER_DIR, s0)
-                            & 0xFFFFFFFF)
-        acc = acc + radiance.reshape(spp, n_pix, 3).sum(0)
+        if retrace is None or n_pass == 1:
+            acc = acc + _pass_sum(cam, u, v, seed, s0, spp, f32_w, f32_h,
+                                  trace_fn)
+            continue
+
+        def run(sc, cm, audit, s0=s0):
+            return _pass_sum(cm, u, v, seed, s0, spp, f32_w, f32_h,
+                             retrace(sc, audit))
+
+        acc = acc + _RecomputedPass.apply(run, *scene, *cam)
     return acc
 
 
@@ -266,16 +348,15 @@ def render_tile_sum(scene: Scene, cam: Camera, n_pix: int, seed: int,
     if not persistent:
         _check_route(False, **{k: route[k] for k in (
             "recorded", "recorded_fused", "recorded_stage",
-            "recorded_persist", "remat_passes", "tile_skip",
+            "recorded_persist", "fused_stages", "tile_skip",
             "remat_policy") if k in route})
-        tracer = _pass_tracer(scene, max_depth, tmin, impl, **{
-            k: route[k] for k in ("remat", "fused_attrs", "compact",
-                                  "recorded_fused", "recorded_persist",
-                                  "persist_strict", "replay_fused", "stats")
-            if k in route})
-        return render_tile_sum_traced(scene, cam, u, v, seed, n_samples,
-                                      sample_offset, f32_w, f32_h,
-                                      samples_per_pass, tracer)
+        flags = {k: route[k] for k in _TRACER_FLAGS if k in route}
+        return render_tile_sum_traced(
+            scene, cam, u, v, seed, n_samples, sample_offset, f32_w, f32_h,
+            samples_per_pass, _pass_tracer(scene, max_depth, tmin, impl,
+                                           **flags),
+            _retracer(max_depth, tmin, impl, flags)
+            if route.get("remat_passes") else None)
     if inline:
         return render_inline_sum(scene, cam, u, v, seed, n_samples,
                                  sample_offset, max_depth, tmin, f32_w,
@@ -296,7 +377,7 @@ def render_tile_sum(scene: Scene, cam: Camera, n_pix: int, seed: int,
 def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
                     n_samples: int = 1, *, image_height: int | None = None,
                     max_depth: int = DEFAULT_MAX_DEPTH,
-                    tmin: float = DEFAULT_TMIN, seed: int = 0,
+                    tmin: float = DEFAULT_TMIN, seed: int = 0, dtype=None,
                     pixel_chunk: int | None = None, persistent: bool = False,
                     device=None, impl: str | None = None,
                     generator: torch.Generator | None = None,
@@ -305,6 +386,7 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
                     compact: bool = False,
                     recorded: bool = False, recorded_fused: bool = False,
                     recorded_stage: tuple | None = None,
+                    fused_stages: tuple | None = None,
                     recorded_persist: tuple | None = None,
                     rays_per_pass: int | None = None,
                     remat_passes: bool = False,
@@ -313,9 +395,11 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
                     tile_skip: int = 0, remat_policy: str | None = None,
                     stats: dict | None = None) -> torch.Tensor:
     """Linear mean radiance ``[H, W, 3]`` (no gamma) on ``device``: the card
-    unless ``device="cpu"`` (the scene and camera move there), in the
-    camera's float type. Differentiable w.r.t. the scene on the default
-    route. ``pixel_chunk`` renders contiguous chunks of that many pixels one
+    unless ``device="cpu"`` (the scene and camera move there), in the float
+    type ``dtype`` (the reference's ``elem_type`` switch: the film
+    coordinates' type, the camera's by default; float64 runs on the
+    fixed-depth wavefront only). Differentiable w.r.t. the scene on the
+    default route. ``pixel_chunk`` renders contiguous chunks of that many pixels one
     after another, chunk ``c`` with seed ``fold_in(seed, c)``.
 
     ``persistent=False`` (the default) traces sample passes, ``rays_per_pass``
@@ -326,13 +410,21 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
     or ``recorded_persist`` with ``persist_strict`` (NaN-poisons the image
     and its gradients if the pair drops a path) and ``stats`` (a dict
     collecting its dropped count and occupancy); ``replay_fused=False``
-    replays the fixed-depth pair bounce by bounce. ``persistent=True`` takes
+    replays the fixed-depth pair bounce by bounce; ``remat_passes=True``
+    recomputes each pass in the backward instead of keeping its records
+    (:func:`render_tile_sum_traced`). ``persistent=True`` takes
     the forward-only routes of :func:`render_tile_sum` (``inline``;
     ``generator``, single-chunk strided renders only, supplies the strip-0
     draws). The routes of the module docstring's last paragraph raise
     ``NotImplementedError``."""
     _check_route(persistent, recorded, recorded_fused, recorded_stage,
-                 recorded_persist, remat_passes, tile_skip, remat_policy)
+                 recorded_persist, fused_stages, tile_skip, remat_policy)
+    dtype = cam.origin.dtype if dtype is None else dtype
+    if dtype != torch.float32 and (persistent or recorded_fused
+                                   or recorded_persist is not None):
+        raise NotImplementedError(
+            f"{dtype} renders run on the fixed-depth wavefront only; the "
+            "persistent routes and the gradient kernel pairs are float32")
     device = _resolve_device(device)
     scene = trim_scene(scene.to(device))
     cam = cam.to(device)
@@ -351,14 +443,15 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
             raise ValueError(
                 "generator feeds the strided route's strip-0 draws; pass "
                 "persistent=True, inline=False to use one")
-        tracer = _pass_tracer(scene, max_depth, tmin, impl, remat=remat,
-                              fused_attrs=fused_attrs, compact=compact,
-                              recorded_fused=recorded_fused,
-                              recorded_persist=recorded_persist,
-                              persist_strict=persist_strict,
-                              replay_fused=replay_fused, stats=stats)
-        u_all, v_all = pixel_coords(W, H, dtype=cam.origin.dtype,
-                                    device=device)
+        flags = dict(remat=remat, fused_attrs=fused_attrs, compact=compact,
+                     recorded_fused=recorded_fused,
+                     recorded_persist=recorded_persist,
+                     persist_strict=persist_strict, replay_fused=replay_fused,
+                     stats=stats)
+        tracer = _pass_tracer(scene, max_depth, tmin, impl, **flags)
+        retrace = (_retracer(max_depth, tmin, impl, flags) if remat_passes
+                   else None)
+        u_all, v_all = pixel_coords(W, H, dtype=dtype, device=device)
     pieces = []
     for c, (start, size) in enumerate(chunks):
         seed_c = seed if len(chunks) == 1 else rng.fold_in(seed, c)
@@ -373,7 +466,7 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
             pieces.append(render_tile_sum_traced(
                 scene, cam, u_all[start:start + size],
                 v_all[start:start + size], seed_c, n_samples, 0, fw, fh,
-                spp_pass, tracer))
+                spp_pass, tracer, retrace))
     out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
     return (out / n_samples).reshape(H, W, 3)
 

@@ -241,8 +241,8 @@ def test_check_grads_sane_names_the_field(field):
                                 {"remat": True, "tile_skip": 64},
                                 {"recorded": False, "remat_policy": "dots"},
                                 {"recorded_stage": (4, 8)},
-                                {"recorded_persist": (8, None),
-                                 "remat_passes": True}])
+                                {"recorded_fused": True,
+                                 "fused_stages": (4, 8)}])
 def test_unported_gradient_integrators_raise(kw):
     scene = pt.scene_from_numpy(_mirror_world()[0])
     cam = pt.camera_from_numpy(_mirror_world()[1])

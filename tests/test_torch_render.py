@@ -138,12 +138,14 @@ def test_strided_dispatch_helpers_match_jax():
 
 
 @pytest.mark.parametrize("route", ["inline", "non_contiguous", "fixed_depth",
-                                   "remat_passes", "recorded_stage"])
+                                   "remat_passes", "recorded_stage",
+                                   "fused_stages"])
 def test_unported_routes_raise(route):
     # The routes that are ported render through render_tile_sum: the inline
     # route (K8), a non-contiguous tile given by its film coordinates (the
-    # pixel-pinned route, K9) and the fixed-depth wavefront (trace). Pass
-    # recomputation and the staged recorded path still raise.
+    # pixel-pinned route, K9), the fixed-depth wavefront (trace) and pass
+    # recomputation (two passes, each recomputed in the backward). The
+    # staged recorded paths still raise.
     scene, cam = pt.scene_2_spheres(), pt.t_default_cam()
     u, v = pt.pixel_coords(64, 36)
     kw = {"inline": dict(persistent=True, inline=True),
@@ -153,11 +155,14 @@ def test_unported_routes_raise(route):
           "remat_passes": dict(persistent=False, recorded_fused=True,
                                remat_passes=True),
           "recorded_stage": dict(persistent=False,
-                                 recorded_stage=(4, 8))}[route]
+                                 recorded_stage=(4, 8)),
+          "fused_stages": dict(persistent=False, recorded_fused=True,
+                               fused_stages=(4, 8))}[route]
     n_pix = 100 if route == "non_contiguous" else 64 * 36
-    if route in ("inline", "non_contiguous", "fixed_depth"):
-        out = pt.render_tile_sum(scene, cam, n_pix, 0, 1, 0, 16, 1e-4, 64.0,
-                                 36.0, **kw)
+    if route in ("inline", "non_contiguous", "fixed_depth", "remat_passes"):
+        n_samples = 2 if route == "remat_passes" else 1
+        out = pt.render_tile_sum(scene, cam, n_pix, 0, n_samples, 0, 16,
+                                 1e-4, 64.0, 36.0, **kw)
         assert out.shape == (n_pix, 3) and torch.isfinite(out).all()
         return
     with pytest.raises(NotImplementedError):
