@@ -59,7 +59,16 @@ the card) and K11 sweeps each block's packed live lanes with the split
 loop: ``k7c_k11_variants`` and ``k7c_k11_redesign`` hold them bit for bit
 against K7b's walk, K3 + K4 and their plain versions, time them beside
 the previous kernels (``scripts/torch_k7c_k11_variants.py``) and rerun
-the fit with the previous K7c, its losses bit for bit. It
+the fit with the previous K7c, its losses bit for bit. K9 fetches the
+winner's row itself and touches only the active lanes, so the pinned
+route launches K1 and K9 and no gather, and K13 takes every pair's roots
+behind ``disc > 0``: ``k9_k13_redesign`` holds
+them bit for bit against the kept previous kernels (K9 against K1, the
+gather and the previous K9 at four iterations of the flagship film and at
+every iteration of the even-row tile, whose image is bitwise the
+three-launch route's; K13 on the eight cases of ``grid_sweep``), times
+them beside those kernels, and ``k9_k13_variants`` runs one pass of
+``scripts/torch_k9_k13_variants.py``. It
 times the kernels, the renders,
 the steps and the fit against the plain path. Each phase prints one JSON
 line; a failed check raises and the script exits non-zero without printing
@@ -1312,6 +1321,38 @@ def mega_bound(fs, ist, spheres) -> dict:
                  + hit_live * ADVANCE_OPS)
 
 
+def pinned_fetch_bound(ist, t, n_sph: int) -> dict:
+    """K9's bound on the pinned state ``ist`` with the sweep's ``t``: per
+    active lane, 15 state words in and out, t, the winner's index, the film
+    coordinates and the winner's 40-byte row in (176 B); per idle lane, its
+    flag read (its state does not change); the attribute table and the
+    camera once. Shade operations of the active lanes, the regeneration of
+    every active lane (an upper count: only finished rays regenerate), the
+    advance of the active hits."""
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    n = t.shape[0]
+    active = ist[2] != 0
+    n_active = int(active.sum())
+    hit_live = int((active & (t < K1.BIG)).sum())
+    return bound(n_active * (15 * 4 * 2 + 4 + 4 + 8 + 40)
+                 + (n - n_active) * 4 + n_sph * 40 + 21 * 4,
+                 n_active * (SHADE_OPS + REGEN_OPS) + hit_live * ADVANCE_OPS)
+
+
+def grid_bound(n_rays: int, tabs, reach_pairs: int) -> dict:
+    """K13's bound: rays in, t and idx out, each warp's count out, the
+    tables once; every ray against the global spheres and every bound, and
+    each ray against the slots of the clusters its own bound test reaches
+    (a lane its warp carries through a cluster it cannot reach changes
+    nothing of the result)."""
+    n_warps = -(-n_rays // 32)
+    return bound(
+        n_rays * (24 + 8) + n_warps * 4
+        + (tabs.n_global + tabs.K * tabs.P) * (16 + 4) + tabs.K * 16,
+        n_rays * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS * (tabs.n_global + tabs.K))
+        + SWEEP_SPHERE_OPS * tabs.P * reach_pairs)
+
+
 def sweep_fetch_bound(n_rays: int, n_sph: int) -> dict:
     """K10's bound: rays in (24 B), t, idx and 10 attributes out (48 B), the
     two tables once; every ray against every sphere."""
@@ -1379,8 +1420,8 @@ def trace_slice_phases(dev, card, scene, cam, rays, lin_strided,
                              3, sleep_cycles=long_sleep)
     k10_bound = sweep_fetch_bound(rays.shape[1], n_sph)
 
-    # -- K9 against shade_and_regen_ref: the whole flagship film pinned,
-    # 2 073 600 lanes, after 24 iterations --------------------------------
+    # -- K9 against shade_and_regen_fetch_ref: the whole flagship film
+    # pinned, 2 073 600 lanes, after 24 iterations ------------------------
     u_px, v_px = pt.pixel_coords(W, H, device=dev)
     n = u_px.shape[0]
     org, d = I.pinned_start_rays(cam, u_px, v_px, 0, 0, float(W), float(H))
@@ -1389,29 +1430,27 @@ def trace_slice_phases(dev, card, scene, cam, rays, lin_strided,
     ist = torch.zeros((3, n), dtype=torch.int32, device=dev)
     ist[2] = 1
     cc = K2.pack_camera_consts(cam, W, H)
-    tables = (scene, spheres, amat)
     seed32, last = 0x9E3779B9, SPP - 1
     for it in range(24):
-        tt, at = I.sweep_attr_planes(tables, fs[0:6], 1e-4, "kernels")
-        K2.shade_and_regen(fs, ist, tt, at, u_px, v_px, cc, seed32, it, last,
-                           16)
-    tt, at = I.sweep_attr_planes(tables, fs[0:6], 1e-4, "kernels")
+        tt, ti = K1.sweep(fs[0:6], spheres)
+        K2.shade_and_regen_fetch(fs, ist, tt, ti, amat, u_px, v_px, cc,
+                                 seed32, it, last, 16)
+    tt, ti = K1.sweep(fs[0:6], spheres)
     torch.cuda.synchronize()
 
     def k9_compare(u9):
         a, b = [fs.clone(), ist.clone()], [fs.clone(), ist.clone()]
-        K2.shade_and_regen(*a, tt, at, u_px, v_px, cc, seed32, 24, last, 16,
-                           u9)
+        K2.shade_and_regen_fetch(*a, tt, ti, amat, u_px, v_px, cc, seed32, 24,
+                                 last, 16, u9)
         torch.cuda.synchronize()
-        K2.shade_and_regen_ref(*b, tt, at, u_px, v_px, cc, seed32, 24, last,
-                               16, u9)
+        K2.shade_and_regen_fetch_ref(*b, tt, ti, amat, u_px, v_px, cc, seed32,
+                                     24, last, 16, u9)
         return lanes_outside([(a[0], b[0])], 1e-6, [(a[1], b[1])])
 
     bad9_inj, err9_inj = k9_compare(torch.rand((9, n), generator=g,
                                                device=dev))
     bad9_ph, err9_ph = k9_compare(None)
-    active = ist[2] != 0
-    n_active = int(active.sum())
+    n_active = int((ist[2] != 0).sum())
     emit({"phase": "k9_vs_plain", "card": card, "lanes": n,
           "iteration": 24, "active_lanes": n_active,
           "lanes_outside_injected_u9": bad9_inj,
@@ -1428,22 +1467,13 @@ def trace_slice_phases(dev, card, scene, cam, rays, lin_strided,
         live[0].copy_(fs)
         live[1].copy_(ist)
 
-    k9_ms = device_ms(lambda: K2.shade_and_regen(
-        *live, tt, at, u_px, v_px, cc, seed32, 24, last, 16), 20,
+    k9_ms = device_ms(lambda: K2.shade_and_regen_fetch(
+        *live, tt, ti, amat, u_px, v_px, cc, seed32, 24, last, 16), 20,
         setup=restore)
-    k9_plain_ms = device_ms(lambda: K2.shade_and_regen_ref(
-        *live, tt, at, u_px, v_px, cc, seed32, 24, last, 16), 3,
+    k9_plain_ms = device_ms(lambda: K2.shade_and_regen_fetch_ref(
+        *live, tt, ti, amat, u_px, v_px, cc, seed32, 24, last, 16), 3,
         setup=restore, sleep_cycles=long_sleep)
-    hit_live = int((active & (tt < K1.BIG)).sum())
-    # live lanes: 15 state planes in and out, t, 10 attributes and the film
-    # coordinates in (172 B); an idle lane: its flag read (its state does
-    # not change); the camera constants once. Shade operations of the live
-    # lanes, the advance of the live hits, the regeneration of every live
-    # lane (an upper count: only finished rays regenerate).
-    k9_bound = bound(n_active * (15 * 4 * 2 + 4 + 40 + 8)
-                     + (n - n_active) * 4 + 21 * 4,
-                     n_active * (SHADE_OPS + REGEN_OPS)
-                     + hit_live * ADVANCE_OPS)
+    k9_bound = pinned_fetch_bound(ist, tt, n_sph)
     del live
     emit({"phase": "k9_k10_times", "card": card,
           "device_ms": {"sweep_fetch": k10_ms, "sweep_fetch_plain":
@@ -1578,7 +1608,8 @@ def trace_slice_phases(dev, card, scene, cam, rays, lin_strided,
           "max_rel_diff": rel_t,
           "tolerance": "each channel mean within 1% of the strided "
                        "route's on the same rows"})
-    check(tile_launches["shade_pinned"] > 0 and tile_launches["sweep"] > 0,
+    check(tile_launches["shade_pinned"] > 0 and tile_launches["sweep"] > 0
+          and tile_launches["gather"] == 0,
           f"pinned tile launched {tile_launches}")
     check(bool(torch.isfinite(tile_img).all()) and rel_t <= 0.01,
           f"pinned tile means differ by {rel_t}")
@@ -2229,17 +2260,7 @@ def last_kernel_phases(dev, card, snap, W: int = 1920, H: int = 1080,
             k13_plain_ms = device_ms(
                 lambda: K13.grid_sweep_ref(rays6, *tabs, 1e-4), 2,
                 sleep_cycles=long_sleep)
-            # rays in, t and idx out, each warp's count out, the tables
-            # once; every ray against the global spheres and every bound,
-            # and each ray against the slots of the clusters its own bound
-            # test reaches (a lane its warp carries through a cluster it
-            # cannot reach changes nothing of the result).
-            k13_bound = bound(
-                R * (24 + 8) + n_warps * 4
-                + (tabs.n_global + tabs.K * tabs.P) * (16 + 4) + tabs.K * 16,
-                R * (SWEEP_RAY_OPS + SWEEP_SPHERE_OPS
-                     * (tabs.n_global + tabs.K))
-                + SWEEP_SPHERE_OPS * tabs.P * reach_pairs)
+            k13_bound = grid_bound(R, tabs, reach_pairs)
     emit({"phase": "grid_sweep", "card": card, "rays": R,
           "grid": {"n_global": tabs.n_global, "K": tabs.K, "P": tabs.P},
           "launches": grid_launches, "cases": out, "bound_camera_row_major":
@@ -3075,6 +3096,229 @@ def k7c_k11_redesign_phases(dev, card, fit_losses) -> dict:
     return {"persist_record_fused": k11_row}
 
 
+def k9_k13_redesign_phases(dev, card) -> dict:
+    """K9 fetching the winner's row itself on the active lanes only, and
+    K13 with every pair's roots behind ``disc > 0``, beside the kept
+    kernels they replaced. K9 through its wrapper, every
+    state word bit for bit against K1 + gather + the previous K9 at
+    iterations 0, 8, 24 and 40 of the flagship film pinned, with injected
+    and Philox draws, one launch per call, and at every iteration of the
+    even-row tile (540 of 1 080 rows, spp 4), whose image through the
+    public ``render_tile_sum`` is bitwise the three-launch route's at the
+    same seed; the tile's launches (K1 and K9, no gather) and wall time
+    against the three-launch route, in turns. K13 through its wrapper, t,
+    idx and skips bit for bit against the kept previous K13 and the plain
+    version on the eight cases of the ``grid_sweep`` phase. Both timed by
+    :func:`batch_ms` beside the kernels they replaced, with their bounds
+    from this run's inputs. Then one pass of
+    ``scripts/torch_k9_k13_variants.py`` over the shipped designs and the
+    ones each change replaced (the others run in the script alone).
+    Returns K9's ms and bound at iteration 24 and K13's at the camera rays
+    in row-major order, the shapes of their ``kernels`` rows."""
+    import os
+    import torch
+    from raytracingweekend_jl_tpu_torch import render_tile_sum
+    from raytracingweekend_jl_tpu_torch.ops import integrator as I
+    from raytracingweekend_jl_tpu_torch.ops.cuda import grid_kernel as K13
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    from raytracingweekend_jl_tpu_torch.ops.cuda import shade_kernel as K2
+    from raytracingweekend_jl_tpu_torch.ops.materials import fetch_attr_planes
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import torch_k9_k13_variants as V9
+    V = V9.V
+
+    scene, cam, spheres, amat = V.flagship(dev)
+    n_sph = spheres.shape[0]
+    st = V.k12_states(dev, scene, cam, spheres, amat)
+    g = torch.Generator(device=dev).manual_seed(912)
+    last = V.SPP - 1
+
+    def k9(fs_, ist_, t, idx, it, u9=None):
+        K2.shade_and_regen_fetch(fs_, ist_, t, idx, amat, st["u"], st["v"],
+                                 st["cc"], st["seed"], it, last, V.DEPTH, u9)
+
+    def gather_previous(fs_, ist_, t, idx, it, u9=None):
+        K2.shade_and_regen(fs_, ist_, t, fetch_attr_planes(idx, amat),
+                           st["u"], st["v"], st["cc"], st["seed"], it, last,
+                           V.DEPTH, u9)
+
+    # K9 against K1 + gather + the previous K9, four iterations
+    out9 = {}
+    for it, (fs, ist, n_act) in st["at"].items():
+        n = fs.shape[1]
+        t, idx = K1.sweep(fs[0:6], spheres)
+        diff, one_launch = {}, True
+        for draws, u9 in (("injected", torch.rand((9, n), generator=g,
+                                                   device=dev)),
+                          ("philox", None)):
+            ref, got = [fs.clone(), ist.clone()], [fs.clone(), ist.clone()]
+            V.pinned_iteration(st, *ref, it, u9)
+            before = K2.pinned_launches
+            k9(*got, t, idx, it, u9)
+            torch.cuda.synchronize()
+            one_launch &= K2.pinned_launches == before + 1
+            diff[draws] = int(_bitwise_lanes(list(zip(got, ref)), n).sum())
+            del ref, got
+        make = lambda: (fs.clone(), ist.clone())
+        out9[f"iteration{it}"] = {
+            "active_lanes": n_act,
+            "lanes_differing_from_k1_gather_previous": diff,
+            "one_launch_per_call": one_launch,
+            "batch": batch_ms(lambda f, i: k9(f, i, t, idx, it), make, 20,
+                              V9.K9_RE),
+            "batch_gather_previous": batch_ms(
+                lambda f, i: gather_previous(f, i, t, idx, it), make, 20,
+                f"{V9.PREVIOUS_K9_RE}|{V9.GATHER_RE}"),
+            "bound": pinned_fetch_bound(ist, t, n_sph)}
+        torch.cuda.empty_cache()
+    check(all(c["one_launch_per_call"] for c in out9.values()),
+          "K9 launch count")
+    check(all(v == 0 for c in out9.values()
+              for v in c["lanes_differing_from_k1_gather_previous"].values()),
+          f"K9 differs from K1 + gather + the previous K9: {out9}")
+
+    # The even-row tile: the public route against the three-launch route
+    W, H = V.W, V.H
+    rows = torch.arange(W * H, device=dev).reshape(H, W)[::2].reshape(-1)
+    tu, tv = st["u"][rows].contiguous(), st["v"][rows].contiguous()
+    del st
+    loop_args = (scene, cam, tu, tv, 7, V.SPP, 0, V.DEPTH, V.TMIN, float(W),
+                 float(H), None)
+
+    def three_launch(impl, tables, fs_, ist_, u_, v_, cc, seed32, it, last_,
+                     md, tmin, u9):
+        t, idx = K1.sweep(fs_[0:6], tables[1], tmin)
+        K2.shade_and_regen(fs_, ist_, t, fetch_attr_planes(idx, tables[2]),
+                           u_, v_, cc, seed32, it, last_, md, u9)
+
+    tile_bad = {"injected": [], "philox": []}
+
+    def side_by_side(key):
+        def run(impl, tables, fs_, ist_, u_, v_, cc, seed32, it, last_, md,
+                tmin, u9):
+            t, idx = K1.sweep(fs_[0:6], tables[1], tmin)
+            ref = [fs_.clone(), ist_.clone()]
+            K2.shade_and_regen(*ref, t, fetch_attr_planes(idx, tables[2]),
+                               u_, v_, cc, seed32, it, last_, md, u9)
+            K2.shade_and_regen_fetch(fs_, ist_, t, idx, tables[2], u_, v_, cc,
+                                     seed32, it, last_, md, u9)
+            tile_bad[key].append(int(_bitwise_lanes(
+                [(fs_, ref[0]), (ist_, ref[1])], fs_.shape[1]).sum()))
+        return run
+
+    def route():
+        return render_tile_sum(scene, cam, rows.numel(), 7, V.SPP, 0,
+                               V.DEPTH, V.TMIN, float(W), float(H),
+                               persistent=True, u=tu, v=tv)
+
+    def three():
+        return I.pinned_render_loop(*loop_args, None, None, three_launch)
+
+    I.pinned_render_loop(*loop_args, None, lambda it: torch.rand(
+        (9, rows.numel()), generator=g, device=dev), side_by_side("injected"))
+    I.pinned_render_loop(*loop_args, None, None, side_by_side("philox"))
+    img_route = route()  # warm-up
+    img_three = three()
+    tile_bitwise = bool(torch.equal(_bits(img_route), _bits(img_three)))
+    reset_counts()
+    route()
+    torch.cuda.synchronize()
+    launches_route = counts()
+    reset_counts()
+    three()
+    torch.cuda.synchronize()
+    launches_three = counts()
+    secs = {"route": [], "three_launch": []}
+    order = [("route", route), ("three_launch", three)]
+    for r in range(3):
+        for nm, fn in (order[::-1] if r % 2 else order):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs[nm].append(time.perf_counter() - t0)
+    del img_route, img_three
+    keep = ("gather", "sweep", "shade_pinned")
+    tile = {"pixels": rows.numel(), "spp": V.SPP,
+            "iterations_differing_lanes": tile_bad,
+            "image_bitwise_three_launch": tile_bitwise,
+            "launches_route": {k: launches_route[k] for k in keep},
+            "launches_three_launch": {k: launches_three[k] for k in keep},
+            "seconds_runs": secs,
+            "seconds_median": {k: sorted(v)[1] for k, v in secs.items()}}
+    check(all(v == 0 for b in tile_bad.values() for v in b)
+          and all(tile_bad.values()),
+          f"K9 differs on the even-row tile: {tile_bad}")
+    check(tile_bitwise, "the tile's image differs from the three-launch "
+                        "route's")
+    check(launches_route["shade_pinned"] > 0 and launches_route["gather"] == 0
+          and launches_route["sweep"] == launches_route["shade_pinned"],
+          f"the tile's route launched {launches_route}")
+
+    # K13 against the previous K13 and the plain version, eight cases
+    tabs, cases = V9.k13_cases(dev)
+    out13 = {}
+    for case, rays in cases.items():
+        before = K13.launches
+        got = K13.grid_sweep(rays, *tabs, V.TMIN)
+        prev = K13.grid_sweep_all_roots(rays, *tabs, V.TMIN)
+        torch.cuda.synchronize()
+        one_launch = K13.launches == before + 1
+        tp, ip, sp, reach = K13.grid_sweep_ref(rays, *tabs, V.TMIN,
+                                               with_reach=True)
+        same = {"previous": all(torch.equal(_bits(a), _bits(b))
+                                for a, b in zip(got, prev)),
+                "plain": all(torch.equal(_bits(a), _bits(b))
+                             for a, b in zip(got, (tp, ip, sp)))}
+        out13[case] = {
+            "bitwise": same, "one_launch_per_call": one_launch,
+            "culled_share": int(got[2].sum()) / (got[2].numel() * tabs.K),
+            "batch": batch_ms(lambda: K13.grid_sweep(rays, *tabs, V.TMIN),
+                              lambda: (), 20, V9.K13_RE),
+            "batch_previous": batch_ms(
+                lambda: K13.grid_sweep_all_roots(rays, *tabs, V.TMIN),
+                lambda: (), 20, V9.PREVIOUS_K13_RE),
+            "bound": grid_bound(rays.shape[1], tabs, reach)}
+        del got, prev, tp, ip, sp
+    del cases
+    check(all(c["one_launch_per_call"] and all(c["bitwise"].values())
+              for c in out13.values()),
+          f"K13 differs from the previous K13 or its plain version: "
+          f"{ {k: c['bitwise'] for k, c in out13.items()} }")
+    occ = {"grid_sweep": K13.occupancy(tabs.n_global, tabs.K, tabs.P, dev)}
+    emit({"phase": "k9_k13_redesign", "card": card, "spheres": n_sph,
+          "grid": {"n_global": tabs.n_global, "K": tabs.K, "P": tabs.P},
+          "k9": out9, "even_row_tile": tile, "k13": out13, "occupancy": occ,
+          "note": "batch: batch_ms through the wrapper (event_ms: one "
+                  "event pair around 20 launches; K9 each on its own copy "
+                  "of the state); batch_gather_previous: the gather and "
+                  "the previous K9; bound: from this run's inputs",
+          "tolerance": "K9: every state word bit for bit K1 + gather + the "
+                       "previous K9's at every iteration and draw, on the "
+                       "film and at every iteration of the tile; the tile's "
+                       "image bitwise the three-launch route's; K13: t, idx "
+                       "and skips bit for bit the previous K13's and the "
+                       "plain version's on every case"})
+    torch.cuda.empty_cache()
+
+    out = V9.run_pass_set(dev, 1, k9_builds=("shipped", "exit"),
+                          k13_builds=("shipped", "persistent",
+                                      "shipped_roots"))
+    emit({"phase": "k9_k13_variants", "card": card, **out,
+          "note": "one pass of the shipped designs and the ones each change "
+                  "replaced (the others: scripts/torch_k9_k13_variants.py "
+                  "alone); event_ms: one CUDA event pair around n launches "
+                  "(K9: each on its own copy of the state); profiler_ms: "
+                  "the profiler's per-launch mean; pinned_render: host-clock "
+                  "seconds and the step's device time per render by the "
+                  "profiler, medians of 3 in turns"})
+    return {"shade_pinned": {"ms": out9["iteration24"]["batch"]["event_ms"],
+                             "bound": out9["iteration24"]["bound"]},
+            "grid_sweep": {"ms": out13["camera_row_major"]["batch"][
+                "event_ms"], "bound": out13["camera_row_major"]["bound"]}}
+
+
 def k1_phase_rays(dev, cam, spheres, g=None):
     """The K1 phase's 2^20 rays [6, 2^20] of the flagship: 2^19 camera rays
     (film points and lens samples from ``g``, by default a generator seeded
@@ -3410,6 +3654,14 @@ def main() -> int:
             row.update(ms=r["ms"], plain_ms=r["plain_ms"],
                        max_abs_err=r["max_abs_err"],
                        bound_ms=r["bound"]["bound_ms"],
+                       bound_by=r["bound"]["bound_by"])
+
+    # -- 21. K9 and K13 beside their previous forms ------------------------
+    redesign = k9_k13_redesign_phases(dev, card)
+    for row in trace_rows + last_rows:
+        r = redesign.get(row["name"])
+        if r is not None:
+            row.update(ms=r["ms"], bound_ms=r["bound"]["bound_ms"],
                        bound_by=r["bound"]["bound_by"])
 
     # -- the kernels line: every ported kernel, with its bound -------------

@@ -11,10 +11,11 @@
 // closest hit over the sphere table, the winner's 10 attributes (zeros on a
 // miss, the TPU kernel's running-select start), then K9's body
 // (pinned_core.cuh): shade, bank the sky on a miss, continue with the
-// scatter or start the pixel's next sample. The three-launch pinned route
-// (K1, the gather, K9) computes the same function; on a miss its gather
-// reads sphere 0's row, which no hit-gated expression of the body uses, so
-// the two routes give the same bits.
+// scatter or start the pixel's next sample. The pinned route (K1, then K9
+// reading the winner's row by index) and the previous three-launch route
+// (K1, the gather, the previous K9) compute the same function; on a miss
+// they read sphere 0's row, which no hit-gated expression of the body
+// uses, so the routes give the same bits.
 //
 // What bounds it on the card: arithmetic on the active lanes, as K1: ~20
 // flops per active lane and sphere, against 128 bytes of state traffic per

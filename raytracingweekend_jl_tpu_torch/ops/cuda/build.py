@@ -57,6 +57,11 @@ _SIGNATURES = {
     # u9[9,R] or NULL, R, last_sample, max_depth, seed, iteration, stream
     "rtw_shade_pinned": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U,
                          _P],
+    # fstate[12,R], istate[3,R], t[R], idx[R], amat[N,10], u[R], v[R],
+    # cam[21], u9[9,R] or NULL, R, last_sample, max_depth, seed, iteration,
+    # stream
+    "rtw_shade_pinned_fetch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _U, _U, _P],
     # rays[6,W], alive[W], spheres[N,4], W, N, tmin, t[W], idx[W], parts,
     # stream
     "rtw_sweep_masked": [_P, _P, _P, _I, _I, _F, _P, _P, _I, _P],
@@ -108,6 +113,10 @@ _SIGNATURES = {
     # rays[6,R], sph[G+K*P,4], im[G+K*P], bnd[K,4], R, G, K, P, tmin, t[R],
     # idx[R], skips[ceil(R/32)], stream
     "rtw_grid_sweep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    "rtw_grid_sweep_all_roots": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P,
+                                 _P, _P],
+    # G, K, P, &regs, &blocks_per_sm, &sm_count
+    "rtw_grid_sweep_occupancy": [_I, _I, _I, _IP, _IP, _IP],
 }
 
 

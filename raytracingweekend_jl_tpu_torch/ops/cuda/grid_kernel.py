@@ -13,10 +13,13 @@ The unit of culling is a warp, 32 consecutive rays: a cluster's slots are
 swept for all 32 if the bound test passes for any of them, and ``skips``
 [ceil(R / 32)] int32 counts the clusters each warp culled. The plain
 version makes the same per-32-ray decision, so its ``skips`` are the
-kernel's.
+kernel's. The kernel takes each pair's roots only where its discriminant
+is positive.
 
 :func:`grid_sweep` launches the kernel on CUDA tensors and runs
 :func:`grid_sweep_ref` on CPU tensors; nothing else.
+:func:`grid_sweep_all_roots` launches the kernel before that redesign,
+kept on no route as the card's bitwise reference.
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ launches = 0
 
 #: Rays per culling decision (one warp).
 WARP = 32
+
+#: Rays (and threads) per block of K13 (``RTW_GRID_THREADS`` in
+#: csrc/grid_sweep.cu).
+THREADS = 128
 
 
 def _closer(best_t, best_s, s, c4, rays, od, oo, tmin, run=None):
@@ -105,6 +112,38 @@ def grid_sweep_ref(rays: torch.Tensor, sph: torch.Tensor, im: torch.Tensor,
     return best_t, idx, skips
 
 
+def _launch(name: str, rays: torch.Tensor, sph: torch.Tensor,
+            im: torch.Tensor, bnd: torch.Tensor, n_global: int, K: int,
+            P: int, tmin: float
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Checks the arguments and launches the library's ``name`` on the
+    current stream: ``(t, idx, skips)``."""
+    dev = rays.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    R = rays.shape[1] if rays.dim() == 2 else -1
+    total = n_global + K * P
+    f32 = torch.float32
+    for arg, x, dtype, shape in (
+            ("rays", rays, f32, (6, R)), ("sph", sph, f32, (total, 4)),
+            ("im", im, torch.int32, (total,)), ("bnd", bnd, f32, (K, 4))):
+        build.check_arg(f"{name}: {arg}", x, dtype, shape, dev)
+    if total * 20 + K * 16 > 227 * 1024:
+        raise ValueError(f"{name}: {total} slots and {K} clusters exceed "
+                         "the kernel's shared-memory tables")
+    t = torch.empty(R, dtype=f32, device=dev)
+    idx = torch.empty(R, dtype=torch.int32, device=dev)
+    skips = torch.empty(-(-R // WARP), dtype=torch.int32, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"rtw_{name}")(
+            rays.data_ptr(), sph.data_ptr(), im.data_ptr(), bnd.data_ptr(), R,
+            n_global, K, P, float(tmin), t.data_ptr(), idx.data_ptr(),
+            skips.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    build.check(err, name)
+    return t, idx, skips
+
+
 def grid_sweep(rays: torch.Tensor, sph: torch.Tensor, im: torch.Tensor,
                bnd: torch.Tensor, n_global: int, K: int, P: int,
                tmin: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -115,28 +154,36 @@ def grid_sweep(rays: torch.Tensor, sph: torch.Tensor, im: torch.Tensor,
     global launches
     if rays.device.type == "cpu":
         return grid_sweep_ref(rays, sph, im, bnd, n_global, K, P, tmin)
-    dev = rays.device
-    if dev.type != "cuda":
-        raise ValueError(f"grid_sweep: unsupported device {dev}")
-    R = rays.shape[1] if rays.dim() == 2 else -1
-    total = n_global + K * P
-    f32 = torch.float32
-    for name, x, dtype, shape in (
-            ("rays", rays, f32, (6, R)), ("sph", sph, f32, (total, 4)),
-            ("im", im, torch.int32, (total,)), ("bnd", bnd, f32, (K, 4))):
-        build.check_arg(f"grid_sweep: {name}", x, dtype, shape, dev)
-    if total * 20 + K * 16 > 227 * 1024:
-        raise ValueError(f"grid_sweep: {total} slots and {K} clusters exceed "
-                         "the kernel's shared-memory tables")
-    t = torch.empty(R, dtype=f32, device=dev)
-    idx = torch.empty(R, dtype=torch.int32, device=dev)
-    skips = torch.empty(-(-R // WARP), dtype=torch.int32, device=dev)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.rtw_grid_sweep(
-            rays.data_ptr(), sph.data_ptr(), im.data_ptr(), bnd.data_ptr(), R,
-            n_global, K, P, float(tmin), t.data_ptr(), idx.data_ptr(),
-            skips.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    build.check(err, "grid_sweep")
+    out = _launch("grid_sweep", rays, sph, im, bnd, n_global, K, P, tmin)
     launches += 1
-    return t, idx, skips
+    return out
+
+
+def grid_sweep_all_roots(rays: torch.Tensor, sph: torch.Tensor,
+                         im: torch.Tensor, bnd: torch.Tensor, n_global: int,
+                         K: int, P: int, tmin: float
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The previous K13 (``grid_sweep_all_roots_kernel``: one block per 128
+    rays staging the tables, both roots of every pair). The independent
+    reference that the card checks hold K13 against bit for bit; no route
+    runs it, and its launches are not counted. Arguments and results as
+    :func:`grid_sweep`; CPU tensors run :func:`grid_sweep_ref`."""
+    if rays.device.type == "cpu":
+        return grid_sweep_ref(rays, sph, im, bnd, n_global, K, P, tmin)
+    return _launch("grid_sweep_all_roots", rays, sph, im, bnd, n_global, K,
+                   P, tmin)
+
+
+def occupancy(n_global: int, K: int, P: int, device=None) -> dict:
+    """``{"registers", "blocks_per_sm", "threads_per_block", "sm_count"}``
+    of K13 on ``device`` (the current CUDA device by default), from the
+    CUDA runtime, at its block size and shared memory for these tables."""
+    import ctypes
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = build.load().rtw_grid_sweep_occupancy(
+            n_global, K, P, *(ctypes.byref(x) for x in out))
+    build.check(err, "grid_sweep occupancy")
+    regs, blocks, sms = (x.value for x in out)
+    return {"registers": regs, "blocks_per_sm": blocks,
+            "threads_per_block": THREADS, "sm_count": sms}

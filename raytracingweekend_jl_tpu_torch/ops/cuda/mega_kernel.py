@@ -4,7 +4,7 @@ launch (csrc/mega.cu) — and its plain version.
 Counterpart of ``raytracingweekend_jl_tpu/ops/pallas/experimental/
 mega_kernel.py`` (``_mega_kernel``, launched by ``mega_step``): the sweep
 with the winner's attributes, then the pinned shade / scatter / regenerate
-body of K9 (``shade_kernel.shade_and_regen``). The state is K9's:
+body of K9 (``shade_kernel.shade_and_regen_fetch``). The state is K9's:
 ``fstate`` float32 [12, R] (origin, direction, throughput, the pixel's
 radiance sum) and ``istate`` int32 [3, R] (bounce, sample, active), both
 contiguous and updated in place.

@@ -25,11 +25,17 @@ gather, then :func:`shade_strided_step_ref`) on CPU tensors; nothing else.
 
 K9 — one pixel-pinned persistent iteration (csrc/shade_pinned.cu), the
 counterpart of ``_shade_kernel`` with ``_shade_math`` — keeps one lane per
-pixel: :func:`shade_and_regen` launches it on CUDA tensors and runs
-:func:`shade_and_regen_ref` on CPU tensors. Its state (``[planes, R]``,
-contiguous, updated in place): ``fstate`` float32 [12] (origin, direction,
-throughput, the pixel's radiance sum) and ``istate`` int32 [3] (bounce,
-sample, active).
+pixel. Its state (``[planes, R]``, contiguous, updated in place):
+``fstate`` float32 [12] (origin, direction, throughput, the pixel's
+radiance sum) and ``istate`` int32 [3] (bounce, sample, active). K9 takes
+the sweep's winner index and the [N, 10] attribute table, fetches the
+winner's row itself and touches only the active lanes:
+:func:`shade_and_regen_fetch` launches it on CUDA tensors and runs
+:func:`shade_and_regen_fetch_ref` (the gather, then
+:func:`shade_and_regen_ref`) on CPU tensors. :func:`shade_and_regen`
+launches the kernel before that redesign, which takes ten gathered
+attribute planes and runs every lane; no route runs it, and the card
+checks hold K9 and the megakernel K12 against it bit for bit.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ from . import build
 #: kernel is launched).
 launches = 0
 
-#: Number of K9 launches since the last reset.
+#: Number of K9 launches (:func:`shade_and_regen_fetch`) since the last
+#: reset.
 pinned_launches = 0
 
 N_FSTATE = 12
@@ -458,18 +465,88 @@ def shade_and_regen_ref(fstate: torch.Tensor, istate: torch.Tensor,
     istate.copy_(torch.stack([bo, sa, active.to(torch.int32)]))
 
 
+def shade_and_regen_fetch_ref(fstate: torch.Tensor, istate: torch.Tensor,
+                              t: torch.Tensor, idx: torch.Tensor,
+                              amat: torch.Tensor, film_u: torch.Tensor,
+                              film_v: torch.Tensor, cam: torch.Tensor,
+                              seed: int, iteration: int, last_sample: int,
+                              max_depth: int,
+                              u9: torch.Tensor | None = None) -> None:
+    """Plain PyTorch K9 as the pinned loop calls it: the winner fetch
+    (``materials.fetch_attr_planes`` of the sweep's ``idx`` [R] into
+    ``amat`` [N, 10]), then :func:`shade_and_regen_ref`, in place."""
+    from ..materials import fetch_attr_planes  # materials imports this module
+    shade_and_regen_ref(fstate, istate, t, fetch_attr_planes(idx, amat),
+                        film_u, film_v, cam, seed, iteration, last_sample,
+                        max_depth, u9)
+
+
+def _check_pinned(what, fstate, istate, t, film_u, film_v, cam, u9, dev):
+    n = t.shape[0] if t.dim() == 1 else -1
+    f32, i32 = torch.float32, torch.int32
+    for name, x, dtype, shape in (
+            ("fstate", fstate, f32, (N_FSTATE, n)),
+            ("istate", istate, i32, (N_PINNED_ISTATE, n)),
+            ("t", t, f32, (n,)), ("film_u", film_u, f32, (n,)),
+            ("film_v", film_v, f32, (n,)), ("cam", cam, f32, (21,))):
+        build.check_arg(f"{what}: {name}", x, dtype, shape, dev)
+    if u9 is not None:
+        build.check_arg(f"{what}: u9", u9, f32, (9, n), dev)
+    return n
+
+
+def shade_and_regen_fetch(fstate: torch.Tensor, istate: torch.Tensor,
+                          t: torch.Tensor, idx: torch.Tensor,
+                          amat: torch.Tensor, film_u: torch.Tensor,
+                          film_v: torch.Tensor, cam: torch.Tensor, seed: int,
+                          iteration: int, last_sample: int, max_depth: int,
+                          u9: torch.Tensor | None = None) -> None:
+    """K9: one pixel-pinned iteration with its winner fetch, in place
+    (arguments as :func:`shade_and_regen_fetch_ref`; ``idx`` int32). Only
+    the active lanes are read, drawn for and written: the step leaves an
+    idle lane's state as it is.
+
+    CPU tensors run :func:`shade_and_regen_fetch_ref`. CUDA tensors launch
+    the kernel on the current stream; anything it does not take raises."""
+    global pinned_launches
+    if fstate.device.type == "cpu":
+        return shade_and_regen_fetch_ref(fstate, istate, t, idx, amat, film_u,
+                                         film_v, cam, seed, iteration,
+                                         last_sample, max_depth, u9)
+    dev = fstate.device
+    if dev.type != "cuda":
+        raise ValueError(f"shade_and_regen_fetch: unsupported device {dev}")
+    n = _check_pinned("shade_and_regen_fetch", fstate, istate, t, film_u,
+                      film_v, cam, u9, dev)
+    build.check_arg("shade_and_regen_fetch: idx", idx, torch.int32, (n,), dev)
+    build.check_arg("shade_and_regen_fetch: amat", amat, torch.float32,
+                    (amat.shape[0] if amat.dim() == 2 else -1, 10), dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.rtw_shade_pinned_fetch(
+            fstate.data_ptr(), istate.data_ptr(), t.data_ptr(), idx.data_ptr(),
+            amat.data_ptr(), film_u.data_ptr(), film_v.data_ptr(),
+            cam.data_ptr(), None if u9 is None else u9.data_ptr(), n,
+            int(last_sample), int(max_depth), seed & 0xFFFFFFFF,
+            iteration & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "shade_and_regen_fetch")
+    pinned_launches += 1
+
+
 def shade_and_regen(fstate: torch.Tensor, istate: torch.Tensor,
                     t: torch.Tensor, attrs: torch.Tensor,
                     film_u: torch.Tensor, film_v: torch.Tensor,
                     cam: torch.Tensor, seed: int, iteration: int,
                     last_sample: int, max_depth: int,
                     u9: torch.Tensor | None = None) -> None:
-    """K9: one pixel-pinned iteration, in place (arguments as
-    :func:`shade_and_regen_ref`).
+    """The previous K9 (``shade_pinned_kernel``): one thread per lane over
+    every lane, the winner's attributes from ten gathered planes, in place
+    (arguments as :func:`shade_and_regen_ref`). The independent reference
+    that the card checks hold K9 and K12 against bit for bit; no route runs
+    it, and its launches are not counted.
 
     CPU tensors run :func:`shade_and_regen_ref`. CUDA tensors launch the
     kernel on the current stream; anything it does not take raises."""
-    global pinned_launches
     if fstate.device.type == "cpu":
         return shade_and_regen_ref(fstate, istate, t, attrs, film_u, film_v,
                                    cam, seed, iteration, last_sample,
@@ -477,17 +554,10 @@ def shade_and_regen(fstate: torch.Tensor, istate: torch.Tensor,
     dev = fstate.device
     if dev.type != "cuda":
         raise ValueError(f"shade_and_regen: unsupported device {dev}")
-    n = t.shape[0] if t.dim() == 1 else -1
-    f32, i32 = torch.float32, torch.int32
-    for name, x, dtype, shape in (
-            ("fstate", fstate, f32, (N_FSTATE, n)),
-            ("istate", istate, i32, (N_PINNED_ISTATE, n)),
-            ("t", t, f32, (n,)), ("attrs", attrs, f32, (10, n)),
-            ("film_u", film_u, f32, (n,)), ("film_v", film_v, f32, (n,)),
-            ("cam", cam, f32, (21,))):
-        build.check_arg(f"shade_and_regen: {name}", x, dtype, shape, dev)
-    if u9 is not None:
-        build.check_arg("shade_and_regen: u9", u9, f32, (9, n), dev)
+    n = _check_pinned("shade_and_regen", fstate, istate, t, film_u, film_v,
+                      cam, u9, dev)
+    build.check_arg("shade_and_regen: attrs", attrs, torch.float32, (10, n),
+                    dev)
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.rtw_shade_pinned(
@@ -497,4 +567,3 @@ def shade_and_regen(fstate: torch.Tensor, istate: torch.Tensor,
             int(last_sample), int(max_depth), seed & 0xFFFFFFFF,
             iteration & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
     build.check(err, "shade_and_regen")
-    pinned_launches += 1

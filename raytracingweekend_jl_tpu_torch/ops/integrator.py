@@ -17,11 +17,11 @@ sample in place when its ray ends (sky or depth exhaustion):
   its step is K2 (``cuda/shade_kernel.shade_strided_step``);
 - :func:`persistent_render_sum_fused`: one lane per pixel of any set of
   film coordinates (a non-contiguous tile); its step is K9
-  (``cuda/shade_kernel.shade_and_regen``).
+  (``cuda/shade_kernel.shade_and_regen_fetch``).
 
 Every persistent iteration is the closest-hit sweep, the winner-attribute
-fetch and the shade / scatter / regenerate step; the strided step (K2)
-fetches the winner's row itself, the pinned one takes a gather's planes.
+fetch and the shade / scatter / regenerate step; both steps (K2, K9) fetch
+the winner's row themselves.
 ``impl`` picks how they run. ``"kernels"`` (the default for CUDA
 tensors) runs K1 and the kernel step. ``"plain"`` (the default on the CPU,
 and selectable on a card for comparison) runs the dot-form
@@ -177,8 +177,8 @@ def sweep_hits(scene_tables: tuple, rays: torch.Tensor, tmin: float,
 
 def sweep_attr_planes(scene_tables: tuple, rays: torch.Tensor, tmin: float,
                       impl: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """The sweep and fetch of one pinned iteration: ``(t [R], attrs
-    [10, R])``, :func:`sweep_hits` and a gather."""
+    """The sweep and fetch of the pinned route's plain iteration: ``(t
+    [R], attrs [10, R])``, :func:`sweep_hits` and a gather."""
     t, idx = sweep_hits(scene_tables, rays, tmin, impl)
     return t, fetch_attr_planes(idx, scene_tables[2])
 
@@ -452,12 +452,19 @@ def pinned_render_loop(scene: Scene, cam, u: torch.Tensor, v: torch.Tensor,
 
 def _pinned_iteration(impl, tables, fstate, istate, u, v, cam_consts, seed32,
                       it, last_sample, max_depth, tmin, u9) -> None:
-    """One iteration of the pinned route: the sweep, the fetch and K9."""
+    """One iteration of the pinned route: K1, then K9 with its winner fetch
+    (``"kernels"``: two launches); or the sweep, the gather and K9's plain
+    version (``"plain"``)."""
+    if impl == "kernels":
+        t, idx = sweep_hits(tables, fstate[0:6], tmin, impl)
+        shade_kernel.shade_and_regen_fetch(fstate, istate, t, idx, tables[2],
+                                           u, v, cam_consts, seed32, it,
+                                           last_sample, max_depth, u9)
+        return
     t, attrs = sweep_attr_planes(tables, fstate[0:6], tmin, impl)
-    step = (shade_kernel.shade_and_regen if impl == "kernels"
-            else shade_kernel.shade_and_regen_ref)
-    step(fstate, istate, t, attrs, u, v, cam_consts, seed32, it, last_sample,
-         max_depth, u9)
+    shade_kernel.shade_and_regen_ref(fstate, istate, t, attrs, u, v,
+                                     cam_consts, seed32, it, last_sample,
+                                     max_depth, u9)
 
 
 def persistent_render_sum_fused(
@@ -475,8 +482,9 @@ def persistent_render_sum_fused(
     ``persistent_render_sum_fused``, the route of tiles that are neither the
     whole image nor a contiguous pixel range).
 
-    Each iteration: the sweep, the fetch, and K9 (``"kernels"``) or its
-    plain version. The loop ends once no lane is active (checked every
+    Each iteration: K1 and K9, which fetches the winner's row itself
+    (``"kernels"``), or the dot-form sweep, the gather and K9's plain
+    version (``"plain"``). The loop ends once no lane is active (checked every
     ``ACTIVE_CHECK_EVERY`` iterations) or after ``n_samples * max_depth``
     iterations. Float32 only. Draws: the first rays as
     :func:`pinned_start_rays` (``init_u4`` replaces them); later iterations

@@ -390,7 +390,8 @@ def k12_launch(fn, st, fs, ist, it: int, u9=None) -> None:
 
 
 def pinned_iteration(st, fs, ist, it: int, u9=None) -> None:
-    """The pinned route's iteration: K1, the gather, K9."""
+    """The pinned iteration before K9 took the fetch: K1, the gather, the
+    previous K9 (``shade_and_regen``, kept on no route)."""
     t, idx = K1.sweep(fs[0:6], st["spheres"])
     K2.shade_and_regen(fs, ist, t, fetch_attr_planes(idx, st["amat"]),
                        st["u"], st["v"], st["cc"], st["seed"], it, SPP - 1,

@@ -199,3 +199,40 @@ def test_grid_kernel_matches_plain_on_card(cuda_device):
         hit = t1 < K.BIG
         assert torch.equal(got[0] < K.BIG, hit)
         assert torch.equal(got[1][hit], i1[hit])
+
+
+@pytest.mark.cuda
+def test_grid_kernel_bitwise_previous_on_card(cuda_device):
+    # K13 (the roots behind disc > 0) against the kept
+    # previous kernel (grid_sweep_all_roots) and the plain version, on the
+    # flagship camera's rays at 256x144 and on rays leaving their hit
+    # points in random directions, each row-major, strided and in 32x32
+    # tiles: t, idx and skips bitwise equal to both; one counted launch per
+    # call, none for the kept kernel.
+    dev = cuda_device
+    sc = pt.scene_from_numpy(jtrim(rtw.scene_random_spheres(seed=1)),
+                             device=dev)
+    tabs = G.grid_tables(G.build_grid(sc), dev)
+    o, d = _rays(256, 144)
+    cam = torch.from_numpy(np.concatenate([o.T, d.T])).contiguous().to(dev)
+    t0, _ = K.sweep(cam, K.sphere_consts(sc))
+    hit = torch.where(t0 < K.BIG, t0, torch.ones_like(t0))
+    g = np.random.default_rng(5).normal(size=(3, cam.shape[1]))
+    g = torch.from_numpy(g / np.linalg.norm(g, axis=0)).float().to(dev)
+    bounce = torch.cat([cam[0:3] + hit * cam[3:6], g]).contiguous()
+    n = cam.shape[1]
+    orders = (None, np.argsort(np.arange(n) % 64, kind="stable"),
+              _tile_perm(256, 144, 32, 32))
+    for rays in (cam, bounce):
+        for perm in orders:
+            r = rays if perm is None else rays[:, torch.from_numpy(perm).to(
+                dev)].contiguous()
+            before = GK.launches
+            got = GK.grid_sweep(r, *tabs, 1e-4)
+            prev = GK.grid_sweep_all_roots(r, *tabs, 1e-4)
+            torch.cuda.synchronize()
+            assert GK.launches == before + 1
+            ref = GK.grid_sweep_ref(r, *tabs, 1e-4)
+            for a, b, c in zip(got, prev, ref):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+                assert torch.equal(a.view(torch.int32), c.view(torch.int32))

@@ -3,7 +3,8 @@
 non-contiguous-tile route of ``render_tile_sum``) against the JAX package's
 ``shade_and_regen`` and ``persistent_render_sum_fused`` in interpret mode,
 fed the same uniforms, and the plain pinned body ``persistent_render_sum``
-against the JAX package's. Card-only: K9 against its plain version."""
+against the JAX package's. Card-only: K9 against its plain version
+(``test_torch_pinned_fetch.py`` holds K9 with its fetch inside)."""
 
 import importlib
 
@@ -244,9 +245,10 @@ def test_pinned_tile_estimates_the_strided_image():
 
 
 def test_pinned_wrapper_on_cpu_runs_plain_version():
-    # shade_and_regen on CPU tensors runs its plain version (the same
-    # bits, in place, Philox draws of (seed, iteration)) and counts no
-    # launch; the start rays' draws are keyed by slot.
+    # shade_and_regen (the previous K9, kept as the card's reference) on
+    # CPU tensors runs its plain version (the same bits, in place, Philox
+    # draws of (seed, iteration)) and counts no launch; the start rays'
+    # draws are keyed by slot.
     n = 300
     g = torch.Generator().manual_seed(0)
     fs = torch.rand((12, n), generator=g)
@@ -274,10 +276,11 @@ def test_pinned_wrapper_on_cpu_runs_plain_version():
 
 @pytest.mark.cuda
 def test_pinned_kernel_matches_plain_on_card(cuda_device):
-    # K9 against its plain version on the card at a mid-render state of the
-    # even rows of a 512x288 image, with injected and with Philox draws:
-    # integer planes identical, float planes within 1e-6 * max(1, |x|) on
-    # >= 99.99% of lanes; one launch per call.
+    # K9 (the winner's row fetched by index inside) against its plain
+    # version on the card at a mid-render state of the even rows of a
+    # 512x288 image, with injected and with Philox draws: integer planes
+    # identical, float planes within 1e-6 * max(1, |x|) on >= 99.99% of
+    # lanes; one launch per call.
     dev = cuda_device
     torch.backends.cuda.matmul.allow_tf32 = False
     scene = pt.trim_scene(pt.scene_random_spheres(seed=1, device=dev))
@@ -295,17 +298,20 @@ def test_pinned_kernel_matches_plain_on_card(cuda_device):
     cc = K2.pack_camera_consts(cam, W, H)
     tables = (scene, I.intersect_kernel.sphere_consts(scene), attr_mat(scene))
     for it in range(12):
-        t, attrs = I.sweep_attr_planes(tables, fs[0:6], 1e-4, "kernels")
-        K2.shade_and_regen(fs, ist, t, attrs, u, v, cc, 5, it, 3, 16)
-    t, attrs = I.sweep_attr_planes(tables, fs[0:6], 1e-4, "kernels")
+        t, idx = I.sweep_hits(tables, fs[0:6], 1e-4, "kernels")
+        K2.shade_and_regen_fetch(fs, ist, t, idx, tables[2], u, v, cc, 5, it,
+                                 3, 16)
+    t, idx = I.sweep_hits(tables, fs[0:6], 1e-4, "kernels")
     g = torch.Generator(device=dev).manual_seed(1)
     for u9 in (torch.rand((9, n), generator=g, device=dev), None):
         a, b = [fs.clone(), ist.clone()], [fs.clone(), ist.clone()]
         before = K2.pinned_launches
-        K2.shade_and_regen(*a, t, attrs, u, v, cc, 5, 12, 3, 16, u9)
+        K2.shade_and_regen_fetch(*a, t, idx, tables[2], u, v, cc, 5, 12, 3, 16,
+                                 u9)
         torch.cuda.synchronize()
         assert K2.pinned_launches == before + 1
-        K2.shade_and_regen_ref(*b, t, attrs, u, v, cc, 5, 12, 3, 16, u9)
+        K2.shade_and_regen_fetch_ref(*b, t, idx, tables[2], u, v, cc, 5, 12,
+                                     3, 16, u9)
         ok = (a[1] == b[1]).all(0) & (
             (a[0] - b[0]).abs() <= 1e-6 * b[0].abs().clamp(min=1)).all(0)
         assert ok.float().mean() >= 0.9999
