@@ -68,7 +68,19 @@ gather and the previous K9 at four iterations of the flagship film and at
 every iteration of the even-row tile, whose image is bitwise the
 three-launch route's; K13 on the eight cases of ``grid_sweep``), times
 them beside those kernels, and ``k9_k13_variants`` runs one pass of
-``scripts/torch_k9_k13_variants.py``. It
+``scripts/torch_k9_k13_variants.py``. K7b issues every load of a lane at
+once, its alive flag with them: ``k7b_variants`` runs one pass of
+``scripts/torch_k7b_variants.py`` (every design bit for bit the previous
+K7b over the demo's 16-bounce walk, timed per launch at four bounces and
+per two unfused steps beside the empty-kernel launch floor) and
+``k7b_redesign`` holds K7b bit for bit the kept previous kernel through
+the wrappers and two unfused fit steps' losses with either. The edge
+(silhouette) estimator and ``fit_scene_scan``: ``edge_primal`` (the
+primal bit for bit the keyed trace on the card), ``edge_flagship_fit``
+(two steps of the JAX package's flagship joint fit, 960x540, spp 8, with
+their seconds and peak memory), ``edge_fd`` (a center's edge gradient
+against finite differences) and ``fit_scan`` (``fit_scene_scan`` beside
+``fit_scene`` on both geoms, with host syncs per step). It
 times the kernels, the renders,
 the steps and the fit against the plain path. Each phase prints one JSON
 line; a failed check raises and the script exits non-zero without printing
@@ -88,7 +100,14 @@ import sys
 import time
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Prints ``obj`` as one JSON line; a phase's line gets the seconds
+    since the script started (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -2839,7 +2858,8 @@ def k10_k12_redesign_phases(dev, card, rays, rays_f) -> dict:
     del st
 
     out = V.run_pass_set(dev, 1, sets=sets, k10_builds=("shipped",),
-                         k12_builds=("shipped", "previous"))
+                         k12_builds=("shipped", "previous"),
+                         render_repeats=1)
     emit({"phase": "k10_k12_variants", "card": card, **out,
           "note": "one pass of the previous and the shipped designs (the "
                   "others: scripts/torch_k10_k12_variants.py alone); "
@@ -2847,7 +2867,8 @@ def k10_k12_redesign_phases(dev, card, rays, rays_f) -> dict:
                   "each on its own copy of the state); profiler_ms: the "
                   "profiler's per-launch mean; renders: host-clock seconds "
                   "and the kernel's device time per render by the "
-                  "profiler, medians of 3 in turns"})
+                  "profiler, one render each in turns (the script alone "
+                  "takes medians of 3)"})
     return {"sweep_fetch": {"ms": k10["camera_2073600"]["batch"]["event_ms"],
                             "plain_ms": k10_plain_ms,
                             "max_abs_err": k10_plain["max_abs_err"],
@@ -3094,6 +3115,335 @@ def k7c_k11_redesign_phases(dev, card, fit_losses) -> dict:
           f"K11 differs from its plain version: {k11}")
     check(same_fit, "the fit's losses differ with the previous K7c")
     return {"persist_record_fused": k11_row}
+
+
+def k7b_redesign_phases(dev, card) -> None:
+    """K7b (every load of a lane issued at once, its alive flag with them,
+    64-thread blocks) beside the kernel it replaced. One
+    pass of ``scripts/torch_k7b_variants.py`` over every build: each bit for
+    bit the previous K7b over the demo's 16-bounce walk, injected and
+    Philox, timed in turns by :func:`batch_ms` at bounces 0, 4, 8 and 15
+    and per two unfused-replay fit steps (256 launches), beside the card's
+    empty-kernel launch floor, with registers and spills. Then through the
+    wrappers: K7b bit for bit the previous kernel
+    (``replay_bwd_step_previous``) at every bounce of the walk, injected
+    and Philox, and two unfused fit steps with the previous K7b routed in,
+    their losses bit for bit the shipped kernel's."""
+    import os
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops.cuda import build
+    from raytracingweekend_jl_tpu_torch.ops.cuda import grad_kernel as GK
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import torch_k7b_variants as V7
+    import torch_k7c_k11_variants as V
+
+    out = V7.run(dev, 1)
+    emit({"phase": "k7b_variants", "card": card, **out,
+          "note": "one pass; event_ms: one CUDA event pair around n "
+                  "launches, each on its own zeroed carry (per launch at a "
+                  "bounce; per walk of 16 launches for two_steps, whose "
+                  "per_two_steps_ms is the 16 walks' sum); empty_kernel: "
+                  "the launch floor, event / 256"})
+
+    # -- through the wrappers, at every bounce of the walk ----------------
+    rec, seed = V7.demo_records(dev, 1)[0]
+    K, _, R = rec.shape
+    g = torch.Generator(device=dev).manual_seed(29)
+    g3 = torch.rand((3, R), generator=g, device=dev) * 2 - 1
+    bad, err = {}, 0.0
+    for draws, u5 in (("injected", torch.rand((K, 5, R), generator=g,
+                                              device=dev)),
+                      ("philox", None)):
+        runs = []
+        for step in (GK.replay_bwd_step, GK.replay_bwd_step_previous):
+            cot = torch.zeros((9, R), device=dev)
+            dattr = torch.full((K, 9, R), float("nan"), device=dev)
+            cots = []
+            for b in reversed(range(K)):
+                step(rec[b], g3, cot, seed, b,
+                     None if u5 is None else u5[b], out=dattr[b])
+                cots.append(cot.clone())
+            torch.cuda.synchronize()
+            runs.append((torch.stack(cots), dattr))
+        (ck, dk), (cp, dp) = runs
+        bad[draws] = [int(_bitwise_lanes([(ck[K - 1 - b], cp[K - 1 - b]),
+                                          (dk[b], dp[b])], R).sum())
+                      for b in range(K)]
+        err = max(err, (ck - cp).abs().max().item(),
+                  (dk - dp).abs().max().item())
+
+    # -- two unfused fit steps with the previous K7b routed in -------------
+    scene_true, scene0, cam, _, _ = inverse_demo()
+    target = pt.render_radiance(scene_true, cam, 200, 8, image_height=112,
+                                seed=0, persistent=False, recorded_fused=True)
+    fit = lambda: pt.fit_scene(scene0, cam, target, 200, 8, steps=2,
+                               render_kwargs={"replay_fused": False}).losses
+    shipped_losses = fit()
+    with V.patched("rtw_replay_bwd_step",
+                   build.load().rtw_replay_bwd_step_previous):
+        prev_losses = fit()
+    times = out["times"]
+    emit({"phase": "k7b_redesign", "card": card, "lanes": R, "bounces": K,
+          "lanes_differing_by_bounce": bad, "max_abs_err": err,
+          "occupancy": GK.replay_bwd_step_occupancy(dev),
+          "ptxas": out["ptxas"],
+          "event_ms": {k: {b: v["event_ms"] for b, v in t.items()}
+                       for k, t in times.items() if k != "empty_kernel"},
+          "per_two_steps_ms": {b: v["per_two_steps_ms"]
+                               for b, v in times["two_steps"].items()},
+          "launch_floor_ms": times["empty_kernel"]["event_ms"],
+          "ratios": out["changes_alone"], "verdict": out["verdict"],
+          "fit_losses_previous_k7b": prev_losses,
+          "fit_losses_shipped_k7b": shipped_losses,
+          "tolerance": "K7b's cot after every bounce and every dattr row bit "
+                       "for bit the previous K7b's at all 16 bounces, "
+                       "injected and Philox; two unfused fit steps' losses "
+                       "bit for bit"})
+    check(all(v == 0 for d in bad.values() for v in d),
+          f"K7b differs from the previous K7b: {bad}")
+    check(list(prev_losses) == list(shipped_losses),
+          f"unfused fit losses differ with the previous K7b: {prev_losses} "
+          f"against {shipped_losses}")
+
+
+def edge_phases(dev, card) -> None:
+    """The edge (silhouette) gradient estimator on the card (``ops/edge.py``,
+    no kernel of its own: its bounces sweep through K1). (a) The primal bit
+    for bit ``trace(keyed=True)`` on ``scene_4_spheres`` at 200x112, spp 1,
+    one and two edge bounces, and whether K1's ``(t, idx)`` is the dense
+    ``[R, N]`` reduction's bit for bit on those rays and on the flagship's
+    first 64 800-pixel chunk (the edge bounce takes its hard result from
+    K1 either way). (b) Two steps of ``fit_scene(geom="edge")`` at the JAX
+    package's flagship joint fit (``examples/inverse_flagship_joint``:
+    ``scene_random_spheres(seed=1)``, ``t_cam1``, 960x540, spp 8, two edge
+    bounces, sigma at 3 pixel footprints, 64 800-pixel chunks checkpointed
+    one by one, centers, albedos and fuzz perturbed as its script does, the
+    target the edge primal of the truth, which is the keyed trace's, so
+    it is rendered with no edge bounce): losses finite, the second step's
+    seconds and peak memory, K1's launches. (c) The cosine of one center's
+    edge gradient at the inverse demo (spp 8) against finite differences of
+    the hard loss (the default render at spp 32)."""
+    import numpy as np
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch import rng
+    from raytracingweekend_jl_tpu_torch.ops import edge as E
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+
+    def k1_vs_dense(scene, o, d):
+        t1, i1 = K1.sweep(torch.cat([o.T, d.T]).contiguous(),
+                          K1.sphere_consts(scene))
+        with torch.no_grad():
+            t, i, *_ = E.silhouette_coords(o, d, scene)
+        return int(((t1 != t) | (i1 != i)).sum())
+
+    # -- (a) the primal -----------------------------------------------------
+    s4 = pt.trim_scene(pt.scene_4_spheres(device=dev))
+    cam4 = pt.t_default_cam(device=dev)
+    u, v = pt.pixel_coords(200, 112, device=dev)
+    o, d = pt.get_rays(cam4, u, v, generator=rng.generator(
+        0, rng.LENS, 0, device=dev))
+    seed = rng.purpose_seed(0, rng.SCATTER_DIR, 0) & 0xFFFFFFFF
+    ref = pt.trace(s4, o, d, seed, keyed=True)
+    primal = {}
+    for eb in (1, 2):
+        out = E.trace_edge(s4, o, d, seed, sigma=0.05, edge_bounces=eb)
+        primal[f"edge_bounces_{eb}"] = {
+            "bitwise": bool(torch.equal(out, ref)),
+            "max_abs_diff": (out - ref).abs().max().item()}
+    flag = pt.trim_scene(pt.scene_random_spheres(seed=1, device=dev))
+    camf = pt.t_cam1(device=dev)
+    uf, vf = pt.pixel_coords(960, 540, device=dev)
+    of, df = pt.get_rays(camf, uf[:64800], vf[:64800], generator=rng.generator(
+        0, rng.LENS, 0, device=dev))
+    dense = {"demo_22400": k1_vs_dense(s4, o, d),
+             "flagship_chunk_64800": k1_vs_dense(flag, of, df)}
+    emit({"phase": "edge_primal", "card": card, "size": [200, 112],
+          "scene": "4_spheres", "by_edge_bounces": primal,
+          "k1_lanes_differing_from_dense_reduction": dense,
+          "tolerance": "trace_edge bit for bit trace(keyed=True)"})
+    check(all(r["bitwise"] for r in primal.values()),
+          f"edge primal differs from the keyed trace: {primal}")
+    del of, df
+
+    # -- (b) two steps of the flagship joint fit ---------------------------
+    truth, camf = pt.scene_random_spheres(seed=1), pt.t_cam1()
+    movable = pt.movable_mask(truth)
+    mat = truth.mat.numpy()
+    g = np.random.default_rng(7)
+    cj = g.uniform(-0.04, 0.04, tuple(truth.center.shape)).astype(np.float32)
+    cj[~movable] = 0.0
+    alb = truth.albedo.numpy().copy()
+    scored = movable & (mat != pt.DIELECTRIC)
+    alb[scored] = np.clip(alb[scored] * 0.75 + 0.1, 0, 1)
+    fz = truth.fuzz.numpy().copy()
+    metal = movable & (mat == pt.METAL)
+    fz[metal] = np.clip(fz[metal] + g.uniform(-0.2, 0.2, fz.shape)[metal],
+                        0, None)
+    start = truth._replace(center=truth.center + torch.from_numpy(cj),
+                           albedo=torch.from_numpy(alb),
+                           fuzz=torch.from_numpy(fz.astype(np.float32)))
+    ekw = dict(edge_bounces=2, sigma_px=3.0, pixel_chunk=64800,
+               remat_chunks=True)
+    with torch.no_grad():  # the edge primal is the keyed trace's
+        target = E.render_radiance_edge(truth, camf, 960, 8,
+                                        image_height=540, seed=0,
+                                        **{**ekw, "edge_bounces": 0})
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    peaks = []
+
+    def on_step(i, loss, params):
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    res = pt.fit_scene(start, camf, target, 960, 8, steps=2, seed=0,
+                       lr_albedo=1e-2, lr_center=2e-3, lr_fuzz=5e-3,
+                       geom="edge", edge_kwargs=ekw, cosine_decay=True,
+                       on_step=on_step)
+    launches = counts()
+    emit({"phase": "edge_flagship_fit", "card": card, "size": [960, 540],
+          "spp": 8, "steps": 2, "edge_kwargs": ekw, "losses": res.losses,
+          "step_seconds": res.step_seconds,
+          "second_step_seconds": res.step_seconds[1],
+          "peak_memory_bytes_by_step": peaks,
+          "memory_before_fit_bytes": mem0, "wall_s": time.perf_counter() - t0,
+          "launches": launches,
+          "checks": "losses finite; K1 launched"})
+    check(bool(np.isfinite(res.losses).all()),
+          f"non-finite edge fit losses {res.losses}")
+    check(launches["sweep"] > 0, f"the edge fit launched {launches}")
+    del target, res
+
+    # -- (c) FD cosine of one center gradient at the demo -------------------
+    scene_true, scene0, cam, movable4, _ = inverse_demo()
+    tgt = pt.render_radiance(scene_true, cam, 200, 8, image_height=112,
+                             seed=0, device="cuda")
+    k = int(np.flatnonzero(movable4 & (scene_true.mat.numpy()
+                                       != pt.DIELECTRIC))[0])
+    c = scene0.center.clone().to(dev).requires_grad_(True)
+    img = pt.render_radiance_edge(scene0.to(dev)._replace(center=c), cam, 200,
+                                  8, image_height=112, seed=0, sigma_px=3.0,
+                                  edge_bounces=2)
+    torch.mean((img - tgt) ** 2).backward()
+    grad = c.grad[k].double().cpu().numpy()
+
+    def hard(center):
+        im = pt.render_radiance(scene0._replace(center=center), cam, 200, 32,
+                                image_height=112, seed=0, device="cuda")
+        return float(torch.mean((im - tgt) ** 2))
+
+    eps, fd = 1e-3, np.zeros(3)
+    for j in range(3):
+        cp, cm = scene0.center.clone(), scene0.center.clone()
+        cp[k, j] += eps
+        cm[k, j] -= eps
+        fd[j] = (hard(cp) - hard(cm)) / (2 * eps)
+    cos = float(fd @ grad / (np.linalg.norm(fd) * np.linalg.norm(grad)
+                             + 1e-30))
+    emit({"phase": "edge_fd", "card": card, "sphere": k, "edge_grad":
+          grad.tolist(), "fd": fd.tolist(), "cosine": cos,
+          "note": "edge gradient at spp 8 (sigma 3 px, two edge bounces); "
+                  "finite differences (eps 1e-3) of the default render's "
+                  "MSE at spp 32",
+          "tolerance": "cosine >= 0.8"})
+    check(cos >= 0.8, f"edge gradient against FD: cosine {cos}")
+
+
+#: The host syncs a profile counts: the runtime's stream and device
+#: synchronisations, and the device's copies to the host.
+SYNC_SUMS = {"stream_sync": r"^cudaStreamSynchronize$",
+             "device_sync": r"^cudaDeviceSynchronize$",
+             "memcpy_dtoh": r"^Memcpy DtoH"}
+
+
+def host_syncs(fn) -> dict:
+    """Counts of :data:`SYNC_SUMS` over one call of ``fn()``, from
+    torch.profiler (runtime calls on the host, copies on the device)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    return {label: sum(e.count for e in ev if re.search(pat, e.key))
+            for label, pat in SYNC_SUMS.items()}
+
+
+def fit_scan_phases(dev, card, STEPS: int = 4, EDGE_STEPS: int = 2) -> None:
+    """``fit_scene_scan`` against ``fit_scene`` at the inverse demo
+    (``scene_4_spheres``, 200x112, spp 8): ``STEPS`` steps of
+    ``geom="spsa"`` (the default routes: K3, K7a, K7c and the K8 probes)
+    and ``EDGE_STEPS`` of ``geom="edge"`` (sigma 3 px, one edge bounce, at
+    spp 2: its steps are host-bound, ~0.6 s a sample),
+    each function in turn: losses finite, the edge geom's losses and fitted
+    scene bit for bit the loop's (the spsa geom's first loss too: its
+    directions come from another stream), seconds per step side by side,
+    and host syncs per step: :func:`host_syncs` over a run of the steps
+    less a run of none (the set-up's), over the steps (the edge geom's at
+    spp 1, whose profile stays small; its syncs are per render, not per
+    pass)."""
+    import numpy as np
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+
+    scene_true, scene0, cam, _, _ = inverse_demo()
+    target = pt.render_radiance(scene_true, cam, 200, 8, image_height=112,
+                                seed=0, persistent=False, recorded_fused=True)
+    rows = {}
+    for geom, steps, spp, kw, spp_syncs in (
+            ("spsa", STEPS, 8, {}, 8),
+            ("edge", EDGE_STEPS, 2, {"edge_kwargs": dict(sigma_px=3.0,
+                                                         edge_bounces=1)},
+             1)):
+        row = {"spp": spp}
+        for name, fit in (("fit_scene", pt.fit_scene),
+                          ("fit_scene_scan", pt.fit_scene_scan)):
+            def run(n, spp=spp, fit=fit):
+                return fit(scene0, cam, target, 200, spp, steps=n,
+                           geom=geom, **kw)
+            reset_counts()
+            t0 = time.perf_counter()
+            res = run(steps)
+            wall = time.perf_counter() - t0
+            launched = counts()
+            busy = host_syncs(lambda: run(steps, spp_syncs))
+            idle = host_syncs(lambda: run(0, spp_syncs))
+            row[name] = {"losses": res.losses, "wall_s": wall,
+                         "seconds_per_step": wall / steps,
+                         "step_seconds": res.step_seconds,
+                         "host_syncs_per_step": {
+                             k: (busy[k] - idle[k]) / steps for k in busy},
+                         "host_syncs_setup": idle,
+                         "host_syncs_spp": spp_syncs,
+                         "launches_per_step": {
+                             k: v / steps for k, v in launched.items()
+                             if v},
+                         "scene": res.scene}
+        a, b = row["fit_scene"], row["fit_scene_scan"]
+        same_scene = all(torch.equal(x, y) for x, y in zip(a.pop("scene"),
+                                                           b.pop("scene")))
+        row["losses_bitwise"] = a["losses"] == b["losses"]
+        row["first_loss_bitwise"] = a["losses"][0] == b["losses"][0]
+        row["fitted_scene_bitwise"] = same_scene
+        rows[geom] = row
+        check(bool(np.isfinite(a["losses"] + b["losses"]).all()),
+              f"non-finite {geom} fit losses: {row}")
+    emit({"phase": "fit_scan", "card": card, "size": [200, 112], **rows,
+          "checks": "losses finite; edge: losses and fitted scene bit for "
+                    "bit the loop's; spsa: the first loss bit for bit"})
+    check(rows["edge"]["losses_bitwise"]
+          and rows["edge"]["fitted_scene_bitwise"],
+          "fit_scene_scan(geom='edge') differs from fit_scene")
+    check(rows["spsa"]["first_loss_bitwise"],
+          "fit_scene_scan's first spsa loss differs from fit_scene's")
 
 
 def k9_k13_redesign_phases(dev, card) -> dict:
@@ -3663,6 +4013,13 @@ def main() -> int:
         if r is not None:
             row.update(ms=r["ms"], bound_ms=r["bound"]["bound_ms"],
                        bound_by=r["bound"]["bound_by"])
+
+    # -- 22. K7b beside its previous form ----------------------------------
+    k7b_redesign_phases(dev, card)
+
+    # -- 23. the edge estimator and fit_scene_scan --------------------------
+    edge_phases(dev, card)
+    fit_scan_phases(dev, card)
 
     # -- the kernels line: every ported kernel, with its bound -------------
     n_rays, n_sph = rays_f.shape[1], spheres.shape[0]

@@ -21,7 +21,10 @@ kernels for Hopper built from ``csrc/`` at first use:
   through ``trace`` with each bounce recomputed;
 - the inverse-rendering fit: ``fit_scene(scene0, cam, target, width, spp)``
   takes Adam steps on the gradient step's albedo gradients and SPSA probe
-  renders for the centers.
+  renders for the centers, or with ``geom="edge"`` on autodiff of the
+  boundary-aware edge render (``render_radiance_edge``, whose bounces
+  sweep through K1); ``fit_scene_scan`` is the same fit with no host sync
+  of its own per step.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``, and raises without CUDA. On the CPU the same paths run the
@@ -40,7 +43,8 @@ from .render import (render, render_radiance, render_tile_sum,
 from .grad import (render_loss, render_grads, SceneGrads, check_grads_sane,
                    GradSanityError, sgd_inverse_render_step, twin_ad_canary,
                    resolve_grad_path, DIFF_FIELDS)
-from .optimize import FitResult, fit_scene, movable_mask
+from .optimize import FitResult, fit_scene, fit_scene_scan, movable_mask
+from .ops.edge import render_radiance_edge, trace_edge
 from .ops.persist_grad import trace_recorded_persist, persist_dropped_paths
 from .ops.fused_grad import trace_recorded_fused
 from .ops.cuda.inline_kernel import trace_inline

@@ -33,7 +33,27 @@
 // arithmetic, not its loads.
 //
 // K7b: one thread per lane, one slot per launch; the cotangent is carried
-// through device memory between launches.
+// through device memory between launches. A launch is one adjoint per live
+// lane: at the fit's 22 400 lanes its bytes take 0.7 us of HBM time, below
+// what a launch costs (an empty kernel takes 1.8 us a launch back to back),
+// so what a launch can lose is latency: each lane's loads, then its draws
+// and one adjoint (~400 flops, five transcendentals) as one dependent
+// chain. The kernel before the redesign (replay_bwd_step_previous_kernel,
+// kept as the card's reference, on no route) loaded each lane's carry and
+// radiance cotangent with its alive flag, and only after the flag the 20
+// record words: two dependent round trips per live lane; 128-thread blocks
+// gave the fit's 22 400 lanes 175 blocks on 132 SMs. The redesign
+// (replay_bwd_step_kernel) issues every load of a lane at once (the flag,
+// the 20 record words, the 9 carried and 3 radiance cotangents, the
+// injected draws), as volatile loads the compiler cannot sink below the
+// flag's test: one round trip. A dead lane then writes its 9 zero rows and
+// stops (no carry store); a live lane draws and runs the adjoint. 64-thread
+// blocks spread the fit's lanes over the 132 SMs (350 blocks). A dead lane
+// pays 48 bytes it does not use, which at these widths costs less than the
+// second round trip. scripts/torch_k7b_variants.py builds and times the
+// designs it was chosen over (the flag first with the loads behind it,
+// K12's compaction of a block's live lanes, K7c's lane pair, other block
+// sizes): all lie within 13% of each other, near the launch floor.
 //
 // K7c: G threads of a warp per lane, G from the wrapper's rule (1 or 2).
 //   - G = 1 (replay_bwd_fused_one_thread_kernel, the kernel before the
@@ -360,15 +380,15 @@ __global__ void __launch_bounds__(RTW_K7C_THREADS)
   }
 }
 
-// K7b. One slot: rec [21, n] of bounce `bounce`; g3 [3, n]; cot [9, n] in
-// place; dattr [9, n] written; u5 [5, n] or NULL.
-__global__ void replay_bwd_step_kernel(const float* __restrict__ rec,
-                                       const float* __restrict__ g3,
-                                       float* __restrict__ cot_io,
-                                       float* __restrict__ dattr,
-                                       const float* __restrict__ u5,
-                                       int n_lanes, uint32_t seed,
-                                       uint32_t bounce) {
+// The kernel K7b was before its redesign, kept as the card's reference (no
+// route runs it). One slot: rec [21, n] of bounce `bounce`; g3 [3, n]; cot
+// [9, n] in place; dattr [9, n] written; u5 [5, n] or NULL. 128 threads per
+// block.
+__global__ void replay_bwd_step_previous_kernel(
+    const float* __restrict__ rec, const float* __restrict__ g3,
+    float* __restrict__ cot_io, float* __restrict__ dattr,
+    const float* __restrict__ u5, int n_lanes, uint32_t seed,
+    uint32_t bounce) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_lanes) return;
   const size_t n = n_lanes;
@@ -386,6 +406,67 @@ __global__ void replay_bwd_step_kernel(const float* __restrict__ rec,
   } else {
 #pragma unroll
     for (int j = 0; j < 9; ++j) dattr[j * n + i] = 0.0f;
+  }
+}
+
+#define RTW_K7B_THREADS 64
+
+// A load issued where it stands: volatile, so the compiler neither sinks it
+// below a branch nor drops it (K7b's loads all go out before the alive
+// flag is tested). ld.global.nc for data the kernel does not write.
+__device__ __forceinline__ float rtw_ld_early_nc(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float rtw_ld_early(const float* p) {
+  float v;
+  asm volatile("ld.global.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// K7b. One slot: rec [21, n] of bounce `bounce`; g3 [3, n]; cot [9, n] in
+// place; dattr [9, n] written; u5 [5, n] (INJ) or unused. Every load of the
+// lane goes out at once; a dead lane then writes its zero rows and stops,
+// a live one draws and runs the adjoint. The arithmetic is
+// rtw_fixed_replay's, so cot and every row are the previous kernel's bits.
+template <bool INJ>
+__global__ void __launch_bounds__(RTW_K7B_THREADS)
+    replay_bwd_step_kernel(const float* __restrict__ rec,
+                           const float* __restrict__ g3,
+                           float* __restrict__ cot_io,
+                           float* __restrict__ dattr,
+                           const float* __restrict__ u5, int n_lanes,
+                           uint32_t seed, uint32_t bounce) {
+  const int i = blockIdx.x * RTW_K7B_THREADS + threadIdx.x;
+  if (i >= n_lanes) return;
+  const size_t n = n_lanes;
+  float r[10], a[10], cot[9], g[3], u[5], d9[9];
+  const float flag = rtw_ld_early_nc(rec + 10 * n + i);
+#pragma unroll
+  for (int j = 0; j < 10; ++j) r[j] = rtw_ld_early_nc(rec + j * n + i);
+#pragma unroll
+  for (int j = 0; j < 10; ++j) a[j] = rtw_ld_early_nc(rec + (11 + j) * n + i);
+#pragma unroll
+  for (int j = 0; j < 9; ++j) cot[j] = rtw_ld_early(cot_io + j * n + i);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) g[j] = rtw_ld_early_nc(g3 + j * n + i);
+  if (INJ) {
+#pragma unroll
+    for (int j = 0; j < 5; ++j) u[j] = rtw_ld_early_nc(u5 + j * n + i);
+  }
+  if (__float_as_int(flag) == 0) {
+#pragma unroll
+    for (int j = 0; j < 9; ++j) dattr[j * n + i] = 0.0f;
+    return;
+  }
+  if (!INJ) rtw_uniforms<5>(seed, bounce, (uint32_t)i, u);
+  rtw_fixed_replay(u, r, a, g, cot, d9);
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    cot_io[j * n + i] = cot[j];
+    dattr[j * n + i] = d9[j];
   }
 }
 
@@ -448,9 +529,45 @@ extern "C" int rtw_replay_bwd_step(const float* rec, const float* g3,
                                    int n_lanes, unsigned int seed,
                                    unsigned int bounce, void* stream) {
   if (n_lanes <= 0) return 0;
+  const int blocks = (n_lanes + RTW_K7B_THREADS - 1) / RTW_K7B_THREADS;
+  if (u5)
+    replay_bwd_step_kernel<true>
+        <<<blocks, RTW_K7B_THREADS, 0, (cudaStream_t)stream>>>(
+            rec, g3, cot, dattr, u5, n_lanes, seed, bounce);
+  else
+    replay_bwd_step_kernel<false>
+        <<<blocks, RTW_K7B_THREADS, 0, (cudaStream_t)stream>>>(
+            rec, g3, cot, dattr, u5, n_lanes, seed, bounce);
+  return (int)cudaGetLastError();
+}
+
+// The previous K7b (the card's reference), same arguments.
+extern "C" int rtw_replay_bwd_step_previous(const float* rec, const float* g3,
+                                            float* cot, float* dattr,
+                                            const float* u5, int n_lanes,
+                                            unsigned int seed,
+                                            unsigned int bounce,
+                                            void* stream) {
+  if (n_lanes <= 0) return 0;
   const int threads = 128;
   const int blocks = (n_lanes + threads - 1) / threads;
-  replay_bwd_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  replay_bwd_step_previous_kernel<<<blocks, threads, 0,
+                                    (cudaStream_t)stream>>>(
       rec, g3, cot, dattr, u5, n_lanes, seed, bounce);
   return (int)cudaGetLastError();
+}
+
+// K7b's registers per thread (Philox draws), the blocks of it one SM holds
+// and its threads per block.
+extern "C" int rtw_replay_bwd_step_occupancy(int* regs, int* blocks_per_sm,
+                                             int* threads) {
+  const void* k = (const void*)replay_bwd_step_kernel<false>;
+  cudaFuncAttributes a = {};
+  cudaError_t e = cudaFuncGetAttributes(&a, k);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k,
+                                                      RTW_K7B_THREADS, 0);
+  *regs = a.numRegs;
+  *threads = RTW_K7B_THREADS;
+  return (int)e;
 }

@@ -91,6 +91,9 @@ _SIGNATURES = {
     # rec slot[21,R], g3[3,R], cot[9,R], dattr[9,R], u5[5,R] or NULL, R,
     # seed, bounce, stream
     "rtw_replay_bwd_step": [_P, _P, _P, _P, _P, _I, _U, _U, _P],
+    "rtw_replay_bwd_step_previous": [_P, _P, _P, _P, _P, _I, _U, _U, _P],
+    # &regs, &blocks_per_sm, &threads_per_block
+    "rtw_replay_bwd_step_occupancy": [_IP, _IP, _IP],
     # rays[6,R], spheres[11,N], rad[3,R], u5[depth,5,R] or NULL, the
     # zeroed lane counter next[1], R, N, max_depth, tmin, seed, stream
     "rtw_inline": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _U, _P],

@@ -520,35 +520,69 @@ def _check_replay(what, g3, cot, dev) -> int:
     return R
 
 
+def _launch_replay_step(what, launcher, rec_slot, g3, cot, seed, bounce,
+                        u5, out) -> torch.Tensor:
+    dev = cot.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    R = _check_replay(what, g3, cot, dev)
+    f32 = torch.float32
+    build.check_arg(f"{what}: rec_slot", rec_slot, f32, (N_REC, R), dev)
+    if u5 is not None:
+        build.check_arg(f"{what}: u5", u5, f32, (5, R), dev)
+    if out is None:
+        out = torch.empty((9, R), dtype=f32, device=dev)
+    build.check_arg(f"{what}: out", out, f32, (9, R), dev)
+    with torch.cuda.device(dev):
+        err = getattr(build.load(), launcher)(
+            rec_slot.data_ptr(), g3.data_ptr(), cot.data_ptr(), out.data_ptr(),
+            None if u5 is None else u5.data_ptr(), R, base_seed(seed),
+            bounce & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+    build.check(err, what)
+    return out
+
+
 def replay_bwd_step(rec_slot, g3, cot, seed: int, bounce: int,
                     u5: torch.Tensor | None = None,
                     out: torch.Tensor | None = None) -> torch.Tensor:
     """K7b: one reverse bounce (arguments as :func:`replay_bwd_step_ref`).
-    CPU tensors run the plain version."""
+    A lane issues every load at once, its alive flag with them: a dead
+    one then writes its zero rows and stops. CPU tensors run the plain
+    version."""
     global replay_step_launches
     if cot.device.type == "cpu":
         return replay_bwd_step_ref(rec_slot, g3, cot, seed, bounce, u5, out)
-    dev = cot.device
-    if dev.type != "cuda":
-        raise ValueError(f"replay_bwd_step: unsupported device {dev}")
-    R = _check_replay("replay_bwd_step", g3, cot, dev)
-    f32 = torch.float32
-    build.check_arg("replay_bwd_step: rec_slot", rec_slot, f32, (N_REC, R),
-                    dev)
-    if u5 is not None:
-        build.check_arg("replay_bwd_step: u5", u5, f32, (5, R), dev)
-    if out is None:
-        out = torch.empty((9, R), dtype=f32, device=dev)
-    build.check_arg("replay_bwd_step: out", out, f32, (9, R), dev)
-    lib = build.load()
-    with torch.cuda.device(dev):
-        err = lib.rtw_replay_bwd_step(
-            rec_slot.data_ptr(), g3.data_ptr(), cot.data_ptr(), out.data_ptr(),
-            None if u5 is None else u5.data_ptr(), R, base_seed(seed),
-            bounce & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
-    build.check(err, "replay_bwd_step")
+    out = _launch_replay_step("replay_bwd_step", "rtw_replay_bwd_step",
+                              rec_slot, g3, cot, seed, bounce, u5, out)
     replay_step_launches += 1
     return out
+
+
+def replay_bwd_step_previous(rec_slot, g3, cot, seed: int, bounce: int,
+                             u5: torch.Tensor | None = None,
+                             out: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel K7b was before its redesign
+    (``replay_bwd_step_previous_kernel``: the carry and radiance cotangent
+    loaded with the flag, the record after it, 128-thread blocks), kept as
+    the card's reference for K7b; no route runs it and its launches are not
+    counted. CUDA tensors only."""
+    return _launch_replay_step("replay_bwd_step_previous",
+                               "rtw_replay_bwd_step_previous", rec_slot, g3,
+                               cot, seed, bounce, u5, out)
+
+
+def replay_bwd_step_occupancy(device=None) -> dict:
+    """``{"registers", "blocks_per_sm", "threads_per_block"}`` of K7b
+    (Philox draws) on ``device``, from the CUDA runtime."""
+    import ctypes
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = build.load().rtw_replay_bwd_step_occupancy(
+            *(ctypes.byref(x) for x in out))
+    build.check(err, "replay_bwd_step occupancy")
+    regs, blocks, threads = (x.value for x in out)
+    return {"registers": regs, "blocks_per_sm": blocks,
+            "threads_per_block": threads}
 
 
 def replay_bwd_fused(rec, g3, cot, seed: int,
@@ -586,6 +620,15 @@ def replay_bwd_fused(rec, g3, cot, seed: int,
     return dattr
 
 
+#: The most float64 values of a contraction taken in one block: fields are
+#: summed together while fields x lanes stays within it (one set of launches
+#: for the block, which matters where the lanes are few: a bounce of a
+#: small trace), one field at a time beyond it (a flagship phase's 11.8M
+#: lanes), so the working set stays that of one field. Every block size
+#: gives the same bits.
+CONTRACT_BLOCK = 1 << 24
+
+
 def dattr_contract(dattr: torch.Tensor, idx: torch.Tensor,
                    n: int) -> torch.Tensor:
     """Sum per-lane attribute cotangent rows onto the spheres:
@@ -601,7 +644,8 @@ def dattr_contract(dattr: torch.Tensor, idx: torch.Tensor,
     at most the field's largest magnitude times 2^-(61 - ceil(log2(K*W +
     1))), 2^-37 at the flagship's ~1.2e7 lanes per phase. A field with a
     non-finite value comes out NaN for every sphere, as the JAX package's
-    matrix product gives. The scales stay on the device: no host sync."""
+    matrix product gives. The scales stay on the device: no host sync.
+    Fields go in blocks of :data:`CONTRACT_BLOCK` values."""
     device = dattr.device
     n_f = dattr.shape[1]
     keys = idx.reshape(-1).to(torch.int64)
@@ -614,18 +658,18 @@ def dattr_contract(dattr: torch.Tensor, idx: torch.Tensor,
         keys, torch.arange(n + 1, dtype=torch.int64, device=device))
     rows = dattr.transpose(0, 1).reshape(n_f, m)
     bits = 61 - math.ceil(math.log2(m + 1))
-    one = torch.ones((), dtype=torch.float64, device=device)
-    for j in range(n_f):
-        v = rows[j][perm].to(torch.float64)
+    step = max(1, CONTRACT_BLOCK // m)
+    for j0 in range(0, n_f, step):
+        v = rows[j0:j0 + step][:, perm].to(torch.float64)  # [F_block, m]
         finite = torch.isfinite(v)
         v = torch.where(finite, v, torch.zeros_like(v))
-        _, e = torch.frexp(v.abs().max())
-        scale = torch.ldexp(one, bits - e)
+        _, e = torch.frexp(v.abs().amax(dim=1, keepdim=True))
+        scale = torch.ldexp(torch.ones_like(e, dtype=torch.float64), bits - e)
         q = torch.round(v * scale).to(torch.int64)
-        cs = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
-                        torch.cumsum(q, 0)])
-        seg = cs[bounds[1:]] - cs[bounds[:-1]]
+        cs = torch.cat([torch.zeros((q.shape[0], 1), dtype=torch.int64,
+                                    device=device), torch.cumsum(q, 1)], 1)
+        seg = cs[:, bounds[1:]] - cs[:, bounds[:-1]]
         col = seg.to(torch.float64) / scale
-        out[j] = torch.where(finite.all(), col,
-                             torch.full_like(col, float("nan")))
+        out[j0:j0 + step] = torch.where(finite.all(1, keepdim=True), col,
+                                        torch.full_like(col, float("nan")))
     return out.T.to(dattr.dtype).contiguous()

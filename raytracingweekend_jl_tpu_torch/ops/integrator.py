@@ -59,11 +59,20 @@ _WHITE = (1.0, 1.0, 1.0)
 _SKYBLUE = (0.5, 0.7, 1.0)
 
 
+#: ``(white, skyblue)`` tensors by (dtype, device): made once, since a copy
+#: from the host to the card waits for the card's queue to drain.
+_SKY_CONSTS = {}
+
+
 def skycolor(direction: torch.Tensor) -> torch.Tensor:
     """Vertical white->skyblue lerp on dir.y (src/ray_color.jl:1-6)."""
     t = 0.5 * (direction[..., 1] + 1.0)
-    white = torch.tensor(_WHITE, dtype=direction.dtype, device=direction.device)
-    sky = torch.tensor(_SKYBLUE, dtype=direction.dtype, device=direction.device)
+    key = (direction.dtype, direction.device)
+    if key not in _SKY_CONSTS:
+        _SKY_CONSTS[key] = tuple(torch.tensor(c, dtype=direction.dtype,
+                                              device=direction.device)
+                                 for c in (_WHITE, _SKYBLUE))
+    white, sky = _SKY_CONSTS[key]
     return (1.0 - t)[..., None] * white + t[..., None] * sky
 
 
@@ -288,6 +297,32 @@ def _pick_intersector(dtype, fused_attrs: bool, impl: str) -> Callable:
         None)
 
 
+def wavefront_bounce(scene: Scene, isect: Callable, tmin: float,
+                     u: torch.Tensor, xi: torch.Tensor, org: torch.Tensor,
+                     d: torch.Tensor, thr: torch.Tensor, rad: torch.Tensor,
+                     alive: torch.Tensor) -> tuple:
+    """One bounce of the fixed-depth wavefront (:func:`trace`'s body) with
+    the draws ``u`` [R, 3], ``xi`` [R] given: every ray is swept by
+    ``isect`` (:func:`_pick_intersector`); a ray that misses for the first
+    time banks ``thr * sky(d)`` into ``rad`` and dies; a live hit scatters
+    and multiplies its throughput. Returns the next ``(org, d, thr, rad,
+    alive)``."""
+    res, attrs = isect(org, d, scene, tmin)
+    miss_now = alive & ~res.hit
+    rad = rad + torch.where(miss_now[:, None], thr * skycolor(d),
+                            torch.zeros_like(thr))
+    # Finite t for every lane (the NaN-under-where guard).
+    t_safe = torch.where(res.hit, res.t, torch.ones_like(res.t))
+    if attrs is None:
+        attrs = gather_sphere_attrs(scene, res.index, org.dtype)
+    s = scatter(org, d, t_safe, attrs, u, xi)
+    live_hit = (alive & res.hit)[:, None]
+    return (torch.where(live_hit, s.origin, org),
+            torch.where(live_hit, s.direction, d),
+            torch.where(live_hit, thr * s.attenuation, thr), rad,
+            alive & res.hit)
+
+
 def trace(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
           seed: int, max_depth: int = DEFAULT_MAX_DEPTH,
           tmin: float = DEFAULT_TMIN, remat: bool = False,
@@ -326,14 +361,6 @@ def trace(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
     slots = torch.arange(R, dtype=torch.int32, device=dev) if keyed else None
 
     def bounce(b, org, d, thr, rad, alive):
-        res, attrs = isect(org, d, scene, tmin)
-        miss_now = alive & ~res.hit
-        rad = rad + torch.where(miss_now[:, None], thr * skycolor(d),
-                                torch.zeros_like(thr))
-        # Finite t for every lane (the NaN-under-where guard).
-        t_safe = torch.where(res.hit, res.t, torch.ones_like(res.t))
-        if attrs is None:
-            attrs = gather_sphere_attrs(scene, res.index, dtype)
         if draws is not None:
             u, xi = draws(b, R)
             u, xi = u.to(device=dev, dtype=dtype), xi.to(device=dev,
@@ -342,12 +369,8 @@ def trace(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
             u, xi = slot_draws(seed & 0xFFFFFFFF, b, slots, dtype)
         else:
             u, xi = positional_draws(seed, b, R, dtype, dev)
-        s = scatter(org, d, t_safe, attrs, u, xi)
-        live_hit = (alive & res.hit)[:, None]
-        return (torch.where(live_hit, s.origin, org),
-                torch.where(live_hit, s.direction, d),
-                torch.where(live_hit, thr * s.attenuation, thr), rad,
-                alive & res.hit)
+        return wavefront_bounce(scene, isect, tmin, u, xi, org, d, thr, rad,
+                                alive)
 
     state = (origin, direction, torch.ones((R, 3), dtype=dtype, device=dev),
              torch.zeros((R, 3), dtype=dtype, device=dev),

@@ -28,8 +28,8 @@ def concentric_disk_map(uv: torch.Tensor) -> torch.Tensor:
     a, b = uv[..., 0], uv[..., 1]
     use_a = torch.abs(a) > torch.abs(b)
     r = torch.where(use_a, a, b)
-    quarter_pi = torch.tensor(math.pi / 4, dtype=uv.dtype, device=uv.device)
-    half_pi = torch.tensor(math.pi / 2, dtype=uv.dtype, device=uv.device)
+    quarter_pi = torch.full((), math.pi / 4, dtype=uv.dtype, device=uv.device)
+    half_pi = torch.full((), math.pi / 2, dtype=uv.dtype, device=uv.device)
     one = torch.ones_like(a)
     safe_a = torch.where(a == 0, one, a)
     safe_b = torch.where(b == 0, one, b)

@@ -109,7 +109,7 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def philox_uniforms(seed: int, iteration: int, n_lanes: int, n: int = 9,
+def philox_uniforms(seed: int, iteration, n_lanes: int, n: int = 9,
                     device="cpu", lanes: torch.Tensor | None = None,
                     coords: tuple = (0, 0)) -> torch.Tensor:
     """``[n, n_lanes]`` float32 uniforms of one strided iteration: Philox
@@ -118,7 +118,9 @@ def philox_uniforms(seed: int, iteration: int, n_lanes: int, n: int = 9,
     ``lanes`` ([n_lanes] integer ids) replaces the counters ``0..n_lanes-1``:
     a ray keyed by its slot draws the same numbers wherever it sits.
     ``coords`` (two ints or [n_lanes] integer tensors) fill the counter's
-    last two words, e.g. a ray's sample and bounce."""
+    last two words, e.g. a ray's sample and bounce. ``iteration`` may be an
+    integer tensor [D, 1]: the draws of D iterations at once, ``[n, D,
+    n_lanes]``, each row the bits of its iteration's own call."""
     lane = (torch.arange(n_lanes, dtype=torch.int64, device=device)
             if lanes is None else lanes.to(torch.int64) & _M32)
     zero = torch.zeros_like(lane)

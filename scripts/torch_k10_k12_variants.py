@@ -763,10 +763,12 @@ def verdict(alone: dict) -> dict:
 
 
 def run_pass_set(dev, passes: int, sets: dict | None = None,
-                 k10_builds=K10_BUILDS, k12_builds=K12_BUILDS) -> dict:
+                 k10_builds=K10_BUILDS, k12_builds=K12_BUILDS,
+                 render_repeats: int = 3) -> dict:
     """Build, check and time the variants of the builds named (``passes``
-    timing passes, then per render); ``sets``: K10's ray sets (by default
-    :func:`k10_sets`). The phases' JSON objects as a dict."""
+    timing passes, then per render, ``render_repeats`` renders each);
+    ``sets``: K10's ray sets (by default :func:`k10_sets`). The phases'
+    JSON objects as a dict."""
     scene, cam, spheres, amat = flagship(dev)
     if sets is None:
         sets = k10_sets(dev, scene, cam, spheres)
@@ -781,7 +783,7 @@ def run_pass_set(dev, passes: int, sets: dict | None = None,
         {"k10": k10_times(k10_libs, sets, spheres, amat, bool(r % 2)),
          "k12": k12_times(k12_libs, st, bool(r % 2))}
         for r in range(passes)])
-    rend = render_tables(dev, k12_libs)
+    rend = render_tables(dev, k12_libs, render_repeats)
     alone = changes_alone(tabs, rend)
     return {"ptxas": report,
             "occupancy": {"k12": K12.occupancy(spheres.shape[0], dev),

@@ -84,7 +84,8 @@ DEPTH, TMIN, SEED11 = 16, 1e-4, 0x5EED
 #: The shipped K7c from its block-size define to the end of its occupancy
 #: query; the shipped K11 from its block-size define to the end of the file.
 K7C_SECTION = re.compile(r"#define RTW_K7C_THREADS 128\n.*?\n}\n\n"
-                         r"(?=// K7b\. One slot)", re.S)
+                         r"(?=// The kernel K7b was before its redesign)",
+                         re.S)
 K7C_LAUNCHERS = re.compile(r"template <int G>\nstatic const void\* "
                            r"rtw_k7c_kernel.*?(?=extern \"C\" int "
                            r"rtw_replay_bwd_step\()", re.S)

@@ -18,6 +18,7 @@ from raytracingweekend_jl_tpu.ops.pallas.grad_kernel import _dattr_contract
 from raytracingweekend_jl_tpu_torch import grad as G
 from raytracingweekend_jl_tpu_torch.render import pick_samples_per_pass
 from raytracingweekend_jl_tpu_torch.ops import persist_grad as PG
+from raytracingweekend_jl_tpu_torch.ops.cuda import grad_kernel as GK
 from raytracingweekend_jl_tpu_torch.ops.cuda.grad_kernel import dattr_contract
 # One intra-op torch thread per test module (an autouse fixture).
 from test_torch_scene_camera import _one_torch_thread  # noqa: F401
@@ -305,6 +306,30 @@ def test_dattr_contract_exact_deterministic_and_order_free():
     poisoned = dattr_contract(dattr, idx, n)
     assert torch.isnan(poisoned[:, 4]).all()
     assert torch.isfinite(poisoned[:, [0, 1, 2, 3, 5, 6, 7, 8]]).all()
+
+
+@pytest.mark.parametrize("block", [1, 5])
+def test_dattr_contract_field_blocks_give_the_same_bits(block, monkeypatch):
+    # The contraction sums its fields in blocks of CONTRACT_BLOCK values:
+    # one field at a time (block 1) or a few (block 5, a ragged last block)
+    # give the bits of all fields at once, a non-finite field and an
+    # all-zero one included, in float32 and float64.
+    g = np.random.default_rng(8)
+    for K_, F, W, n, dt in ((6, 9, 4096, 37, torch.float32),
+                            (2, 4, 300, 5, torch.float64)):
+        d = torch.from_numpy(g.normal(size=(K_, F, W))
+                             * 10.0 ** g.integers(-6, 6, size=(1, F, 1))
+                             ).to(dt)
+        d[:, 2] = 0.0
+        d[1, 3, 7] = float("inf")
+        idx = torch.from_numpy(g.integers(0, n, size=(K_, W)).astype(np.int32))
+        whole = dattr_contract(d, idx, n)
+        monkeypatch.setattr(GK, "CONTRACT_BLOCK", block * K_ * W)
+        blocked = dattr_contract(d, idx, n)
+        monkeypatch.undo()
+        assert torch.isnan(whole[:, 3]).all()
+        assert torch.equal(whole.nan_to_num(nan=7.0), blocked.nan_to_num(
+            nan=7.0)) and torch.equal(whole.isnan(), blocked.isnan())
 
 
 def test_record_hbm_budget_on_the_cpu(monkeypatch):
