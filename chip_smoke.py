@@ -80,8 +80,14 @@ primal bit for bit the keyed trace on the card), ``edge_flagship_fit``
 (two steps of the JAX package's flagship joint fit, 960x540, spp 8, with
 their seconds and peak memory), ``edge_fd`` (a center's edge gradient
 against finite differences) and ``fit_scan`` (``fit_scene_scan`` beside
-``fit_scene`` on both geoms, with host syncs per step). It
-times the kernels, the renders,
+``fit_scene`` on both geoms, with host syncs per step). Last, ``cli``:
+the command line (``raytracingweekend_jl_tpu_torch.cli``) in a
+temporary directory at the flagship film, spp 8 in two chunks of 4 against
+4 samples checkpointed and resumed to 8 (the sums bit for bit; K1 and K2
+launched; the written PNG read back), beside a run of the module in a
+subprocess, ``--stats``, the reference scene, float64 on the fixed-depth
+route, the refused ``--mesh-tiles 2`` and ``scripts/torch_inverse_render.py``.
+It times the kernels, the renders,
 the steps and the fit against the plain path. Each phase prints one JSON
 line; a failed check raises and the script exits non-zero without printing
 a result. The line before the card line lists every kernel with its
@@ -3669,6 +3675,170 @@ def k9_k13_redesign_phases(dev, card) -> dict:
                 "event_ms"], "bound": out13["camera_row_major"]["bound"]}}
 
 
+def cli_phases(card) -> None:
+    """The command line on the card (``raytracingweekend_jl_tpu_torch.cli``),
+    in a temporary directory so that nothing lands in the tree, at the
+    flagship film (``scene_random_spheres(seed=1)``, ``t_cam1``, 1920x1080):
+    spp 8 in two chunks of 4 uninterrupted, then 4 samples to a checkpoint
+    resumed to 8 (``main`` in-process; the uninterrupted run keeps its own
+    checkpoint, whose sum the resumed one must equal bit for bit), with K1's
+    and K2's launches counted over the three runs; the resumed PNG read back
+    against the image it was written from; then one run of the module in a
+    subprocess (spp 1), ``--stats``, the reference scene, float64 on the
+    fixed-depth route (and raising on the persistent one), the refused
+    ``--mesh-tiles 2``, and ``scripts/torch_inverse_render.py --steps 4``
+    in a subprocess. Prints the runs' wall seconds, Mpaths/s and phases."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from raytracingweekend_jl_tpu_torch import cli
+    from raytracingweekend_jl_tpu_torch.utils.checkpoint import load_state
+    from raytracingweekend_jl_tpu_torch.utils.image import read_png, to_uint8
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    flag = ["--scene", "random_spheres", "--camera", "cam1", "--width",
+            "1920"]
+    name = torch.cuda.get_device_name(0)
+
+    def main(argv) -> list:
+        """``cli.main(argv)`` in-process; its JSON lines."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return [json.loads(x) for x in buf.getvalue().splitlines()
+                if x.startswith("{")]
+
+    def figures(rec) -> dict:
+        return {k: rec.get(k) for k in ("label", "wall_s", "paths",
+                                        "mpaths_per_s", "phases", "device")}
+
+    def subprocess_run(args, tmp) -> tuple:
+        out = subprocess.run([sys.executable, *args], cwd=tmp, env=env,
+                             capture_output=True, text=True, timeout=600)
+        lines = [x for x in out.stdout.splitlines() if x.startswith("{")]
+        return out.returncode, (json.loads(lines[-1]) if lines else None), \
+            out.stderr[-2000:]
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="rtw_cli_") as tmp:
+        os.chdir(tmp)
+        try:
+            chunked = flag + ["--spp-chunk", "4"]
+            reset_counts()
+            full = main(chunked + ["--spp", "8", "--checkpoint", "full.npz",
+                                   "-o", "full.png"])
+            part = main(chunked + ["--spp", "4", "--checkpoint", "ck.npz",
+                                   "-o", "part.png"])
+            resumed = main(chunked + ["--spp", "8", "--checkpoint", "ck.npz",
+                                      "-o", "resumed.png"])
+            launched = counts()
+            st_full, st_res = load_state("full.npz"), load_state("ck.npz")
+            bitwise = bool(np.array_equal(st_full.radiance_sum,
+                                          st_res.radiance_sum))
+            written = to_uint8(np.sqrt(np.clip(st_res.image, 0.0, None)))
+            png = read_png("resumed.png")
+            png_equal = bool(np.array_equal(png, written / 255.0))
+            png_same = bool(np.array_equal(png, read_png("full.png")))
+
+            reset_counts()
+            stats = main(flag + ["--spp", "1", "--stats", "-o", "stats.png"])
+            stats_launches = counts()
+            ref = main(["--scene", "random_spheres_reference", "--camera",
+                        "cam1", "--width", "1920", "--spp", "1", "-o",
+                        "reference.png"])
+            ref_png = read_png("reference.png")
+            f64 = main(["--width", "400", "--spp", "1", "--precision", "f64",
+                        "--no-persistent", "-o", "f64.png"])
+            try:
+                main(["--width", "400", "--spp", "1", "--precision", "f64",
+                      "-o", "f64_persistent.png"])
+                f64_persistent = "ran"
+            except NotImplementedError as e:
+                f64_persistent = f"NotImplementedError: {e}"
+            try:
+                main(flag + ["--spp", "1", "--mesh-tiles", "2", "-o",
+                             "mesh.png"])
+                mesh_code = 0
+            except SystemExit as e:
+                mesh_code = e.code
+            mesh_wrote = os.path.exists("mesh.png")
+
+            mod_rc, mod_rec, mod_err = subprocess_run(
+                ["-m", "raytracingweekend_jl_tpu_torch.cli", *flag, "--spp",
+                 "1", "-o", "module.png"], tmp)
+            t0 = time.perf_counter()
+            inv_rc, inv_rec, inv_err = subprocess_run(
+                [os.path.join(root, "scripts", "torch_inverse_render.py"),
+                 "--steps", "4", "--out-dir", os.path.join(tmp, "inverse")],
+                tmp)
+            inv_s = time.perf_counter() - t0
+        finally:
+            os.chdir(here)
+
+    emit({"phase": "cli", "card": card, "size": [1920, 1080],
+          "resume": {"uninterrupted_spp8_chunks4": figures(full[-1]),
+                     "first_spp4": figures(part[-1]),
+                     "resumed_to_spp8": figures(resumed[-1]),
+                     "progress_lines": [x for x in full + part + resumed
+                                        if "samples_done" in x],
+                     "samples_done": [st_full.samples_done,
+                                      st_res.samples_done],
+                     "radiance_sum_bitwise": bitwise,
+                     "png_equals_written_image": png_equal,
+                     "png_equals_uninterrupted_png": png_same,
+                     "launches": {k: v for k, v in launched.items() if v}},
+          "stats": {"occupancy": stats[0], "render": figures(stats[-1]),
+                    "launches": {k: v for k, v in stats_launches.items()
+                                 if v}},
+          "reference_scene": figures(ref[-1]),
+          "f64_no_persistent_400": figures(f64[-1]),
+          "f64_persistent": f64_persistent,
+          "mesh_tiles_2_exit": mesh_code, "mesh_tiles_2_wrote": mesh_wrote,
+          "module_run": {"rc": mod_rc, "record": figures(mod_rec or {}),
+                         "stderr_tail": mod_err if mod_rc else ""},
+          "inverse_script": {"rc": inv_rc, "seconds": inv_s,
+                             "record": inv_rec,
+                             "stderr_tail": inv_err if inv_rc else ""},
+          "checks": "resumed radiance sum bit for bit the uninterrupted "
+                    "chunked run's; sweep and shade_strided launched; the "
+                    "PNG reads back as the image written; the other runs "
+                    "exit 0 and report the card, the sharded one non-zero"})
+    check(st_full.samples_done == st_res.samples_done == 8,
+          f"samples done {st_full.samples_done}, {st_res.samples_done}")
+    check(bitwise, "the resumed render differs from the uninterrupted one")
+    check(launched["sweep"] > 0 and launched["shade_strided"] > 0,
+          f"the CLI's render launched {launched}")
+    check(bool(np.isfinite(st_full.image).all())
+          and st_full.image.shape == (1080, 1920, 3),
+          "non-finite or misshapen CLI image")
+    check(png_equal and png_same, "the written PNG does not read back")
+    for rec in (full[-1], part[-1], resumed[-1], stats[-1], ref[-1],
+                f64[-1]):
+        check(rec["device"]["name"] == name, f"record's device {rec}")
+        check(rec["mpaths_per_s"] > 0, f"record's rate {rec}")
+    check(set(resumed[-1]["phases"]) == {"trace", "fetch", "checkpoint"},
+          f"phases {resumed[-1]['phases']}")
+    occ = stats[0]["bounce_occupancy"]
+    check(occ[0] == 1.0 and stats_launches["sweep"] > 0,
+          f"--stats: {stats[0]}, launches {stats_launches}")
+    check(ref_png.shape == (1080, 1920, 3), "reference-scene PNG shape")
+    check(f64_persistent.startswith("NotImplementedError"),
+          "f64 on the persistent route did not raise")
+    check(mesh_code not in (None, 0) and not mesh_wrote,
+          f"--mesh-tiles 2 exited {mesh_code!r}")
+    check(mod_rc == 0 and mod_rec is not None
+          and mod_rec["device"]["name"] == name,
+          f"the module run failed ({mod_rc}): {mod_err}")
+    check(inv_rc == 0 and inv_rec is not None
+          and bool(np.isfinite([inv_rec["loss_init"],
+                                inv_rec["loss_final"]]).all()),
+          f"the inverse script failed ({inv_rc}): {inv_err}")
+
+
 def k1_phase_rays(dev, cam, spheres, g=None):
     """The K1 phase's 2^20 rays [6, 2^20] of the flagship: 2^19 camera rays
     (film points and lens samples from ``g``, by default a generator seeded
@@ -4020,6 +4190,9 @@ def main() -> int:
     # -- 23. the edge estimator and fit_scene_scan --------------------------
     edge_phases(dev, card)
     fit_scan_phases(dev, card)
+
+    # -- 24. the command line and the checkpointed render ------------------
+    cli_phases(card)
 
     # -- the kernels line: every ported kernel, with its bound -------------
     n_rays, n_sph = rays_f.shape[1], spheres.shape[0]

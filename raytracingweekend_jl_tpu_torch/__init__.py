@@ -26,6 +26,11 @@ kernels for Hopper built from ``csrc/`` at first use:
   sweep through K1); ``fit_scene_scan`` is the same fit with no host sync
   of its own per step.
 
+Long renders: ``render_checkpointed`` renders an image in chunks,
+checkpointed and resumable bit for bit, and the command line
+(``python -m raytracingweekend_jl_tpu_torch.cli``, ``rtw-render-torch``)
+renders a ``RenderConfig`` plainly or in chunks.
+
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``, and raises without CUDA. On the CPU the same paths run the
 kernels' plain PyTorch versions. Module names follow the JAX package so each
@@ -63,6 +68,10 @@ from .ops.sampling import (unit_sphere_directions, unit_disk_points,
 from .models.scenes import (scene_2_spheres, scene_4_spheres,
                             scene_diel_spheres, scene_diel_spheres_hollow,
                             scene_blue_red_spheres, scene_random_spheres,
-                            ALL_SCENES)
+                            scene_random_spheres_reference, save_scene,
+                            load_scene, ALL_SCENES)
+from .utils.config import RenderConfig
+from .utils.checkpoint import RenderState, render_checkpointed
+from .utils.image import write_ppm, read_png
 
 __version__ = "0.1.0"

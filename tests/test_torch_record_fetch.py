@@ -26,7 +26,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-CAMS = {"random_spheres": "t_cam1", "diel_spheres_hollow": "hollow_glass_cam"}
+CAMS = {"random_spheres": "t_cam1", "random_spheres_reference": "t_cam1",
+        "diel_spheres_hollow": "hollow_glass_cam"}
 S, DEPTH, N_ITERS = 4, 8, 12
 
 

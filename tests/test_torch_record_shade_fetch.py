@@ -34,7 +34,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-CAMS = {"random_spheres": "t_cam1", "diel_spheres_hollow": "hollow_glass_cam"}
+CAMS = {"random_spheres": "t_cam1", "random_spheres_reference": "t_cam1",
+        "diel_spheres_hollow": "hollow_glass_cam"}
 DEPTH = 8
 
 

@@ -210,7 +210,9 @@ def test_port_imports_no_jax():
             "for m in ('grad', 'ops.persist_grad', 'ops.cuda.grad_kernel',\n"
             "          'ops.cuda.persist_grad_kernel', 'optimize',\n"
             "          'ops.fused_grad', 'ops.inline', 'ops.cuda.inline_kernel',\n"
-            "          'ops.materials', 'ops.integrator'):\n"
+            "          'ops.materials', 'ops.integrator', 'cli',\n"
+            "          'utils.config', 'utils.checkpoint', 'utils.metrics',\n"
+            "          'utils.profiling', 'utils.xoroshiro', 'utils.image'):\n"
             "    assert p.__name__ + '.' + m in sys.modules, m\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('raytracingweekend_jl_tpu.')]\n"

@@ -31,7 +31,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-CAMS = {"random_spheres": "t_cam1", "diel_spheres_hollow": "hollow_glass_cam"}
+CAMS = {"random_spheres": "t_cam1", "random_spheres_reference": "t_cam1",
+        "diel_spheres_hollow": "hollow_glass_cam"}
 # 70 x 40 pixels at k = 3 strips: 934 lanes (the last lane's third pixel
 # lies past the film, so it ends after two), 4 samples, depth 16.
 W, H, K_STRIPS, SPP = 70, 40, 3, 4
