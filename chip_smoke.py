@@ -77,16 +77,27 @@ per two unfused steps beside the empty-kernel launch floor) and
 the wrappers and two unfused fit steps' losses with either. The edge
 (silhouette) estimator and ``fit_scene_scan``: ``edge_primal`` (the
 primal bit for bit the keyed trace on the card), ``edge_flagship_fit``
-(two steps of the JAX package's flagship joint fit, 960x540, spp 8, with
-their seconds and peak memory), ``edge_fd`` (a center's edge gradient
+(one step of the JAX package's flagship joint fit, 960x540, spp 8, with
+its seconds and peak memory), ``edge_fd`` (a center's edge gradient
 against finite differences) and ``fit_scan`` (``fit_scene_scan`` beside
-``fit_scene`` on both geoms, with host syncs per step). Last, ``cli``:
+``fit_scene`` on both geoms, with host syncs per step). Then ``cli``:
 the command line (``raytracingweekend_jl_tpu_torch.cli``) in a
 temporary directory at the flagship film, spp 8 in two chunks of 4 against
 4 samples checkpointed and resumed to 8 (the sums bit for bit; K1 and K2
 launched; the written PNG read back), beside a run of the module in a
 subprocess, ``--stats``, the reference scene, float64 on the fixed-depth
 route, the refused ``--mesh-tiles 2`` and ``scripts/torch_inverse_render.py``.
+Last, the gradient routes ported last, each a flagship gradient step
+through ``render_grads``: ``recorded_xla_step`` (``recorded=True`` alone,
+K1: the image bit for bit ``trace``'s, the gradients within the JAX
+package's rule of the remat step's, two steps bitwise),
+``recorded_staged_step`` (``recorded_stage=(4, 4)``: no overflow, the
+image's means against the unstaged one), ``fused_stages_step`` (the
+staged fixed-depth pair, K3, K7a and K7b: n_over 0, and the same pair at
+240x135 per lane against its plain version), ``trace_options_step``
+(``remat_policy="dots"`` bit for bit the remat step, ``tile_skip`` through
+K3) and ``recorded_routes_profile`` (each staged route and its unstaged
+twin under the profiler; the contraction's prefix sums in both forms).
 It times the kernels, the renders,
 the steps and the fit against the plain path. Each phase prints one JSON
 line; a failed check raises and the script exits non-zero without printing
@@ -3221,13 +3232,13 @@ def edge_phases(dev, card) -> None:
     one and two edge bounces, and whether K1's ``(t, idx)`` is the dense
     ``[R, N]`` reduction's bit for bit on those rays and on the flagship's
     first 64 800-pixel chunk (the edge bounce takes its hard result from
-    K1 either way). (b) Two steps of ``fit_scene(geom="edge")`` at the JAX
+    K1 either way). (b) One step of ``fit_scene(geom="edge")`` at the JAX
     package's flagship joint fit (``examples/inverse_flagship_joint``:
     ``scene_random_spheres(seed=1)``, ``t_cam1``, 960x540, spp 8, two edge
     bounces, sigma at 3 pixel footprints, 64 800-pixel chunks checkpointed
     one by one, centers, albedos and fuzz perturbed as its script does, the
     target the edge primal of the truth, which is the keyed trace's, so
-    it is rendered with no edge bounce): losses finite, the second step's
+    it is rendered with no edge bounce): the loss finite, the step's
     seconds and peak memory, K1's launches. (c) The cosine of one center's
     edge gradient at the inverse demo (spp 8) against finite differences of
     the hard loss (the default render at spp 32)."""
@@ -3274,7 +3285,7 @@ def edge_phases(dev, card) -> None:
           f"edge primal differs from the keyed trace: {primal}")
     del of, df
 
-    # -- (b) two steps of the flagship joint fit ---------------------------
+    # -- (b) one step of the flagship joint fit ----------------------------
     truth, camf = pt.scene_random_spheres(seed=1), pt.t_cam1()
     movable = pt.movable_mask(truth)
     mat = truth.mat.numpy()
@@ -3308,15 +3319,14 @@ def edge_phases(dev, card) -> None:
         torch.cuda.reset_peak_memory_stats()
 
     t0 = time.perf_counter()
-    res = pt.fit_scene(start, camf, target, 960, 8, steps=2, seed=0,
+    res = pt.fit_scene(start, camf, target, 960, 8, steps=1, seed=0,
                        lr_albedo=1e-2, lr_center=2e-3, lr_fuzz=5e-3,
                        geom="edge", edge_kwargs=ekw, cosine_decay=True,
                        on_step=on_step)
     launches = counts()
     emit({"phase": "edge_flagship_fit", "card": card, "size": [960, 540],
-          "spp": 8, "steps": 2, "edge_kwargs": ekw, "losses": res.losses,
+          "spp": 8, "steps": 1, "edge_kwargs": ekw, "losses": res.losses,
           "step_seconds": res.step_seconds,
-          "second_step_seconds": res.step_seconds[1],
           "peak_memory_bytes_by_step": peaks,
           "memory_before_fit_bytes": mem0, "wall_s": time.perf_counter() - t0,
           "launches": launches,
@@ -3839,6 +3849,376 @@ def cli_phases(card) -> None:
           f"the inverse script failed ({inv_rc}): {inv_err}")
 
 
+#: Kernel families of the gradient routes' steps, by name.
+ROUTE_SUMS = {"sweep": r"\bsweep_kernel\b",
+              "sweep_masked": r"\bsweep_masked_kernel\b",
+              "record_shade": r"\brecord_shade_kernel\b",
+              "replay_bwd_step": r"\breplay_bwd_step_kernel\b",
+              "replay_bwd_fused": r"\breplay_bwd_fused_kernel\b",
+              "sort": r"(?i)sort|radix",
+              "scan": r"(?i)scan",
+              "index": r"index",
+              "elementwise": r"elementwise_kernel|vectorized_"}
+
+
+class _AttrFetchCount:
+    """Counts the winner-attribute gathers (tensor indexing of an ``[N,
+    9]`` attribute table) that run while it is entered."""
+
+    def __init__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func is torch.ops.aten.index.Tensor \
+                        and args[0].dim() == 2 and args[0].shape[1] == 9:
+                    outer.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n, self.mode = 0, Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def recorded_route_phases(dev, card, W: int = 1920) -> None:
+    """The gradient routes that were ported last, each on the flagship film
+    (``scene_random_spheres(seed=1)``, ``t_cam1``, 1920x1080, spp 1: the
+    gradient step of ``render_grads`` with the albedo x 0.8 against the
+    true scene's render): ``recorded_xla_step`` (``recorded=True`` alone:
+    the recorded wavefront, K1 and a sweep-free backward),
+    ``recorded_staged_step`` (``recorded_stage=(4, 4)``),
+    ``fused_stages_step`` (the staged fixed-depth pair: K3, K7a, K7b) and
+    ``trace_options_step`` (the remat route with ``remat_policy="dots"``
+    and with ``tile_skip=4096``). Each phase's launches are counted from
+    0 around its step; a failed check raises."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch import grad as G
+    from raytracingweekend_jl_tpu_torch.camera import sample_pass_rays
+    from raytracingweekend_jl_tpu_torch.ops import fused_grad as FG
+    from raytracingweekend_jl_tpu_torch.ops.grad_trace import (
+        trace_recorded_staged)
+
+    H = W * 9 // 16
+    scene, cam = pt.scene_random_spheres(seed=1), pt.t_cam1()
+    bad = scene._replace(albedo=torch.clamp(scene.albedo * 0.8, 0, 1))
+    target = pt.render_radiance(scene, cam, W, 1, seed=123, device=dev,
+                                persistent=True)
+    real, seen = G.render_radiance, {}
+
+    def spy(*a, **kw):  # the flags render_loss hands the render
+        seen.update(kw)
+        return real(*a, **kw)
+
+    def step(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pt.render_grads(bad, cam, target, W, 1, device=dev, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def peak(**kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(**kw)
+        return torch.cuda.max_memory_allocated() - before
+
+    def same(a, b):
+        return bool(torch.equal(a[0], b[0])) and all(
+            torch.equal(_bits(x), _bits(y)) for x, y in zip(a[1], b[1]))
+
+    def turns(routes: dict, n: int) -> dict:
+        """Seconds of each route's step, the routes in turns, n rounds."""
+        secs = {k: [] for k in routes}
+        for _ in range(n):
+            for k, kw in routes.items():
+                secs[k].append(step(**kw)[0])
+        return {k: {"runs": v, "median": sorted(v)[len(v) // 2]}
+                for k, v in secs.items()}
+
+    def film_rays(w, h, seed=0):
+        u, v = pt.pixel_coords(w, h, device=dev)
+        return sample_pass_rays(cam.to(dev), u, v, seed, 0, 1, float(w),
+                                float(h))
+
+    # -- recorded=True alone: the recorded wavefront ------------------------
+    rec = dict(recorded=True, remat=False)
+    G.render_radiance = spy
+    try:
+        step(**rec)  # warm-up
+        seen.clear()
+        reset_counts()
+        _, first = step(**rec)
+        launches = counts()
+        plan = {k: seen.get(k) for k in ("pixel_chunk", "remat_passes")}
+    finally:
+        G.render_radiance = real
+    chunk = plan["pixel_chunk"]
+    again = step(**rec)[1]
+    bitwise = same(first, again)
+    pt.check_grads_sane(first[1], first[0])
+    img_rec = pt.render_radiance(bad, cam, W, 1, device=dev, recorded=True,
+                                 pixel_chunk=chunk)
+    img_trace = pt.render_radiance(bad, cam, W, 1, device=dev,
+                                   pixel_chunk=chunk)
+    primal_bitwise = bool(torch.equal(img_rec, img_trace))
+    remat = step(recorded=False, remat=True, pixel_chunk=chunk)[1]
+    vs_remat = {}
+    for f in pt.DIFF_FIELDS:
+        a, b = getattr(first[1], f), getattr(remat[1], f)
+        scale = max(b.abs().max().item(), 1e-6)
+        err = (a - b).abs().max().item()
+        vs_remat[f] = {"max_abs_diff": err, "max_abs": scale,
+                       "limit": 2e-6 + 1e-3 * scale}
+    timing = turns({"recorded": rec}, 5)["recorded"]
+    rec_peak = peak(**rec)
+    emit({"phase": "recorded_xla_step", "card": card, "size": [W, H],
+          "spp": 1, "route": "recorded=True alone: the recorded wavefront "
+          "(ops/grad_trace.trace_recorded)", "launches": launches,
+          "pixel_chunk": chunk, "chunks": -(-W * H // (chunk or W * H)),
+          "remat_passes": plan["remat_passes"], "loss": float(first[0]),
+          "primal_bitwise_trace": primal_bitwise, "bitwise_repeat": bitwise,
+          "loss_equal_remat": bool(torch.equal(first[0], remat[0])),
+          "vs_remat_step": vs_remat, "seconds_runs": timing["runs"],
+          "seconds_median": timing["median"],
+          "mpaths_per_s": W * H / timing["median"] / 1e6,
+          "peak_bytes_above_start": rec_peak,
+          "tolerance": "the image bit for bit trace(remat=False)'s with the "
+                       "same seed and chunks; two steps bitwise equal; "
+                       "against the remat step on the same chunks the loss "
+                       "equal and each field within 2e-6 + 1e-3 * max|g| "
+                       "(the JAX package's "
+                       "test_recorded_matches_remat_gradients)"})
+    check(launches["sweep"] > 0, f"recorded step launched {launches}")
+    check(primal_bitwise, "the recorded image differs from trace's")
+    check(bitwise, "two recorded steps differ")
+    check(bool(torch.equal(first[0], remat[0])),
+          "recorded and remat losses differ")
+    for f, v in vs_remat.items():
+        check(v["max_abs_diff"] <= v["limit"],
+              f"grad[{f}] recorded vs remat: {v}")
+
+    # -- recorded_stage=(4, 4): the staged recorded wavefront -------------
+    stg = dict(recorded=True, recorded_stage=(4, 4))
+    step(**stg)  # warm-up
+    stats = {}
+    reset_counts()
+    _, s_first = step(stats=stats, **stg)
+    s_launches = counts()
+    pt.check_grads_sane(s_first[1], s_first[0])
+    overflow = int(stats["overflow"])
+    o, d = film_rays(W, H)
+    with torch.no_grad():
+        _, count = trace_recorded_staged(
+            pt.trim_scene(bad.to(dev)), o, d, 7, 16, 1e-4, 4,
+            o.shape[0] // 4)
+    count, width = int(count), o.shape[0] // 4
+    del o, d
+    img_stg = pt.render_radiance(bad, cam, W, 1, device=dev, recorded=True,
+                                 recorded_stage=(4, 4), pixel_chunk=chunk)
+    diff = (img_stg - img_rec).reshape(-1, 3).double()
+    mean_diff = diff.mean(0)
+    se = diff.std(0) / diff.shape[0] ** 0.5
+    stat_ok = bool((mean_diff.abs() <= 4 * se + 1e-7).all())
+    timing = turns({"staged": stg, "recorded": rec}, 5)
+    stg_peak = peak(**stg)
+    emit({"phase": "recorded_staged_step", "card": card, "size": [W, H],
+          "spp": 1, "route": "recorded_stage=(4, 4): bounces 4-15 over the "
+          "survivors compacted to R // 4 lanes", "launches": s_launches,
+          "overflow_lanes": overflow, "film_alive_at_4": count,
+          "film_width": width, "headroom": width / max(count, 1),
+          "loss": float(s_first[0]),
+          "image_mean_diff_vs_unstaged": mean_diff.tolist(),
+          "standard_error": se.tolist(), "seconds": timing,
+          "mpaths_per_s": W * H / timing["staged"]["median"] / 1e6,
+          "peak_bytes_above_start": stg_peak,
+          "recorded_peak_bytes_above_start": rec_peak,
+          "tolerance": "no lane over the tail's budget (the step's "
+                       "overflow 0, the film's live count at bounce 4 "
+                       "within R // 4); the image's channel means within 4 "
+                       "standard errors of the per-pixel difference from "
+                       "the unstaged recorded image (the same draws to "
+                       "bounce 3, other draws after)"})
+    check(s_launches["sweep"] > 0, f"staged step launched {s_launches}")
+    check(overflow == 0 and count <= width,
+          f"staged budget overflowed: {overflow} lanes, {count} > {width}")
+    check(stat_ok, f"staged image mean differs: {mean_diff.tolist()} "
+                   f"(standard error {se.tolist()})")
+    del img_stg, img_rec, img_trace
+
+    # -- fused_stages: the staged fixed-depth pair ------------------------
+    fs = dict(recorded_fused=True, fused_stages=FG.DEFAULT_STAGES)
+    un = dict(recorded_fused=True)
+    step(**fs)
+    step(**un)  # warm-ups
+    stats = {}
+    reset_counts()
+    _, f_first = step(stats=stats, **fs)
+    f_launches = counts()
+    f_bitwise = same(f_first, step(**fs)[1])
+    pt.check_grads_sane(f_first[1], f_first[0])
+    n_over = int(stats["overflow"])
+    un_loss = step(**un)[1][0]
+    timing = turns({"staged": fs, "unstaged": un}, 3)
+    peaks = {"staged": peak(**fs), "unstaged": peak(**un)}
+    # The same pair at 240x135 through impl="plain" on the card, the same
+    # injected uniforms (three stages of 32 768, 16 384 and 8 192 lanes).
+    o, d = film_rays(240, 135)
+    g = torch.Generator(device=dev).manual_seed(5)
+    u5 = {}
+
+    def u5_fn(b, n):
+        if (b, n) not in u5:
+            u5[b, n] = torch.rand((5, n), generator=g, device=dev)
+        return u5[b, n]
+
+    small = {}
+    for impl in ("kernels", "plain"):
+        sc = pt.trim_scene(bad.to(dev))
+        leaves = {f: getattr(sc, f).clone().requires_grad_(True)
+                  for f in pt.DIFF_FIELDS}
+        r = pt.trace_recorded_fused_staged(sc._replace(**leaves), o, d, 11,
+                                           16, 1e-4, FG.DEFAULT_STAGES,
+                                           impl=impl, u5_fn=u5_fn)
+        grads = torch.autograd.grad(((r - 0.3) ** 2).mean(),
+                                    list(leaves.values()))
+        small[impl] = (r.detach(), pt.SceneGrads(*grads))
+    lane_err = (small["kernels"][0] - small["plain"][0]).abs().amax(-1)
+    small_fields = field_stats(small["kernels"][1], small["plain"][1])
+    plan240 = FG.stage_plan(o.shape[0], 16, FG.DEFAULT_STAGES)
+    emit({"phase": "fused_stages_step", "card": card, "size": [W, H],
+          "spp": 1, "stages": FG.DEFAULT_STAGES,
+          "route": "recorded_fused with fused_stages: the fixed-depth pair "
+                   "compacted at bounces 2, 4 and 8",
+          "launches": f_launches, "n_over": n_over,
+          "bitwise_repeat": f_bitwise, "loss": float(f_first[0]),
+          "loss_unstaged": float(un_loss), "seconds": timing,
+          "mpaths_per_s": W * H / timing["staged"]["median"] / 1e6,
+          "peak_bytes_above_start": peaks,
+          "small_size": [240, 135], "small_stage_lanes":
+              [p[2] * FG.LANES for p in plan240],
+          "small_lanes_outside_1e-5": int((lane_err > 1e-5).sum()),
+          "small_max_abs_err": lane_err.max().item(),
+          "small_fields_vs_plain": small_fields,
+          "tolerance": "n_over 0; K3, K7a and K7b launched, K7c not; two "
+                       "steps bitwise equal; at 240x135 against "
+                       "impl='plain' with the same injected uniforms every "
+                       "lane's radiance within 1e-5 and per field cosine "
+                       ">= 0.999, norm ratio within 1%"})
+    check(n_over == 0, f"{n_over} lanes overflowed the default stages")
+    check(all(f_launches[k] > 0 for k in
+              ("sweep_masked", "record_shade", "replay_bwd_step"))
+          and f_launches["replay_bwd_fused"] == 0,
+          f"staged pair launched {f_launches}")
+    check(f_bitwise, "two staged-pair steps differ")
+    check(int((lane_err > 1e-5).sum()) == 0,
+          f"staged pair kernels vs plain: max {lane_err.max().item()}")
+    for f, v in small_fields.items():
+        check(v["cosine"] >= 0.999 and abs(v["norm_ratio"] - 1) <= 0.01,
+              f"staged pair grad[{f}] kernels vs plain: {v}")
+    del o, d, small
+
+    # -- the trace options on the remat route ------------------------------
+    base = dict(recorded=False, remat=True, pixel_chunk=1 << 19)
+    dots = dict(base, remat_policy="dots")
+    tile = dict(base, tile_skip=4096)
+    step(**base)
+    step(**dots)
+    step(**tile)  # warm-ups
+    _, r_first = step(**base)
+    reset_counts()
+    _, d_first = step(**dots)
+    d_launches = counts()
+    dots_bitwise = same(r_first, d_first)
+    bwd = {"remat": [], "dots": []}
+    fetches = {}
+    for _ in range(3):
+        for name, kw in (("remat", base), ("dots", dots)):
+            leaves = {f: getattr(bad, f).detach().to(dev).requires_grad_(True)
+                      for f in pt.DIFF_FIELDS}
+            loss = pt.render_loss(bad._replace(**leaves), cam, target, W, 1,
+                                  device=dev, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.autograd.grad(loss, list(leaves.values()))
+            torch.cuda.synchronize()
+            bwd[name].append(time.perf_counter() - t0)
+    for name, kw in (("remat", base), ("dots", dots)):
+        leaves = {f: getattr(bad, f).detach().to(dev).requires_grad_(True)
+                  for f in pt.DIFF_FIELDS}
+        loss = pt.render_loss(bad._replace(**leaves), cam, target, W, 1,
+                              device=dev, **kw)
+        with _AttrFetchCount() as fc:
+            torch.autograd.grad(loss, list(leaves.values()))
+        fetches[name] = fc.n
+    reset_counts()
+    _, t_first = step(**tile)
+    t_launches = counts()
+    pt.check_grads_sane(t_first[1], t_first[0])
+    timing = turns({"remat": base, "dots": dots, "tile_skip": tile}, 3)
+    peaks = {k: peak(**kw) for k, kw in (("remat", base), ("dots", dots),
+                                         ("tile_skip", tile))}
+    bwd_med = {k: sorted(v)[1] for k, v in bwd.items()}
+    emit({"phase": "trace_options_step", "card": card, "size": [W, H],
+          "spp": 1, "pixel_chunk": 1 << 19,
+          "route": "recorded=False, remat=True: remat_policy='dots', then "
+                   "tile_skip=4096",
+          "dots_launches": d_launches, "tile_skip_launches": t_launches,
+          "dots_bitwise_remat": dots_bitwise,
+          "backward_seconds_runs": bwd, "backward_seconds_median": bwd_med,
+          "recomputed_attr_fetches": fetches, "seconds": timing,
+          "peak_bytes_above_start": peaks,
+          "loss_remat": float(r_first[0]), "loss_tile_skip":
+              float(t_first[0]),
+          "tile_skip_vs_remat": field_stats(t_first[1], r_first[1]),
+          "tolerance": "dots: loss and gradients bit for bit remat=True's, "
+                       "no attribute fetch recomputed in its backward (16 "
+                       "per chunk without it); tile_skip: a finite, sane "
+                       "step (check_grads_sane) through K3"})
+    check(dots_bitwise, "remat_policy='dots' gradients differ from remat's")
+    check(fetches["dots"] == 0 and fetches["remat"] > 0,
+          f"recomputed attribute fetches {fetches}")
+    check(d_launches["sweep"] > 0, f"dots step launched {d_launches}")
+    check(t_launches["sweep_masked"] > 0 and t_launches["sweep"] == 0,
+          f"tile_skip step launched {t_launches}")
+
+    # -- where each route's step spends the card's time, and the
+    # contraction's prefix sums (int64, the fields of a block) as one
+    # row-wise cumsum (the previous form) and one cumsum a field (the
+    # shipped form) at the blocks these steps give it --------------------
+    scans = {}
+    for rows, m in ((2, 7282688), (3, 5226496), (9, 524288), (9, 358400)):
+        q = torch.randint(-2 ** 40, 2 ** 40, (rows, m), device=dev)
+        per_field = torch.empty_like(q)
+
+        def by_field():
+            for j in range(rows):
+                torch.cumsum(q[j], 0, out=per_field[j])
+
+        by_field()
+        scans[f"{rows}x{m}"] = {
+            "bitwise": bool(torch.equal(torch.cumsum(q, 1), per_field)),
+            "row_wise_ms": device_ms(lambda: torch.cumsum(q, 1), 5),
+            "per_field_ms": device_ms(by_field, 5)}
+        del q, per_field
+    check(all(v["bitwise"] for v in scans.values()),
+          f"per-field prefix sums differ: {scans}")
+    emit({"phase": "recorded_routes_profile", "card": card,
+          "size": [W, H], "spp": 1, "contract_scan": scans, **{
+              name: profile_call(lambda kw=kw: step(**kw), ROUTE_SUMS)
+              for name, kw in (("recorded", rec), ("recorded_staged", stg),
+                               ("fused_unstaged", un), ("fused_staged", fs))}})
+
+
 def k1_phase_rays(dev, cam, spheres, g=None):
     """The K1 phase's 2^20 rays [6, 2^20] of the flagship: 2^19 camera rays
     (film points and lens samples from ``g``, by default a generator seeded
@@ -4193,6 +4573,9 @@ def main() -> int:
 
     # -- 24. the command line and the checkpointed render ------------------
     cli_phases(card)
+
+    # -- 25. the recorded routes and the trace options ----------------------
+    recorded_route_phases(dev, card)
 
     # -- the kernels line: every ported kernel, with its bound -------------
     n_rays, n_sph = rays_f.shape[1], spheres.shape[0]

@@ -18,7 +18,11 @@ kernels for Hopper built from ``csrc/`` at first use:
   replay K6 for lean records), and below through the fixed-depth pair (K3,
   the record step K7a, the fused replay K7c, or the per-bounce replay K7b);
   ``recorded=False, remat=True`` takes the remat twin instead, autograd
-  through ``trace`` with each bounce recomputed;
+  through ``trace`` with each bounce recomputed (``remat_policy="dots"``
+  keeps the winner fetches, ``tile_skip`` sweeps only live lanes through
+  K3); ``recorded=True`` alone the recorded wavefront ``trace_recorded``
+  (K1, a sweep-free backward), ``recorded_stage`` its staged form, and
+  ``fused_stages`` the staged fixed-depth pair (K3, K7a, K7b);
 - the inverse-rendering fit: ``fit_scene(scene0, cam, target, width, spp)``
   takes Adam steps on the gradient step's albedo gradients and SPSA probe
   renders for the centers, or with ``geom="edge"`` on autodiff of the
@@ -51,7 +55,9 @@ from .grad import (render_loss, render_grads, SceneGrads, check_grads_sane,
 from .optimize import FitResult, fit_scene, fit_scene_scan, movable_mask
 from .ops.edge import render_radiance_edge, trace_edge
 from .ops.persist_grad import trace_recorded_persist, persist_dropped_paths
-from .ops.fused_grad import trace_recorded_fused
+from .ops.fused_grad import (trace_recorded_fused,
+                             trace_recorded_fused_staged, DEFAULT_STAGES)
+from .ops.grad_trace import trace_recorded, trace_recorded_staged
 from .ops.cuda.inline_kernel import trace_inline
 from .ops.integrator import (trace, trace_compacted, trace_occupancy,
                              persistent_render_sum,

@@ -666,10 +666,31 @@ def dattr_contract(dattr: torch.Tensor, idx: torch.Tensor,
         _, e = torch.frexp(v.abs().amax(dim=1, keepdim=True))
         scale = torch.ldexp(torch.ones_like(e, dtype=torch.float64), bits - e)
         q = torch.round(v * scale).to(torch.int64)
-        cs = torch.cat([torch.zeros((q.shape[0], 1), dtype=torch.int64,
-                                    device=device), torch.cumsum(q, 1)], 1)
+        # One prefix sum per field: on an H100 a row-wise cumsum over a few
+        # long rows runs as one slow kernel (13.5 ms for two rows of 7.3M
+        # lanes; 0.12 ms for one row of 16.6M alone). Integer sums give the
+        # same bits either way.
+        cs = torch.zeros((q.shape[0], m + 1), dtype=torch.int64,
+                         device=device)
+        for j in range(q.shape[0]):
+            torch.cumsum(q[j], 0, out=cs[j, 1:])
         seg = cs[:, bounds[1:]] - cs[:, bounds[:-1]]
         col = seg.to(torch.float64) / scale
         out[j0:j0 + step] = torch.where(finite.all(1, keepdim=True), col,
                                         torch.full_like(col, float("nan")))
     return out.T.to(dattr.dtype).contiguous()
+
+
+def dattr_contract_stages(dattrs: list, idxs: list, n: int) -> torch.Tensor:
+    """:func:`dattr_contract` of several records of different widths as
+    one: ``dattrs[i]`` [K_i, F, W_i] with ``idxs[i]`` [K_i, W_i]. One record
+    goes straight through (no copy); several are laid end to end in the
+    order ``dattr_contract`` reads one, so a single sort and prefix sum
+    covers them all. A lane whose index is negative adds nothing."""
+    if len(dattrs) == 1:
+        return dattr_contract(dattrs[0], idxs[0], n)
+    n_f = dattrs[0].shape[1]
+    rows = torch.cat([d.transpose(0, 1).reshape(n_f, -1) for d in dattrs], 1)
+    keys = torch.cat([i.reshape(-1) for i in idxs])
+    return dattr_contract(rows[None], keys[None], n)
+

@@ -442,13 +442,19 @@ def _winner_scale(origin, direction, center, t, idx, g_t):
 
 
 class _Sweep(torch.autograd.Function):
-    """K1 (or ``sweep_ref``) forward; the reference's ``_sweep_bwd``."""
+    """K1 (or ``sweep_ref``) forward, or K3 (``sweep_masked_ref``) when the
+    live lanes ``alive`` are given; the reference's ``_sweep_bwd``."""
 
     @staticmethod
-    def forward(ctx, origin, direction, center, radius, tmin, plain):
+    def forward(ctx, origin, direction, center, radius, tmin, plain, alive):
         spheres = sphere_consts(Scene(center, radius, None, None, None, None))
-        run = sweep_ref if plain else sweep
-        t, idx = run(_rays6(origin, direction), spheres, tmin)
+        rays = _rays6(origin, direction)
+        if alive is None:
+            t, idx = (sweep_ref if plain else sweep)(rays, spheres, tmin)
+        else:
+            run = sweep_masked_ref if plain else sweep_masked
+            t, idx = run(rays, alive.to(torch.int32).contiguous(), spheres,
+                         tmin)
         ctx.save_for_backward(origin, direction, center, radius, t, idx)
         ctx.mark_non_differentiable(idx)
         return t, idx
@@ -464,7 +470,7 @@ class _Sweep(torch.autograd.Function):
         d_sph = dattr_contract(rows.T.unsqueeze(0), idx.unsqueeze(0),
                                center.shape[0])
         return (-scale[:, None] * p, -(scale * t_safe)[:, None] * p,
-                d_sph[:, 0:3], d_sph[:, 3], None, None)
+                d_sph[:, 0:3], d_sph[:, 3], None, None, None)
 
 
 class _SweepFetch(torch.autograd.Function):
@@ -504,13 +510,16 @@ class _SweepFetch(torch.autograd.Function):
 
 def intersect_spheres_kernel(origin: torch.Tensor, direction: torch.Tensor,
                              scene: Scene, tmin: float = DEFAULT_TMIN,
-                             plain: bool = False) -> HitResult:
+                             plain: bool = False,
+                             alive: torch.Tensor | None = None) -> HitResult:
     """Closest hits of rays ``origin``/``direction`` [R, 3] float32 through
     K1 (``plain=True``, or CPU tensors: :func:`sweep_ref`), differentiable
     w.r.t. the rays and the scene's centers and radii (reference:
-    ``intersect_spheres_pallas``)."""
+    ``intersect_spheres_pallas``). With ``alive`` [R] (bool or int) only
+    the live lanes are swept, through K3 (:func:`sweep_masked`); the others
+    read as misses."""
     t, idx = _Sweep.apply(origin, direction, scene.center, scene.radius,
-                          float(tmin), bool(plain))
+                          float(tmin), bool(plain), alive)
     return HitResult(t=t, index=idx, hit=t < BIG)
 
 

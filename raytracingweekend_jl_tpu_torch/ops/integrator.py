@@ -7,7 +7,11 @@ differentiable (``remat=True`` recomputes each bounce in the backward). Its
 sweep is K1 (``cuda/intersect_kernel.intersect_spheres_kernel``) or, with
 ``fused_attrs=True``, K10 (``intersect_fetch_kernel``), each with the
 reference's implicit-differentiation backward; float64 rays take the dot-form
-``intersect_spheres`` on any device.
+``intersect_spheres`` on any device. ``remat_policy="dots"`` keeps each
+bounce's winner-attribute fetch for the backward instead of recomputing it;
+``tile_skip`` draws per tile and sweeps only the live lanes (K3,
+``sweep_masked``), so dead tiles cost no sweep. The recorded backward of the
+same wavefront is ``ops/grad_trace.py``.
 
 The persistent integrators pin lanes to pixels and start a pixel's next
 sample in place when its ray ends (sky or depth exhaustion):
@@ -39,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from ..camera import make_rays
 from ..scene import Scene
 from .. import rng
-from .intersect import DEFAULT_TMIN, intersect_spheres
+from .intersect import BIG, DEFAULT_TMIN, HitResult, intersect_spheres
 from .materials import (attr_mat, fetch_attr_planes, gather_sphere_attrs,
                         positional_draws, scatter, slot_draws)
 from .sampling import concentric_disk_map, per_ray_uniforms
@@ -297,17 +301,15 @@ def _pick_intersector(dtype, fused_attrs: bool, impl: str) -> Callable:
         None)
 
 
-def wavefront_bounce(scene: Scene, isect: Callable, tmin: float,
-                     u: torch.Tensor, xi: torch.Tensor, org: torch.Tensor,
-                     d: torch.Tensor, thr: torch.Tensor, rad: torch.Tensor,
-                     alive: torch.Tensor) -> tuple:
-    """One bounce of the fixed-depth wavefront (:func:`trace`'s body) with
-    the draws ``u`` [R, 3], ``xi`` [R] given: every ray is swept by
-    ``isect`` (:func:`_pick_intersector`); a ray that misses for the first
-    time banks ``thr * sky(d)`` into ``rad`` and dies; a live hit scatters
-    and multiplies its throughput. Returns the next ``(org, d, thr, rad,
-    alive)``."""
-    res, attrs = isect(org, d, scene, tmin)
+def bounce_advance(scene: Scene, res, attrs, u: torch.Tensor,
+                   xi: torch.Tensor, org: torch.Tensor, d: torch.Tensor,
+                   thr: torch.Tensor, rad: torch.Tensor,
+                   alive: torch.Tensor) -> tuple:
+    """The bounce after its sweep ``res`` (with the winners' ``attrs``, or
+    None to gather them): a ray that misses for the first time banks ``thr
+    * sky(d)`` into ``rad`` and dies; a live hit scatters with the draws
+    ``u`` [R, 3], ``xi`` [R] and multiplies its throughput. Returns the
+    next ``(org, d, thr, rad, alive)``."""
     miss_now = alive & ~res.hit
     rad = rad + torch.where(miss_now[:, None], thr * skycolor(d),
                             torch.zeros_like(thr))
@@ -321,6 +323,48 @@ def wavefront_bounce(scene: Scene, isect: Callable, tmin: float,
             torch.where(live_hit, s.direction, d),
             torch.where(live_hit, thr * s.attenuation, thr), rad,
             alive & res.hit)
+
+
+def wavefront_bounce(scene: Scene, isect: Callable, tmin: float,
+                     u: torch.Tensor, xi: torch.Tensor, org: torch.Tensor,
+                     d: torch.Tensor, thr: torch.Tensor, rad: torch.Tensor,
+                     alive: torch.Tensor) -> tuple:
+    """One bounce of the fixed-depth wavefront (:func:`trace`'s body) with
+    the draws ``u`` [R, 3], ``xi`` [R] given: every ray is swept by
+    ``isect`` (:func:`_pick_intersector`), then :func:`bounce_advance`.
+    Returns the next ``(org, d, thr, rad, alive)``."""
+    res, attrs = isect(org, d, scene, tmin)
+    return bounce_advance(scene, res, attrs, u, xi, org, d, thr, rad, alive)
+
+
+#: The ``remat_policy`` values :func:`trace` takes: ``None`` recomputes
+#: every bounce in the backward; ``"dots"`` keeps each bounce's
+#: winner-attribute fetch from the forward (the reference's policy saves
+#: its matrix-unit products, which are that fetch there) and recomputes
+#: the sweep and the scatter.
+REMAT_POLICIES = (None, "dots")
+
+
+def check_remat_policy(remat_policy) -> None:
+    """Raise ``ValueError`` for a ``remat_policy`` that is not in
+    :data:`REMAT_POLICIES`."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {remat_policy!r}")
+
+
+def tile_draws(seed: int, bounce: int, tile: int, n_tiles: int,
+               dtype=torch.float32, device="cpu"
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Draws of one bounce of ``trace(tile_skip=tile)`` over ``n_tiles``
+    tiles of ``tile`` rays: every tile its own stream, Philox keyed by
+    ``(seed, bounce)`` with the counter (position in the tile, block, tile,
+    0), so a ray's numbers depend on its tile and its place there, as the
+    reference's ``fold_in(fold_in(key, bounce), tile)`` positional draws
+    do. One call draws every tile."""
+    lane = torch.arange(n_tiles * tile, dtype=torch.int64, device=device)
+    return slot_draws(seed & 0xFFFFFFFF, bounce, lane % tile, dtype,
+                      coords=(lane // tile, 0))
 
 
 def trace(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
@@ -344,45 +388,93 @@ def trace(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
     xi [R])`` replaces both. ``remat=True`` checkpoints each bounce: the
     backward keeps one bounce's inputs per bounce and recomputes the rest
     (the draws are a pure function of ``(seed, bounce)``, so the recompute
-    redraws them exactly). ``tile_skip`` and ``remat_policy`` are not
-    ported."""
-    if tile_skip:
-        raise NotImplementedError(
-            "tile_skip (per-tile lax.cond skipping of dead ray tiles) is not "
-            "ported")
-    if remat_policy is not None:
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r} (a jax.checkpoint saving policy) "
-            "is not ported; remat=True recomputes everything")
+    redraws them exactly); ``remat_policy="dots"`` keeps each bounce's
+    winner-attribute fetch instead of recomputing it (the same gradients
+    bit for bit), any other name but None raises ``ValueError``.
+
+    ``tile_skip = T > 0`` pads the rays to whole tiles of ``T`` (padding
+    lanes start dead, pointing up), draws each tile from its own stream
+    (:func:`tile_draws`; the hook is then ``draws(b, R_padded)``) and
+    sweeps only the live lanes (K3, ``sweep_masked``, for float32 rays
+    without ``fused_attrs``): a tile with no live lane costs no sweep and
+    no host synchronisation, and changes nothing, as in the reference's
+    per-tile ``lax.cond``. ``keyed=True`` with it raises ``ValueError``."""
+    if tile_skip and keyed:
+        raise ValueError("tile_skip uses per-tile positional draws; "
+                         "keyed=True is not supported together with it")
+    if tile_skip < 0:
+        raise ValueError(f"tile_skip must be >= 0, got {tile_skip}")
+    check_remat_policy(remat_policy)
     dtype, dev = origin.dtype, origin.device
     R = origin.shape[0]
     impl = resolve_impl(impl, dev)
     isect = _pick_intersector(dtype, fused_attrs, impl)
     slots = torch.arange(R, dtype=torch.int32, device=dev) if keyed else None
+    R_run, alive0 = R, torch.ones((R,), dtype=torch.bool, device=dev)
+    masked = bool(tile_skip) and dtype == torch.float32 and not fused_attrs
+    if tile_skip:
+        n_tiles = -(-R // tile_skip)
+        R_run = n_tiles * tile_skip
+        pad = R_run - R
+        up = torch.zeros((pad, 3), dtype=dtype, device=dev)
+        up[:, 1] = 1.0
+        origin = torch.cat([origin, torch.zeros_like(up)])
+        direction = torch.cat([direction, up])
+        alive0 = torch.arange(R_run, device=dev) < R
+
+    def bounce_draws(b):
+        if draws is not None:
+            u, xi = draws(b, R_run)
+            return u.to(device=dev, dtype=dtype), xi.to(device=dev,
+                                                        dtype=dtype)
+        if keyed:
+            return slot_draws(seed & 0xFFFFFFFF, b, slots, dtype)
+        if tile_skip:
+            return tile_draws(seed, b, tile_skip, n_tiles, dtype, dev)
+        return positional_draws(seed, b, R, dtype, dev)
+
+    def sweep(org, d, alive):
+        if masked:
+            return intersect_kernel.intersect_spheres_kernel(
+                org, d, scene, tmin, impl == "plain", alive=alive), None
+        return isect(org, d, scene, tmin)
 
     def bounce(b, org, d, thr, rad, alive):
-        if draws is not None:
-            u, xi = draws(b, R)
-            u, xi = u.to(device=dev, dtype=dtype), xi.to(device=dev,
-                                                        dtype=dtype)
-        elif keyed:
-            u, xi = slot_draws(seed & 0xFFFFFFFF, b, slots, dtype)
-        else:
-            u, xi = positional_draws(seed, b, R, dtype, dev)
-        return wavefront_bounce(scene, isect, tmin, u, xi, org, d, thr, rad,
-                                alive)
+        res, attrs = sweep(org, d, alive)
+        u, xi = bounce_draws(b)
+        return bounce_advance(scene, res, attrs, u, xi, org, d, thr, rad,
+                              alive)
 
-    state = (origin, direction, torch.ones((R, 3), dtype=dtype, device=dev),
-             torch.zeros((R, 3), dtype=dtype, device=dev),
-             torch.ones((R,), dtype=torch.bool, device=dev))
+    def sweep_only(org, d, alive):
+        res, attrs = sweep(org, d, alive)
+        return res.t, res.index, attrs
+
+    def advance(b, t, idx, attrs, org, d, thr, rad, alive):
+        u, xi = bounce_draws(b)
+        return bounce_advance(scene, HitResult(t, idx, t < BIG), attrs, u,
+                              xi, org, d, thr, rad, alive)
+
+    state = (origin, direction,
+             torch.ones((R_run, 3), dtype=dtype, device=dev),
+             torch.zeros((R_run, 3), dtype=dtype, device=dev), alive0)
     for b in range(max_depth):
-        if remat:
+        if remat and remat_policy == "dots":
+            # Two checkpoints around the winner fetch: the backward
+            # recomputes the sweep and the scatter, and reads the fetched
+            # rows kept between them.
+            t, idx, attrs = checkpoint(sweep_only, *state[:2], state[4],
+                                       use_reentrant=False)
+            if attrs is None:
+                attrs = gather_sphere_attrs(scene, idx, dtype)
+            state = checkpoint(advance, b, t, idx, attrs, *state,
+                               use_reentrant=False)
+        elif remat:
             state = checkpoint(bounce, b, *state, use_reentrant=False)
         else:
             state = bounce(b, *state)
     # Rays still alive after max_depth contribute black
     # (src/ray_color.jl:15-17).
-    return state[3]
+    return state[3][:R]
 
 
 # ---------------------------------------------------------------------------

@@ -33,11 +33,17 @@ picks them on its device:
 
 ``compact=True`` swaps the wavefront for the forward-only compacting one
 (``trace_compacted``: only live rays are swept, the draws keyed by slot).
+The other gradient routes: ``recorded=True`` alone takes the recorded
+wavefront (``ops/grad_trace.trace_recorded``: K1 and a sweep-free
+backward), ``recorded_stage = (B, div)`` its staged form (the survivors of
+bounce ``B`` compacted to ``R // div`` lanes), ``fused_stages`` the staged
+fixed-depth pair (``ops/fused_grad.trace_recorded_fused_staged``, K3 and
+K7), and the wavefront ``trace`` takes ``tile_skip`` and ``remat_policy``.
+A staged route whose budget overflows warns once per render, after the
+pass loop, and adds the count to ``stats["overflow"]``.
 ``remat_passes=True`` keeps only each pass's radiance sum and recomputes the
 pass in the backward (:class:`_RecomputedPass`), the counterpart of the
-reference's ``jax.checkpoint`` of the pass body. Not ported (they raise
-``NotImplementedError``): the XLA recorded path (``recorded=True`` alone),
-``recorded_stage``, ``fused_stages``, ``tile_skip`` and ``remat_policy``.
+reference's ``jax.checkpoint`` of the pass body.
 """
 
 from __future__ import annotations
@@ -49,9 +55,12 @@ import torch
 
 from . import rng
 from .camera import Camera, sample_pass_rays
-from .ops.fused_grad import trace_recorded_fused
+from .ops.fused_grad import (check_stages, trace_recorded_fused,
+                             trace_recorded_fused_staged, warn_overflow)
+from .ops.grad_trace import trace_recorded, trace_recorded_staged
 from .ops.inline import render_inline_sum
-from .ops.integrator import (DEFAULT_MAX_DEPTH, persistent_render_sum_fused,
+from .ops.integrator import (DEFAULT_MAX_DEPTH, check_remat_policy,
+                             persistent_render_sum_fused,
                              persistent_render_sum_strided, trace,
                              trace_compacted)
 from .ops.intersect import DEFAULT_TMIN
@@ -129,45 +138,39 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def _check_route(persistent: bool, recorded: bool = False,
-                 recorded_fused: bool = False, recorded_stage=None,
-                 recorded_persist=None, fused_stages=None,
-                 tile_skip: int = 0, remat_policy: str | None = None) -> None:
-    """Raise for the routes that are not ported."""
-    if persistent:
-        return
-    what = None
+def _check_route(fused_stages=None, remat_policy: str | None = None,
+                 tile_skip: int = 0) -> None:
+    """Raise ``ValueError`` for route options no route takes: a malformed
+    stage schedule, an unknown ``remat_policy``, a negative ``tile_skip``."""
     if fused_stages is not None:
-        what = ("fused_stages (ops/pallas/grad_kernel."
-                "trace_recorded_fused_staged); use recorded_fused")
-    elif recorded_stage is not None:
-        what = ("recorded_stage (ops/grad_trace.trace_recorded_staged); use "
-                "recorded_fused or recorded_persist")
-    elif tile_skip:
-        what = "tile_skip (per-tile skipping of dead rays in trace)"
-    elif remat_policy is not None:
-        what = f"remat_policy={remat_policy!r} (a jax.checkpoint policy)"
-    elif recorded and recorded_persist is None and not recorded_fused:
-        what = ("the XLA recorded path (ops/grad_trace.trace_recorded); the "
-                "differentiable routes are the default trace (remat or "
-                "not), recorded_fused and recorded_persist")
-    if what is not None:
-        raise NotImplementedError(f"{what} is not ported")
+        check_stages(fused_stages)
+    check_remat_policy(remat_policy)
+    if tile_skip < 0:
+        raise ValueError(f"tile_skip must be >= 0, got {tile_skip}")
 
 
 def _pass_tracer(scene: Scene, max_depth: int, tmin: float,
                  impl: str | None, *, remat: bool = False,
                  fused_attrs: bool = False, compact: bool = False,
-                 recorded_fused: bool = False,
+                 recorded: bool = False, recorded_fused: bool = False,
+                 recorded_stage: tuple | None = None,
+                 fused_stages: tuple | None = None,
                  recorded_persist: tuple | None = None,
                  persist_strict: bool = False, replay_fused: bool = True,
-                 stats: dict | None = None) -> Callable:
+                 tile_skip: int = 0, remat_policy: str | None = None,
+                 stats: dict | None = None,
+                 overflow: list | None = None) -> Callable:
     """``trace(origin, direction, seed32) -> radiance [R, 3]`` of one sample
     pass through the route the flags pick, in the reference's order: the
     forward-only compacting wavefront with ``compact``; the
     persistent-record pair when ``recorded_persist = (n_strips,
     n_iters|None[, tail_compact[, rec_attrs]])`` is given; the fixed-depth
-    pair with ``recorded_fused``; else the fixed-depth wavefront ``trace``."""
+    pair with ``recorded_fused`` (staged with ``fused_stages``); the staged
+    recorded wavefront with ``recorded_stage = (B, div)``; the recorded
+    wavefront with ``recorded``; else the fixed-depth wavefront ``trace``
+    (``remat``, ``fused_attrs``, ``remat_policy``, ``tile_skip``). The
+    staged routes append the count of lanes their budgets dropped (a device
+    tensor) to ``overflow`` when it is a list."""
     if compact:
         return lambda o, d, s: trace_compacted(scene, o, d, s, max_depth,
                                                tmin, impl=impl)
@@ -180,12 +183,52 @@ def _pass_tracer(scene: Scene, max_depth: int, tmin: float,
             scene, o, d, s, max_depth, tmin, p_strips, p_iters,
             tail_compact=p_tc, rec_attrs=p_rec_attrs, strict=persist_strict,
             impl=impl, stats=stats)
+    if recorded_fused and fused_stages is not None:
+        def staged_pair(o, d, s):
+            audit_pass = {}
+            rad = trace_recorded_fused_staged(scene, o, d, s, max_depth, tmin,
+                                              fused_stages, impl=impl,
+                                              stats=audit_pass)
+            if overflow is not None:
+                overflow.append(audit_pass["n_over"])
+            return rad
+        return staged_pair
     if recorded_fused:
         return lambda o, d, s: trace_recorded_fused(
             scene, o, d, s, max_depth, tmin, replay_fused=replay_fused,
             impl=impl)
+    if recorded_stage is not None:
+        stage_b, stage_div = recorded_stage
+
+        def staged(o, d, s):
+            width = max(o.shape[0] // stage_div, 1)
+            rad, count = trace_recorded_staged(scene, o, d, s, max_depth,
+                                               tmin, stage_b, width,
+                                               impl=impl)
+            if overflow is not None:
+                overflow.append(torch.clamp(count - width, min=0))
+            return rad
+        return staged
+    if recorded:
+        return lambda o, d, s: trace_recorded(scene, o, d, s, max_depth, tmin,
+                                              impl=impl)
     return lambda o, d, s: trace(scene, o, d, s, max_depth, tmin, remat=remat,
-                                 fused_attrs=fused_attrs, impl=impl)
+                                 fused_attrs=fused_attrs, impl=impl,
+                                 remat_policy=remat_policy,
+                                 tile_skip=tile_skip)
+
+
+def _report_overflow(overflow: list, stats: dict | None) -> None:
+    """After a render's pass loop: the lanes the staged routes' budgets
+    dropped, summed on the device and added to ``stats["overflow"]`` (when
+    ``stats`` is a dict), then one host read and one ``RuntimeWarning``
+    when any was dropped."""
+    if not overflow:
+        return
+    total = torch.stack([x.to(torch.int64) for x in overflow]).sum()
+    if stats is not None:
+        stats["overflow"] = stats.get("overflow", 0) + total
+    warn_overflow(total, "render (fused_stages or recorded_stage)")
 
 
 def _pass_sum(cam: Camera, u: torch.Tensor, v: torch.Tensor, seed: int,
@@ -241,18 +284,21 @@ class _RecomputedPass(torch.autograd.Function):
 
 
 #: The route flags :func:`_pass_tracer` takes.
-_TRACER_FLAGS = ("remat", "fused_attrs", "compact", "recorded_fused",
-                 "recorded_persist", "persist_strict", "replay_fused", "stats")
+_TRACER_FLAGS = ("remat", "fused_attrs", "compact", "recorded",
+                 "recorded_fused", "recorded_stage", "fused_stages",
+                 "recorded_persist", "persist_strict", "replay_fused",
+                 "tile_skip", "remat_policy", "stats", "overflow")
 
 
 def _retracer(max_depth: int, tmin: float, impl: str | None,
               flags: dict) -> Callable:
     """``retrace(scene, audit)`` for :func:`render_tile_sum_traced`: the
-    pass tracer of ``scene`` with the route ``flags``, its ``stats`` hook
-    kept only when ``audit``."""
+    pass tracer of ``scene`` with the route ``flags``, its ``stats`` and
+    ``overflow`` hooks kept only when ``audit``."""
     def retrace(scene, audit):
         return _pass_tracer(scene, max_depth, tmin, impl, **{
-            **flags, "stats": flags.get("stats") if audit else None})
+            **flags, "stats": flags.get("stats") if audit else None,
+            "overflow": flags.get("overflow") if audit else None})
     return retrace
 
 
@@ -346,17 +392,18 @@ def render_tile_sum(scene: Scene, cam: Camera, n_pix: int, seed: int,
             "routes draw their camera rays from generators keyed by (seed, "
             "purpose, sample): pass persistent=True, inline=False to use one")
     if not persistent:
-        _check_route(False, **{k: route[k] for k in (
-            "recorded", "recorded_fused", "recorded_stage",
-            "recorded_persist", "fused_stages", "tile_skip",
-            "remat_policy") if k in route})
+        _check_route(**{k: route[k] for k in (
+            "fused_stages", "remat_policy", "tile_skip") if k in route})
         flags = {k: route[k] for k in _TRACER_FLAGS if k in route}
-        return render_tile_sum_traced(
+        flags["overflow"] = []
+        out = render_tile_sum_traced(
             scene, cam, u, v, seed, n_samples, sample_offset, f32_w, f32_h,
             samples_per_pass, _pass_tracer(scene, max_depth, tmin, impl,
                                            **flags),
             _retracer(max_depth, tmin, impl, flags)
             if route.get("remat_passes") else None)
+        _report_overflow(flags["overflow"], route.get("stats"))
+        return out
     if inline:
         return render_inline_sum(scene, cam, u, v, seed, n_samples,
                                  sample_offset, max_depth, tmin, f32_w,
@@ -415,10 +462,14 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
     (:func:`render_tile_sum_traced`). ``persistent=True`` takes
     the forward-only routes of :func:`render_tile_sum` (``inline``;
     ``generator``, single-chunk strided renders only, supplies the strip-0
-    draws). The routes of the module docstring's last paragraph raise
-    ``NotImplementedError``."""
-    _check_route(persistent, recorded, recorded_fused, recorded_stage,
-                 recorded_persist, fused_stages, tile_skip, remat_policy)
+    draws). The other gradient routes: ``recorded`` alone (the recorded
+    wavefront), ``recorded_stage = (B, div)`` (its staged form),
+    ``fused_stages`` (with ``recorded_fused``: the staged fixed-depth
+    pair); ``trace`` takes ``tile_skip`` and ``remat_policy`` (module
+    docstring). A staged budget that overflows warns once per call and adds
+    its count (a device tensor) to ``stats["overflow"]``."""
+    if not persistent:
+        _check_route(fused_stages, remat_policy, tile_skip)
     dtype = cam.origin.dtype if dtype is None else dtype
     if dtype != torch.float32 and (persistent or recorded_fused
                                    or recorded_persist is not None):
@@ -444,10 +495,12 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
                 "generator feeds the strided route's strip-0 draws; pass "
                 "persistent=True, inline=False to use one")
         flags = dict(remat=remat, fused_attrs=fused_attrs, compact=compact,
-                     recorded_fused=recorded_fused,
+                     recorded=recorded, recorded_fused=recorded_fused,
+                     recorded_stage=recorded_stage, fused_stages=fused_stages,
                      recorded_persist=recorded_persist,
                      persist_strict=persist_strict, replay_fused=replay_fused,
-                     stats=stats)
+                     tile_skip=tile_skip, remat_policy=remat_policy,
+                     stats=stats, overflow=[])
         tracer = _pass_tracer(scene, max_depth, tmin, impl, **flags)
         retrace = (_retracer(max_depth, tmin, impl, flags) if remat_passes
                    else None)
@@ -467,6 +520,8 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
                 scene, cam, u_all[start:start + size],
                 v_all[start:start + size], seed_c, n_samples, 0, fw, fh,
                 spp_pass, tracer, retrace))
+    if not persistent:
+        _report_overflow(flags["overflow"], stats)
     out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=0)
     return (out / n_samples).reshape(H, W, 3)
 

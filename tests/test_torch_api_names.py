@@ -1,8 +1,8 @@
 """Arguments and public names of the JAX package that the port now takes:
 ``near_zero``, ``color_vec3_in_rgb``, ``uniform_between`` and
 ``resolve_grad_path`` in the package namespace, ``render_radiance(dtype=)``
-(the reference's ``elem_type`` switch) and ``fused_stages=``, which raises
-``NotImplementedError`` as the other unported routes do."""
+(the reference's ``elem_type`` switch) and ``fused_stages=`` (the staged
+fixed-depth pair), which runs and refuses a malformed schedule."""
 
 import jax
 import jax.numpy as jnp
@@ -120,17 +120,22 @@ def test_render_float64_off_fixed_depth_raises(route):
 
 
 def test_fused_stages_raises_not_implemented():
-    # The JAX package's opt-in staged fixed-depth pair is not ported; the
-    # argument raises NotImplementedError naming it (not TypeError), from
-    # render_radiance, render and the gradient step.
+    # The JAX package's opt-in staged fixed-depth pair, which once raised
+    # NotImplementedError, now runs from render_radiance, render and the
+    # gradient step (a finite image, a finite and sane gradient), and a
+    # schedule that is not ((first_bounce, divisor), ...) from bounce 0
+    # raises ValueError naming the argument (not TypeError).
     scene, cam = pt.scene_2_spheres(), pt.t_default_cam()
+    stages = ((0, 1), (4, 8))
     for fn in (pt.render_radiance, pt.render):
-        with pytest.raises(NotImplementedError,
-                           match="trace_recorded_fused_staged"):
-            fn(scene, cam, 32, 1, device="cpu", recorded_fused=True,
-               fused_stages=(4, 8))
-    with pytest.raises(NotImplementedError,
-                       match="trace_recorded_fused_staged"):
-        pt.render_grads(scene, cam, torch.zeros((18, 32, 3)), 32, 1,
-                        device="cpu", recorded_fused=True,
-                        fused_stages=(4, 8))
+        img = fn(scene, cam, 32, 1, device="cpu", recorded_fused=True,
+                 fused_stages=stages)
+        assert img.shape == (18, 32, 3) and torch.isfinite(img).all()
+    loss, g = pt.render_grads(scene, cam, torch.zeros((18, 32, 3)), 32, 1,
+                              device="cpu", recorded_fused=True,
+                              fused_stages=stages)
+    pt.check_grads_sane(g, loss)
+    for bad in ((4, 8), ((4, 8),), ((0, 4), (2, 1))):
+        with pytest.raises(ValueError, match="fused_stages"):
+            pt.render_radiance(scene, cam, 32, 1, device="cpu",
+                               recorded_fused=True, fused_stages=bad)

@@ -141,11 +141,11 @@ def test_strided_dispatch_helpers_match_jax():
                                    "remat_passes", "recorded_stage",
                                    "fused_stages"])
 def test_unported_routes_raise(route):
-    # The routes that are ported render through render_tile_sum: the inline
-    # route (K8), a non-contiguous tile given by its film coordinates (the
-    # pixel-pinned route, K9), the fixed-depth wavefront (trace) and pass
-    # recomputation (two passes, each recomputed in the backward). The
-    # staged recorded paths still raise.
+    # Every route renders through render_tile_sum: the inline route (K8), a
+    # non-contiguous tile given by its film coordinates (the pixel-pinned
+    # route, K9), the fixed-depth wavefront (trace), pass recomputation
+    # (two passes, each recomputed in the backward) and the two staged
+    # recorded routes, which once raised NotImplementedError.
     scene, cam = pt.scene_2_spheres(), pt.t_default_cam()
     u, v = pt.pixel_coords(64, 36)
     kw = {"inline": dict(persistent=True, inline=True),
@@ -157,17 +157,13 @@ def test_unported_routes_raise(route):
           "recorded_stage": dict(persistent=False,
                                  recorded_stage=(4, 8)),
           "fused_stages": dict(persistent=False, recorded_fused=True,
-                               fused_stages=(4, 8))}[route]
+                               fused_stages=((0, 1), (4, 8)))}[route]
     n_pix = 100 if route == "non_contiguous" else 64 * 36
-    if route in ("inline", "non_contiguous", "fixed_depth", "remat_passes"):
-        n_samples = 2 if route == "remat_passes" else 1
-        out = pt.render_tile_sum(scene, cam, n_pix, 0, n_samples, 0, 16,
-                                 1e-4, 64.0, 36.0, **kw)
-        assert out.shape == (n_pix, 3) and torch.isfinite(out).all()
-        return
-    with pytest.raises(NotImplementedError):
-        pt.render_tile_sum(scene, cam, n_pix, 0, 1, 0, 16, 1e-4, 64.0, 36.0,
-                           **kw)
+    n_samples = 2 if route == "remat_passes" else 1
+    out = pt.render_tile_sum(scene, cam, n_pix, 0, n_samples, 0, 16,
+                             1e-4, 64.0, 36.0, **kw)
+    assert out.shape == (n_pix, 3) and torch.isfinite(out).all()
+    assert (out > 0).any()
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
@@ -209,7 +205,8 @@ def test_port_imports_no_jax():
             "    importlib.import_module(m.name)\n"
             "for m in ('grad', 'ops.persist_grad', 'ops.cuda.grad_kernel',\n"
             "          'ops.cuda.persist_grad_kernel', 'optimize',\n"
-            "          'ops.fused_grad', 'ops.inline', 'ops.cuda.inline_kernel',\n"
+            "          'ops.fused_grad', 'ops.grad_trace', 'ops.inline',\n"
+            "          'ops.cuda.inline_kernel',\n"
             "          'ops.materials', 'ops.integrator', 'cli',\n"
             "          'utils.config', 'utils.checkpoint', 'utils.metrics',\n"
             "          'utils.profiling', 'utils.xoroshiro', 'utils.image'):\n"
