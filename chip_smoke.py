@@ -85,8 +85,10 @@ the command line (``raytracingweekend_jl_tpu_torch.cli``) in a
 temporary directory at the flagship film, spp 8 in two chunks of 4 against
 4 samples checkpointed and resumed to 8 (the sums bit for bit; K1 and K2
 launched; the written PNG read back), beside a run of the module in a
-subprocess, ``--stats``, the reference scene, float64 on the fixed-depth
-route, the refused ``--mesh-tiles 2`` and ``scripts/torch_inverse_render.py``.
+subprocess, ``--stats``, the reference scene, float64 on both routes,
+``--mesh-tiles 2`` (more ranks than the world: exits non-zero),
+``--multihost --spp-chunk`` in a world of one resumed bit for bit, and
+``scripts/torch_inverse_render.py``.
 Last, the gradient routes ported last, each a flagship gradient step
 through ``render_grads``: ``recorded_xla_step`` (``recorded=True`` alone,
 K1: the image bit for bit ``trace``'s, the gradients within the JAX
@@ -98,7 +100,17 @@ staged fixed-depth pair, K3, K7a and K7b: n_over 0, and the same pair at
 (``remat_policy="dots"`` bit for bit the remat step, ``tile_skip`` through
 K3) and ``recorded_routes_profile`` (each staged route and its unstaged
 twin under the profiler; the contraction's prefix sums in both forms).
-It times the kernels, the renders,
+Then ``f64_persistent`` (a float64 ``persistent=True`` render through the
+plain pixel-pinned body and a float64 gradient step with no path flag)
+and the parallel layer on a world-of-one NCCL group: ``sharded_render``
+(the flagship film through ``render_radiance_sharded``, 254 tiles through
+K1 and K2 at spp 4 and through ``trace`` at spp 1, beside the unsharded
+render), ``sharded_step`` (``sharded_train_step``: K3, K7a, K7c per tile,
+bit for bit ``elastic_train_step`` on two workers of the card, beside the
+unsharded step), ``elastic`` (a worker injected to fail, the image bit for
+bit the clean run's) and ``two_rank_card`` (two processes on the card
+over gloo: images, strips, resume and step bit for bit the world of
+one's). It times the kernels, the renders,
 the steps and the fit against the plain path. Each phase prints one JSON
 line; a failed check raises and the script exits non-zero without printing
 a result. The line before the card line lists every kernel with its
@@ -3695,9 +3707,12 @@ def cli_phases(card) -> None:
     and K2's launches counted over the three runs; the resumed PNG read back
     against the image it was written from; then one run of the module in a
     subprocess (spp 1), ``--stats``, the reference scene, float64 on the
-    fixed-depth route (and raising on the persistent one), the refused
-    ``--mesh-tiles 2``, and ``scripts/torch_inverse_render.py --steps 4``
-    in a subprocess. Prints the runs' wall seconds, Mpaths/s and phases."""
+    fixed-depth and the persistent route, ``--mesh-tiles 2`` (more ranks
+    than the world of one: exits non-zero naming both), ``--multihost
+    --spp-chunk 4`` (a world of one; 8 samples uninterrupted and 4 resumed
+    to 8, the strip sums bit for bit), and
+    ``scripts/torch_inverse_render.py --steps 4`` in a subprocess. Prints
+    the runs' wall seconds, Mpaths/s and phases."""
     import contextlib
     import io
     import os
@@ -3705,7 +3720,8 @@ def cli_phases(card) -> None:
     import numpy as np
     import torch
     from raytracingweekend_jl_tpu_torch import cli
-    from raytracingweekend_jl_tpu_torch.utils.checkpoint import load_state
+    from raytracingweekend_jl_tpu_torch.utils.checkpoint import (
+        load_state, load_strip_state)
     from raytracingweekend_jl_tpu_torch.utils.image import read_png, to_uint8
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3763,12 +3779,9 @@ def cli_phases(card) -> None:
             ref_png = read_png("reference.png")
             f64 = main(["--width", "400", "--spp", "1", "--precision", "f64",
                         "--no-persistent", "-o", "f64.png"])
-            try:
-                main(["--width", "400", "--spp", "1", "--precision", "f64",
-                      "-o", "f64_persistent.png"])
-                f64_persistent = "ran"
-            except NotImplementedError as e:
-                f64_persistent = f"NotImplementedError: {e}"
+            f64_persistent = main(["--width", "400", "--spp", "1",
+                                   "--precision", "f64", "-o",
+                                   "f64_persistent.png"])
             try:
                 main(flag + ["--spp", "1", "--mesh-tiles", "2", "-o",
                              "mesh.png"])
@@ -3776,6 +3789,23 @@ def cli_phases(card) -> None:
             except SystemExit as e:
                 mesh_code = e.code
             mesh_wrote = os.path.exists("mesh.png")
+            # --multihost with --spp-chunk in a world of one: 8 samples in
+            # chunks of 4 uninterrupted, then 4 resumed to 8.
+            multi = flag + ["--multihost", "--spp-chunk", "4"]
+            reset_counts()
+            m_full = main(multi + ["--spp", "8", "--checkpoint", "mfull.npz",
+                                   "-o", "mfull.png"])
+            main(multi + ["--spp", "4", "--checkpoint", "mck.npz", "-o",
+                          "mpart.png"])
+            m_res = main(multi + ["--spp", "8", "--checkpoint", "mck.npz",
+                                  "-o", "mres.png"])
+            m_launched = counts()
+            sm_full = load_strip_state("mfull.npz")
+            sm_res = load_strip_state("mck.npz")
+            m_bitwise = bool(np.array_equal(sm_full.strip_sum,
+                                            sm_res.strip_sum))
+            m_png = bool(np.array_equal(read_png("mfull.png"),
+                                        read_png("mres.png")))
 
             mod_rc, mod_rec, mod_err = subprocess_run(
                 ["-m", "raytracingweekend_jl_tpu_torch.cli", *flag, "--spp",
@@ -3806,8 +3836,15 @@ def cli_phases(card) -> None:
                                  if v}},
           "reference_scene": figures(ref[-1]),
           "f64_no_persistent_400": figures(f64[-1]),
-          "f64_persistent": f64_persistent,
+          "f64_persistent_400": figures(f64_persistent[-1]),
           "mesh_tiles_2_exit": mesh_code, "mesh_tiles_2_wrote": mesh_wrote,
+          "multihost_spp_chunk": {
+              "uninterrupted": figures(m_full[-1]),
+              "resumed": figures(m_res[-1]), "mesh": m_res[-1].get("mesh"),
+              "samples_done": [sm_full.samples_done, sm_res.samples_done],
+              "strip": [sm_res.start, sm_res.stop],
+              "strip_sum_bitwise": m_bitwise, "png_equal": m_png,
+              "launches": {k: v for k, v in m_launched.items() if v}},
           "module_run": {"rc": mod_rc, "record": figures(mod_rec or {}),
                          "stderr_tail": mod_err if mod_rc else ""},
           "inverse_script": {"rc": inv_rc, "seconds": inv_s,
@@ -3816,7 +3853,9 @@ def cli_phases(card) -> None:
           "checks": "resumed radiance sum bit for bit the uninterrupted "
                     "chunked run's; sweep and shade_strided launched; the "
                     "PNG reads back as the image written; the other runs "
-                    "exit 0 and report the card, the sharded one non-zero"})
+                    "exit 0 and report the card, --mesh-tiles 2 non-zero "
+                    "naming the ranks; the --multihost chunked run resumed "
+                    "bit for bit"})
     check(st_full.samples_done == st_res.samples_done == 8,
           f"samples done {st_full.samples_done}, {st_res.samples_done}")
     check(bitwise, "the resumed render differs from the uninterrupted one")
@@ -3827,7 +3866,7 @@ def cli_phases(card) -> None:
           "non-finite or misshapen CLI image")
     check(png_equal and png_same, "the written PNG does not read back")
     for rec in (full[-1], part[-1], resumed[-1], stats[-1], ref[-1],
-                f64[-1]):
+                f64[-1], f64_persistent[-1], m_full[-1], m_res[-1]):
         check(rec["device"]["name"] == name, f"record's device {rec}")
         check(rec["mpaths_per_s"] > 0, f"record's rate {rec}")
     check(set(resumed[-1]["phases"]) == {"trace", "fetch", "checkpoint"},
@@ -3836,10 +3875,16 @@ def cli_phases(card) -> None:
     check(occ[0] == 1.0 and stats_launches["sweep"] > 0,
           f"--stats: {stats[0]}, launches {stats_launches}")
     check(ref_png.shape == (1080, 1920, 3), "reference-scene PNG shape")
-    check(f64_persistent.startswith("NotImplementedError"),
-          "f64 on the persistent route did not raise")
-    check(mesh_code not in (None, 0) and not mesh_wrote,
-          f"--mesh-tiles 2 exited {mesh_code!r}")
+    check(f64_persistent[-1]["config"]["precision"] == "f64"
+          and f64_persistent[-1]["config"]["persistent"],
+          f"f64 on the persistent route: {f64_persistent[-1]}")
+    check(isinstance(mesh_code, str) and "!= 1 ranks" in mesh_code
+          and not mesh_wrote, f"--mesh-tiles 2 exited {mesh_code!r}")
+    check(sm_full.samples_done == sm_res.samples_done == 8 and m_bitwise
+          and m_png, "--multihost --spp-chunk resume differs")
+    check(m_res[-1].get("mesh") == {"tiles": 1, "samples": 1}
+          and m_launched["sweep"] > 0 and m_launched["shade_strided"] > 0,
+          f"--multihost run: {m_res[-1].get('mesh')}, {m_launched}")
     check(mod_rc == 0 and mod_rec is not None
           and mod_rec["device"]["name"] == name,
           f"the module run failed ({mod_rc}): {mod_err}")
@@ -4219,6 +4264,387 @@ def recorded_route_phases(dev, card, W: int = 1920) -> None:
                                ("fused_unstaged", un), ("fused_staged", fs))}})
 
 
+def mean_gap(a, b) -> tuple:
+    """Each channel's mean of the per-pixel difference ``a - b`` and its
+    standard error (two images of independent streams)."""
+    d = (a.double() - b.double()).reshape(-1, 3)
+    return d.mean(0), d.std(0) / d.shape[0] ** 0.5
+
+
+def f64_phases(dev, card, w: int = 480) -> None:
+    """``f64_persistent``: float64 where the JAX package runs it, on the
+    card. A float64 ``persistent=True`` render of the flagship scene at
+    480x270, spp 4 (the plain pixel-pinned body in float64, its sweep in
+    the dot form: no kernel launches), against the float64 fixed-depth
+    wavefront's render of the same film statistically, with its gap to
+    the float32 strided render reported (float32 renders this scene darker
+    by ~0.5%, in the JAX package too); and a float64 ``render_grads`` step
+    with no path flag (the recorded wavefront, ``recorded=True`` alone)."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.grad import (default_grad_backend,
+                                                     resolve_grad_path)
+    f64 = torch.float64
+    h = pt.image_height_for(w)
+    s64 = pt.scene_random_spheres(seed=1, dtype=f64)
+    c64 = pt.t_cam1(dtype=f64)
+    reset_counts()
+    t0 = time.perf_counter()
+    img64 = pt.render_radiance(s64, c64, w, 4, persistent=True, device=dev)
+    torch.cuda.synchronize()
+    sec_render = time.perf_counter() - t0
+    launched = {k: v for k, v in counts().items() if v}
+    trace64 = pt.render_radiance(s64, c64, w, 4, device=dev, seed=1)
+    mu, se = mean_gap(img64, trace64)
+    img32 = pt.render_radiance(pt.scene_random_spheres(seed=1), pt.t_cam1(),
+                               w, 4, persistent=True, device=dev, seed=1)
+    mu32, se32 = mean_gap(img64, img32)
+    route = resolve_grad_path({}, w * h, default_grad_backend(None, f64, f64))
+    target = pt.render_radiance(s64, c64, w, 1, seed=123, device=dev)
+    bad = s64._replace(albedo=torch.clamp(s64.albedo * 0.8, 0, 1))
+    pt.render_grads(bad, c64, target, w, 1, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, g = pt.render_grads(bad, c64, target, w, 1, device=dev)
+    torch.cuda.synchronize()
+    sec_step = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    pt.check_grads_sane(g, loss)
+    emit({"phase": "f64_persistent", "card": card, "size": [w, h],
+          "render": {"spp": 4, "seconds": sec_render,
+                     "mpaths_per_s": w * h * 4 / sec_render / 1e6,
+                     "dtype": str(img64.dtype), "launches": launched,
+                     "mean_gap_vs_float64_trace": mu.tolist(),
+                     "standard_error": se.tolist(),
+                     "mean_gap_vs_float32_strided": mu32.tolist(),
+                     "standard_error_vs_float32": se32.tolist()},
+          "grad_step": {"spp": 1, "route": route, "seconds": sec_step,
+                        "mpaths_per_s": w * h / sec_step / 1e6,
+                        "peak_allocated_bytes": peak, "loss": float(loss),
+                        "dtype": str(loss.dtype),
+                        "grad_sums": {f: float(getattr(g, f).sum())
+                                      for f in pt.DIFF_FIELDS}},
+          "checks": "float64 image of the right shape, finite, each channel "
+                    "mean within 4 standard errors of the float64 "
+                    "fixed-depth render's; the default float64 step "
+                    "resolves to recorded=True alone, float64 loss, sane "
+                    "gradients"})
+    check(img64.dtype == f64 and tuple(img64.shape) == (h, w, 3)
+          and bool(torch.isfinite(img64).all()), "float64 render")
+    check(bool((mu.abs() < 4 * se).all()),
+          f"float64 persistent render's means off the float64 wavefront's: "
+          f"{mu} (se {se})")
+    check(route == {"recorded": True, "remat": False},
+          f"float64 default route {route}")
+    check(loss.dtype == f64 and g.albedo.dtype == f64, "float64 step")
+
+
+def parallel_phases(dev, card, W: int = 1920) -> None:
+    """The parallel layer on the card, on a world-of-one NCCL group
+    (``torch.distributed`` over a ``file://`` store in a temporary
+    directory), each phase against the unsharded path in turns:
+
+    - ``sharded_render``: the flagship film (``scene_random_spheres(seed=1)``,
+      ``t_cam1``, 1920x1080) through ``render_radiance_sharded`` at spp 4
+      ``persistent=True`` (254 tiles of 8 192 pixels, each through the
+      strided route: K1 and K2) and spp 1 ``persistent=False`` (``trace``:
+      K1); launches per render, a bitwise repeat, the means within 4
+      standard errors of the unsharded fixed-depth wavefront's (the gap to
+      the unsharded strided render reported beside it), seconds of the
+      sharded and the unsharded render in turns;
+    - ``sharded_step``: the flagship gradient step (spp 1, albedo x 0.8)
+      through ``sharded_train_step`` (the fixed-depth pair per tile: K3,
+      K7a, K7c), its loss and scene bit for bit ``elastic_train_step``'s
+      on two workers of the card, seconds, Mpaths/s and peak memory beside
+      the unsharded ``render_grads`` step;
+    - ``elastic``: the flagship film at spp 1 in 65 536-pixel tiles on two
+      workers of the card, the second injected to fail: quarantined, and
+      the image bit for bit the clean run's and the sharded ``trace``
+      render's at that tile size;
+    - ``two_rank_card``: two processes on the card over gloo
+      (``tests/torch_multiproc_worker.py`` at 480x270, spp 4, 8 192-pixel
+      tiles): each rank's image, the assembled strips and the training step
+      bit for bit the world of one's, the resume bit for bit on both
+      ranks."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.parallel import elastic, multihost
+    from raytracingweekend_jl_tpu_torch.parallel.mesh import make_render_mesh
+    from raytracingweekend_jl_tpu_torch.parallel.shard import (
+        render_radiance_sharded, sharded_train_step)
+
+    H = pt.image_height_for(W)
+    scene, cam = pt.scene_random_spheres(seed=1), pt.t_cam1()
+    rdzv = tempfile.mkdtemp(prefix="rtw_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_render_mesh(1, 1, device=dev)
+        check(mesh.distributed and dist.get_backend() == "nccl",
+              "no NCCL group under the mesh")
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, out
+
+        # -- sharded_render -------------------------------------------------
+        renders = {}
+        for spp, persistent in ((4, True), (1, False)):
+            def sharded(spp=spp, persistent=persistent):
+                return render_radiance_sharded(scene, cam, W, spp, mesh=mesh,
+                                               persistent=persistent, seed=7)
+
+            def plain(spp=spp, persistent=persistent):
+                return pt.render_radiance(scene, cam, W, spp, device=dev,
+                                          persistent=persistent, seed=7)
+
+            # The sharded trace render takes ~10 s (254 tiles of eager
+            # bounces): two runs of it, the strided one five.
+            if persistent:
+                timed(sharded)  # warm-up
+            timed(plain)  # warm-up
+            reset_counts()
+            t_a, a = timed(sharded)
+            launched = {k: v for k, v in counts().items() if v}
+            t_p, ref = timed(plain)
+            t_b, b = timed(sharded)
+            t_sh, t_pl = [t_a, t_b], [t_p]
+            for _ in range(2 if persistent else 0):  # in turns
+                t_pl.append(timed(plain)[0])
+                t_sh.append(timed(sharded)[0])
+            bitwise = bool(torch.equal(a, b))
+            mu, se = mean_gap(a, ref)
+            # The fixed-depth wavefront of the same film and spp (host
+            # camera rays, other streams): the reference both are held to.
+            wave = ref if not persistent else pt.render_radiance(
+                scene, cam, W, spp, device=dev, seed=8)
+            mu_w, se_w = mean_gap(a, wave)
+            mu_uw, _ = mean_gap(ref, wave)
+            name = "persistent_spp4" if persistent else "trace_spp1"
+            sec_sh, sec_pl = sorted(t_sh)[len(t_sh) // 2], \
+                sorted(t_pl)[len(t_pl) // 2]
+            renders[name] = {
+                "launches_per_render": launched, "bitwise_repeat": bitwise,
+                "mean_gap_vs_unsharded": mu.tolist(),
+                "standard_error": se.tolist(),
+                "mean_gap_vs_wavefront": mu_w.tolist(),
+                "standard_error_vs_wavefront": se_w.tolist(),
+                "unsharded_gap_vs_wavefront": mu_uw.tolist(),
+                "seconds_sharded_runs": t_sh, "seconds_unsharded_runs": t_pl,
+                "seconds_sharded_median": sec_sh,
+                "seconds_unsharded_median": sec_pl,
+                "mpaths_per_s_sharded": W * H * spp / sec_sh / 1e6,
+                "mpaths_per_s_unsharded": W * H * spp / sec_pl / 1e6}
+            check(tuple(a.shape) == (H, W, 3)
+                  and bool(torch.isfinite(a).all()), f"{name} image")
+            check(bitwise, f"{name}: two sharded renders differ")
+            check(bool((mu_w.abs() < 4 * se_w).all()),
+                  f"{name}: means off the wavefront render's: {mu_w} "
+                  f"({se_w})")
+            check(launched.get("sweep", 0) > 0, f"{name} launched {launched}")
+            if persistent:
+                check(launched.get("shade_strided", 0) > 0
+                      and launched.get("gather", 0) == 0,
+                      f"{name} launched {launched}")
+            del a, b, ref, wave
+        emit({"phase": "sharded_render", "card": card, "size": [W, H],
+              "mesh": mesh.shape, "backend": dist.get_backend(),
+              "tile_size": 8192, "tiles": -(-W * H // 8192), **renders,
+              "checks": "bitwise repeat; each channel mean within 4 "
+                        "standard errors of the unsharded fixed-depth "
+                        "wavefront's render of the same film and spp (the "
+                        "gap to the unsharded strided render is reported: "
+                        "ROADMAP Queue 3); K1 (and K2 on the persistent "
+                        "route) launched, no gather"})
+
+        # -- sharded_step ---------------------------------------------------
+        bad = scene._replace(albedo=torch.clamp(scene.albedo * 0.8, 0, 1))
+        target = pt.render_radiance(scene, cam, W, 1, seed=123, device=dev,
+                                    persistent=True)
+        two = [torch.device("cuda", torch.cuda.current_device())] * 2
+
+        def s_step():
+            return sharded_train_step(bad, cam, target, W, 1, mesh=mesh,
+                                      lr=0.5, seed=3)
+
+        def e_step():
+            return elastic.elastic_train_step(bad, cam, target, W, 1, lr=0.5,
+                                              seed=3, devices=two)
+
+        def u_step():
+            return pt.render_grads(bad, cam, target, W, 1, device=dev)
+
+        timed(s_step), timed(u_step)  # warm-up
+        reset_counts()
+        t_first, (ls, ss) = timed(s_step)
+        launched = {k: v for k, v in counts().items() if v}
+        t_el, (le, se_) = timed(e_step)
+        same = bool(torch.equal(ls.cpu(), le.cpu())) and all(
+            torch.equal(getattr(ss, f).cpu(), getattr(se_, f).cpu())
+            for f in pt.DIFF_FIELDS)
+        peaks = {}
+        for name, fn in (("sharded", s_step), ("unsharded", u_step)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+        t_sh, t_un = [], []
+        for _ in range(3):  # in turns
+            t_sh.append(timed(s_step)[0])
+            t_un.append(timed(u_step)[0])
+        sec_sh, sec_un = sorted(t_sh)[1], sorted(t_un)[1]
+        emit({"phase": "sharded_step", "card": card, "size": [W, H],
+              "spp": 1, "mesh": mesh.shape, "tile_size": 8192,
+              "route": "fixed-depth pair per tile (grad_mode 'fused')",
+              "launches": launched, "loss": float(ls),
+              "elastic_two_workers_bitwise": same,
+              "seconds_first": t_first, "seconds_elastic": t_el,
+              "seconds_sharded_runs": t_sh, "seconds_unsharded_runs": t_un,
+              "seconds_sharded_median": sec_sh,
+              "seconds_unsharded_median": sec_un,
+              "mpaths_per_s_sharded": W * H / sec_sh / 1e6,
+              "mpaths_per_s_unsharded": W * H / sec_un / 1e6,
+              "peak_allocated_bytes_above_start": peaks,
+              "checks": "K3, K7a, K7c launched; loss finite; loss and every "
+                        "field bit for bit elastic_train_step's"})
+        check(all(launched.get(k, 0) > 0 for k in
+                  ("sweep_masked", "record_shade", "replay_bwd_fused")),
+              f"sharded step launched {launched}")
+        check(bool(np.isfinite(float(ls))), "sharded step loss")
+        check(same, "sharded step differs from elastic_train_step")
+        del ss, se_
+
+        # -- elastic (65 536-pixel tiles: 32 of them; at 8 192 the eager
+        # bounces of 254 tiles take ~20 s a render) ------------------------
+        e_tile = 1 << 16
+        reset_counts()
+        t_clean, clean = timed(lambda: elastic.render_radiance_elastic(
+            scene, cam, W, 1, seed=7, devices=two, tile_size=e_tile))
+        el_launches = {k: v for k, v in counts().items() if v}
+        real, faults = elastic._run_tile, []
+
+        def flaky(*args):
+            if args[-1] == 1:  # worker slot 1
+                faults.append(args[4])
+                raise RuntimeError("injected device fault")
+            return real(*args)
+
+        stats = {}
+        elastic._run_tile = flaky
+        try:
+            t_fault, faulty = timed(lambda: elastic.render_radiance_elastic(
+                scene, cam, W, 1, seed=7, devices=two, stats=stats,
+                tile_size=e_tile))
+        finally:
+            elastic._run_tile = real
+        clean_eq = bool(torch.equal(faulty, clean))
+        wide = render_radiance_sharded(scene, cam, W, 1, mesh=mesh, seed=7,
+                                       tile_size=e_tile)
+        sharded_eq = bool(torch.equal(clean, wide.cpu()))
+        emit({"phase": "elastic", "card": card, "size": [W, H], "spp": 1,
+              "tile_size": e_tile, "tiles": -(-W * H // e_tile),
+              "workers": [str(d) for d in two], "launches": el_launches,
+              "faults_injected": len(faults), "stats": stats,
+              "seconds_clean": t_clean, "seconds_with_fault": t_fault,
+              "faulty_bitwise_clean": clean_eq,
+              "clean_bitwise_sharded_trace": sharded_eq,
+              "checks": "slot 1 quarantined; the image bit for bit the clean "
+                        "run's and the sharded trace render's"})
+        check(stats.get("quarantined") == [1]
+              and len(faults) >= elastic.DEVICE_FAILURE_LIMIT,
+              f"elastic quarantine {stats}, {len(faults)} faults")
+        check(clean_eq and sharded_eq, "elastic image differs")
+        check(el_launches.get("sweep", 0) > 0, f"elastic {el_launches}")
+        del clean, faulty, wide
+
+        # -- two_rank_card --------------------------------------------------
+        root = os.path.dirname(os.path.abspath(__file__))
+        worker = os.path.join(root, "tests", "torch_multiproc_worker.py")
+        w2, h2, spp2, tile2, seed2 = 480, 270, 4, 8192, 11
+        out_dir = tempfile.mkdtemp(prefix="rtw_two_rank_")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+        env["PYTHONPATH"] = root
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, worker, str(r), "2",
+             f"file://{out_dir}/store", out_dir, "cuda:0", str(w2), str(h2),
+             str(spp2), str(tile2)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        recs, errs = {}, []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=600)
+                errs.append(err[-2000:] if p.returncode else "")
+                lines = [x for x in out.splitlines()
+                         if x.startswith("RESULT ")]
+                if p.returncode == 0 and lines:
+                    rec = json.loads(lines[-1][len("RESULT "):])
+                    recs[rec["rank"]] = rec
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        sec_two = time.perf_counter() - t0
+        check(set(recs) == {0, 1}, f"two ranks failed: {errs}")
+        kw = dict(image_height=h2, tile_size=tile2, seed=seed2)
+        s2, c2 = pt.scene_2_spheres(), pt.t_default_cam()
+        ref = render_radiance_sharded(s2, c2, w2, spp2, mesh=mesh,
+                                      **kw).cpu().numpy()
+        arrays = {r: dict(np.load(os.path.join(out_dir, f"rank{r}.npz")))
+                  for r in (0, 1)}
+        image_eq = all(np.array_equal(arrays[r]["image"], ref)
+                       for r in (0, 1))
+        strips_eq = bool(np.array_equal(multihost.assemble_strips(
+            os.path.join(out_dir, "strips")), ref))
+        bad2 = s2._replace(albedo=torch.clamp(s2.albedo * 0.5, 0, 1))
+        l1, n1 = sharded_train_step(bad2, c2, torch.from_numpy(ref), w2,
+                                    spp2, mesh=mesh, lr=1.0, tile_size=tile2,
+                                    seed=seed2)
+        step_eq = all(recs[r]["loss"] == float(l1) and np.array_equal(
+            arrays[r]["albedo"], n1.albedo.cpu().numpy()) for r in (0, 1))
+        samples_eq = (recs[0]["loss_samples"] == recs[1]["loss_samples"]
+                      and np.array_equal(arrays[0]["image_samples"],
+                                         arrays[1]["image_samples"]))
+        gap = float(np.abs(arrays[0]["image_samples"] - ref).max())
+        emit({"phase": "two_rank_card", "card": card, "size": [w2, h2],
+              "spp": spp2, "tile_size": tile2, "backend": "gloo",
+              "device_of_ranks": [recs[r]["device"] for r in (0, 1)],
+              "collectives": "CUDA tensors copied to the host for gloo "
+                             "(parallel/mesh.py _all_gather)",
+              "strips": [recs[r]["strip"] for r in (0, 1)],
+              "seconds_both_ranks": sec_two,
+              "image_bitwise_world_of_one": image_eq,
+              "strips_assembled_bitwise": strips_eq,
+              "resume_bitwise": [recs[r]["ckpt_resume_bitwise"]
+                                 for r in (0, 1)],
+              "step_bitwise_world_of_one": step_eq,
+              "samples_mesh_ranks_agree": bool(samples_eq),
+              "samples_mesh_max_abs_gap_vs_tiles": gap})
+        check(image_eq and strips_eq, "two-rank image or strips differ")
+        check(all(recs[r]["ckpt_resume_bitwise"] for r in (0, 1)),
+              "two-rank resume differs")
+        check(step_eq and samples_eq and gap <= 1e-5,
+              f"two-rank step or samples mesh ({step_eq}, {samples_eq}, "
+              f"{gap})")
+        shutil.rmtree(out_dir, ignore_errors=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+
+
 def k1_phase_rays(dev, cam, spheres, g=None):
     """The K1 phase's 2^20 rays [6, 2^20] of the flagship: 2^19 camera rays
     (film points and lens samples from ``g``, by default a generator seeded
@@ -4576,6 +5002,10 @@ def main() -> int:
 
     # -- 25. the recorded routes and the trace options ----------------------
     recorded_route_phases(dev, card)
+
+    # -- 26. float64 off the wavefront; the parallel layer ------------------
+    f64_phases(dev, card)
+    parallel_phases(dev, card)
 
     # -- the kernels line: every ported kernel, with its bound -------------
     n_rays, n_sph = rays_f.shape[1], spheres.shape[0]

@@ -33,7 +33,27 @@ kernels for Hopper built from ``csrc/`` at first use:
 Long renders: ``render_checkpointed`` renders an image in chunks,
 checkpointed and resumable bit for bit, and the command line
 (``python -m raytracingweekend_jl_tpu_torch.cli``, ``rtw-render-torch``)
-renders a ``RenderConfig`` plainly or in chunks.
+renders a ``RenderConfig`` plainly, in chunks, or sharded.
+
+Several GPUs (``parallel/``, on ``torch.distributed``, one process per GPU
+under ``torchrun``): ``parallel.mesh.make_render_mesh`` lays the ranks out
+as a ``(tiles, samples)`` mesh; ``parallel.shard.render_radiance_sharded``
+renders fixed pixel tiles keyed by their global id (the strided route,
+K1 and K2, for ``persistent=True``; ``trace``, K1, by default), bit for
+bit the same on any number of tile shards, and
+``parallel.shard.sharded_train_step`` takes the gradient step tile by tile
+(the fixed-depth pair, K3, K7a, K7c) with the tiles' gradients reduced in
+global tile order; ``parallel.elastic`` runs the same tiles on worker
+threads with retry and quarantine, bit for bit the sharded results;
+``parallel.multihost`` sets up the process group and the per-rank strip
+files; ``utils.checkpoint.render_checkpointed_sharded`` checkpoints each
+rank's strip. The CLI's ``--mesh-tiles``, ``--mesh-samples`` and
+``--multihost`` drive them.
+
+Float64 runs where the JAX package runs it off its TPU: the float32
+kernels are not used for it, ``persistent=True`` takes the plain
+pixel-pinned body and a gradient step with no path flag the recorded
+wavefront; asking for a float32 kernel pair by name raises.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``, and raises without CUDA. On the CPU the same paths run the
@@ -77,7 +97,8 @@ from .models.scenes import (scene_2_spheres, scene_4_spheres,
                             scene_random_spheres_reference, save_scene,
                             load_scene, ALL_SCENES)
 from .utils.config import RenderConfig
-from .utils.checkpoint import RenderState, render_checkpointed
+from .utils.checkpoint import (RenderState, StripState, render_checkpointed,
+                               render_checkpointed_sharded)
 from .utils.image import write_ppm, read_png
 
 __version__ = "0.1.0"

@@ -9,11 +9,25 @@
 
 Every option of the JAX package's parser, with its defaults and choices,
 plus ``--device``. Each run prints one JSON record and appends it to
-``bench_history_torch.jsonl`` in the working directory. Not ported yet:
-sharded renders (``--mesh-tiles`` / ``--mesh-samples`` above 1,
-``--multihost``), which exit non-zero (ROADMAP.md Queue 1, item 18).
-``--precision f64`` runs only with ``--no-persistent`` (the fixed-depth
-wavefront); the persistent routes raise ``NotImplementedError`` for it.
+``bench_history_torch.jsonl`` in the working directory (on a mesh of
+several ranks, rank 0 only). ``--precision f64`` runs on every route (the
+persistent one through the plain pixel-pinned body).
+
+Sharded renders run one process per GPU over ``torch.distributed``::
+
+    torchrun --nproc-per-node 4 -m raytracingweekend_jl_tpu_torch.cli \
+        --mesh-tiles 4 --width 1920 --spp 64 -o out.png
+
+``--mesh-tiles`` x ``--mesh-samples`` must equal the number of ranks (one
+without a launcher), else the run exits non-zero and says so;
+``--multihost`` takes every rank, ``--mesh-samples`` of them per tile
+shard. A multi-process launch (``torchrun``, Slurm, MPI) sets up the
+process group (``parallel.multihost.initialize``: NCCL, or gloo with
+``--device cpu``); a launch that cannot connect exits non-zero.
+``--spp-chunk`` composes with the mesh (each rank checkpoints its strip).
+Each rank of sample shard 0 writes its pixel strip under ``--strip-dir``
+(default ``<output>.strips``), and rank 0 assembles the image after a
+barrier. Without a launcher, ``--multihost`` renders on a mesh of one.
 """
 
 from __future__ import annotations
@@ -42,8 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--depth", type=int, default=d.max_depth)
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--scene-seed", type=int, default=d.scene_seed)
-    p.add_argument("--precision", default=d.precision, choices=("f32", "f64"),
-                   help="f64 runs only with --no-persistent")
+    p.add_argument("--precision", default=d.precision, choices=("f32", "f64"))
     p.add_argument("--compact", action="store_true", default=d.compact,
                    help="the forward-only compacting wavefront when the "
                         "persistent integrators are disabled")
@@ -55,12 +68,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "fixed-depth wavefront)")
     p.add_argument("--rays-per-pass", type=int, default=d.rays_per_pass)
     p.add_argument("--mesh-tiles", type=int, default=d.mesh_tiles,
-                   help="not ported: above 1 exits (multi-GPU)")
+                   help="ranks on the pixel-tile axis")
     p.add_argument("--mesh-samples", type=int, default=d.mesh_samples,
-                   help="not ported: above 1 exits (multi-GPU)")
+                   help="ranks on the sample axis")
     p.add_argument("--tile-size", type=int, default=d.tile_size)
     p.add_argument("--multihost", action="store_true",
-                   help="not ported: exits (multi-GPU)")
+                   help="a mesh over every rank of the launch (torchrun, "
+                        "Slurm, MPI; one rank without a launcher)")
     p.add_argument("--strip-dir", default=d.strip_dir,
                    help="directory for per-host image strips (multihost)")
     p.add_argument("--spp-chunk", type=int, default=d.spp_chunk,
@@ -91,14 +105,42 @@ def config_from_args(args) -> RenderConfig:
         device=args.device)
 
 
-def refuse_sharded(cfg: RenderConfig) -> None:
-    """Exit for the sharded renders, which the port does not have yet: it
-    never renders them on one card in their place."""
-    if cfg.multihost or cfg.mesh_tiles * cfg.mesh_samples > 1:
-        raise SystemExit(
-            "sharded renders (--mesh-tiles x --mesh-samples above 1, "
-            "--multihost) are not ported yet: ROADMAP.md Queue 1, item 18 "
-            "(multi-GPU)")
+def is_sharded(cfg: RenderConfig) -> bool:
+    """Whether ``cfg`` renders on a mesh (``--multihost``, or more than one
+    rank on ``--mesh-tiles`` x ``--mesh-samples``)."""
+    return cfg.multihost or cfg.mesh_tiles * cfg.mesh_samples > 1
+
+
+def make_mesh(cfg: RenderConfig):
+    """The mesh of a sharded ``cfg``: the process group of a multi-process
+    launch (a launch that cannot connect exits non-zero), then the mesh of
+    ``--multihost`` (every rank) or of ``--mesh-tiles`` x
+    ``--mesh-samples``, which must equal the ranks (else the run exits
+    non-zero naming both)."""
+    from .parallel import multihost
+    from .parallel.mesh import make_render_mesh
+    backend = "gloo" if cfg.device == "cpu" else None
+    try:
+        multihost.initialize(backend=backend)
+    except (RuntimeError, ValueError) as e:
+        # A launch that fails to connect must not degrade to N processes
+        # that each render the whole image to the same output.
+        raise SystemExit("multi-process set-up failed on a detected "
+                         f"launch: {e!r}") from e
+    if cfg.multihost:
+        try:
+            return multihost.make_multihost_mesh(cfg.mesh_samples,
+                                                 device=cfg.device)
+        except ValueError as e:
+            raise SystemExit(f"--multihost --mesh-samples "
+                             f"{cfg.mesh_samples}: {e}") from e
+    try:
+        return make_render_mesh(cfg.mesh_tiles, cfg.mesh_samples,
+                                device=cfg.device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh-tiles {cfg.mesh_tiles} x --mesh-samples "
+                         f"{cfg.mesh_samples} must equal the ranks of the "
+                         f"launch: {e}") from e
 
 
 def print_occupancy(cfg: RenderConfig) -> None:
@@ -129,18 +171,74 @@ def print_occupancy(cfg: RenderConfig) -> None:
     }))
 
 
-def run(cfg: RenderConfig) -> dict:
+def _render_sharded(cfg: RenderConfig, mesh, scene, cam, H: int):
+    """The sharded branch of :func:`run`: ``(linear image or None, phases,
+    samples rendered)``. Each rank renders its strip (checkpointed with
+    ``--spp-chunk``); on a mesh of several tile shards the sample-shard-0
+    ranks write their strips, and after a barrier rank 0 assembles the
+    image (the other ranks return None)."""
+    import numpy as np
+    from .parallel import multihost
+    from .parallel.mesh import TILES_AXIS
+    from .parallel.shard import render_strip_sharded
+    from .utils.checkpoint import (_strip_ckpt_path,
+                                   render_checkpointed_sharded)
+    from .utils.metrics import PhaseTimer
+
+    W = cfg.image_width
+    phases, n_rendered = None, cfg.n_samples
+    if cfg.spp_chunk > 0:
+        ck = cfg.checkpoint_path and _strip_ckpt_path(cfg.checkpoint_path)
+        if ck and os.path.exists(ck):
+            with np.load(ck) as z:
+                n_rendered -= min(int(z["samples_done"]), cfg.n_samples)
+        timer = PhaseTimer()
+        state = render_checkpointed_sharded(
+            scene, cam, W, cfg.n_samples, mesh=mesh, image_height=H,
+            seed=cfg.seed, spp_chunk=cfg.spp_chunk,
+            checkpoint_path=cfg.checkpoint_path, tile_size=cfg.tile_size,
+            max_depth=cfg.max_depth, tmin=cfg.tmin,
+            persistent=cfg.persistent, rays_per_pass=cfg.rays_per_pass,
+            progress=True, timer=timer)
+        phases = timer.as_dict()
+        strip = (state.start, state.stop, state.strip_image)
+    else:
+        start, stop, sums = render_strip_sharded(
+            scene, cam, W, cfg.n_samples, mesh=mesh, image_height=H,
+            tile_size=cfg.tile_size, max_depth=cfg.max_depth, tmin=cfg.tmin,
+            seed=cfg.seed, persistent=cfg.persistent,
+            rays_per_pass=cfg.rays_per_pass, compact=cfg.compact)
+        strip = (start, stop, (sums / cfg.n_samples).cpu().numpy())
+    strip_dir = cfg.strip_dir or cfg.output + ".strips"
+    whole = mesh.shape[TILES_AXIS] == 1
+    if not whole:
+        if mesh.sample_index == 0:
+            multihost.write_host_strip(None, H, W, cfg.tile_size, strip_dir,
+                                       strip=strip)
+        mesh.barrier()
+    if mesh.rank != 0:
+        return None, phases, n_rendered
+    linear = (strip[2].reshape(H, W, 3) if whole
+              else multihost.assemble_strips(strip_dir))
+    return linear, phases, n_rendered
+
+
+def run(cfg: RenderConfig, mesh=None) -> dict:
     """Render ``cfg``, write its image (gamma 2) and return, print and
     append to the history its throughput record. The record's ``paths``
     (and so ``mpaths_per_s``) count the paths this run rendered: a resumed
-    run leaves out the samples its checkpoint already held."""
+    run leaves out the samples its checkpoint already held. A sharded
+    ``cfg`` renders on ``mesh`` (:func:`make_mesh` when None); on a mesh
+    of several tile shards only rank 0 writes the image and the record,
+    and the other ranks return ``{"rank": r, "strips": directory}``."""
     import numpy as np
     from .render import _resolve_device, render_radiance, image_height_for
     from .utils.image import write_png, write_ppm
     from .utils.metrics import PhaseTimer, append_history, throughput_record
 
-    refuse_sharded(cfg)
-    device = _resolve_device(cfg.device)
+    if is_sharded(cfg) and mesh is None:
+        mesh = make_mesh(cfg)
+    device = mesh.device if mesh is not None else _resolve_device(cfg.device)
     scene = cfg.build_scene()
     cam = cfg.build_camera()
     H = cfg.image_height or image_height_for(cfg.image_width)
@@ -148,7 +246,12 @@ def run(cfg: RenderConfig) -> dict:
     t0 = time.time()
     phases = None
     n_rendered = cfg.n_samples
-    if cfg.spp_chunk > 0:
+    if mesh is not None:
+        linear, phases, n_rendered = _render_sharded(cfg, mesh, scene, cam, H)
+        if linear is None:
+            return {"rank": mesh.rank,
+                    "strips": cfg.strip_dir or cfg.output + ".strips"}
+    elif cfg.spp_chunk > 0:
         from .utils.checkpoint import render_checkpointed
         if cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
             # A resume renders only the samples the checkpoint lacks.
@@ -180,6 +283,9 @@ def run(cfg: RenderConfig) -> dict:
         write_png(img, cfg.output)
 
     extra = {"config": cfg.to_dict()}
+    if mesh is not None:
+        extra["mesh"] = {"tiles": mesh.shape["tiles"],
+                         "samples": mesh.shape["samples"]}
     if phases:
         extra["phases"] = phases
     rec = throughput_record(
@@ -193,10 +299,10 @@ def run(cfg: RenderConfig) -> dict:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    refuse_sharded(cfg)
-    if args.stats:
+    mesh = make_mesh(cfg) if is_sharded(cfg) else None
+    if args.stats and (mesh is None or mesh.rank == 0):
         print_occupancy(cfg)
-    run(cfg)
+    run(cfg, mesh)
 
 
 if __name__ == "__main__":

@@ -7,11 +7,15 @@ events (closest-hit winner, material, reflect-or-refract coin, front face)
 are replayed as constants. Silhouette terms are not estimated (interior
 gradients only).
 
-The port runs the reference's two device defaults, on every device: images
-of 2^17 pixels or more take the persistent-record kernel pair with tail
-compaction at (44, 16) and strict NaN-poisoning of dropped paths
-(``ops/persist_grad.py``), smaller ones the fixed-depth record/replay pair
-(``ops/fused_grad.py``). ``recorded=False, remat=True`` (or ``recorded=False``
+The port runs the reference's two device defaults, on every device, for
+float32: images of 2^17 pixels or more take the persistent-record kernel
+pair with tail compaction at (44, 16) and strict NaN-poisoning of dropped
+paths (``ops/persist_grad.py``), smaller ones the fixed-depth record/replay
+pair (``ops/fused_grad.py``). Those pairs are float32, so a float64 scene
+or camera with no path flag takes the reference's default off its device,
+the recorded wavefront (``recorded=True`` alone, ``ops/grad_trace.py``),
+which sweeps float64 in the dot form: a route chosen by the float type.
+``recorded=False, remat=True`` (or ``recorded=False``
 alone) takes the remat twin instead: autograd through the fixed-depth
 wavefront ``ops/integrator.trace`` with each bounce recomputed in the
 backward (``remat=False`` keeps every bounce; ``fused_attrs=True`` sweeps
@@ -144,6 +148,17 @@ def resolve_grad_path(kwargs: dict, n_pix: int, backend: str) -> dict:
     return kwargs
 
 
+def default_grad_backend(*dtypes) -> str:
+    """The backend whose default gradient route :func:`resolve_grad_path`
+    takes for a render in ``dtypes`` (the ``dtype`` argument, the camera's,
+    the scene's; ``None`` entries are skipped): ``"cuda"``, the reference's
+    device default, on every device in float32 (the CPU runs the same pairs
+    through the kernels' plain versions); ``"cpu"``, the recorded wavefront,
+    when any is float64, since the kernel pairs are float32."""
+    return ("cpu" if any(d is not None and d != torch.float32
+                         for d in dtypes) else "cuda")
+
+
 def plan_pass_memory(kwargs: dict, n_pix: int, n_samples: int,
                      device=None) -> dict:
     """Decide how the recorded pass loop fits the budget (in place; returns
@@ -197,10 +212,8 @@ def render_loss(scene: Scene, cam: Camera, target: torch.Tensor,
         raise ValueError(f"image_height={ih} conflicts with "
                          f"target height {target.shape[0]}")
     n_pix = target.shape[0] * image_width
-    # The reference's device default on every device (the CPU runs the same
-    # pairs through the kernels' plain versions): the persistent-record pair
-    # from 2^17 pixels, the fixed-depth pair below.
-    resolve_grad_path(kwargs, n_pix, "cuda")
+    resolve_grad_path(kwargs, n_pix, default_grad_backend(
+        kwargs.get("dtype"), cam.origin.dtype, scene.center.dtype))
     device = _resolve_device(kwargs.get("device"))
     persist = kwargs.get("recorded_persist")
     depth = kwargs.get("max_depth", 16)

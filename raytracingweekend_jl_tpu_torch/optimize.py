@@ -144,9 +144,11 @@ class _Fit:
         self.ekw = dict(edge_kwargs or {})
         self.impl = tkw.get("impl")
         self.H, self.W, self.spp = target.shape[0], image_width, n_samples
-        self.target = torch.as_tensor(target, dtype=torch.float32).to(device)
         self.scene0 = scene0 = scene0.to(device)
         self.cam = cam.to(device)
+        # A float64 fit keeps its target in float64.
+        self.target = torch.as_tensor(target, dtype=torch.promote_types(
+            scene0.center.dtype, self.cam.origin.dtype)).to(device)
         if movable is None:
             movable = movable_mask(scene0)
         self.movable = movable = np.asarray(movable, dtype=bool)

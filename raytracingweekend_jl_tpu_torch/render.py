@@ -31,6 +31,16 @@ picks them on its device:
 - any other tile, given by its film coordinates ``u``/``v``, takes the
   pixel-pinned integrator (K1 and K9, ``persistent_render_sum_fused``).
 
+Those kernels are float32. A float64 ``persistent=True`` render (film
+coordinates, scene or camera in float64), whole image or tile, takes the
+plain pixel-pinned body ``ops/integrator.persistent_render_sum`` instead,
+which runs in any float type and sweeps float64 rays in the dot form on
+the card too: the reference package sends float64 to its XLA body off the
+TPU the same way. The route is chosen by the float type, not taken when a
+kernel fails. An explicit request for a float32 kernel (``inline=True``,
+``generator``, ``recorded_fused``, ``recorded_persist``) raises
+``NotImplementedError`` in float64.
+
 ``compact=True`` swaps the wavefront for the forward-only compacting one
 (``trace_compacted``: only live rays are swept, the draws keyed by slot).
 The other gradient routes: ``recorded=True`` alone takes the recorded
@@ -60,6 +70,7 @@ from .ops.fused_grad import (check_stages, trace_recorded_fused,
 from .ops.grad_trace import trace_recorded, trace_recorded_staged
 from .ops.inline import render_inline_sum
 from .ops.integrator import (DEFAULT_MAX_DEPTH, check_remat_policy,
+                             persistent_render_sum,
                              persistent_render_sum_fused,
                              persistent_render_sum_strided, trace,
                              trace_compacted)
@@ -371,7 +382,10 @@ def render_tile_sum(scene: Scene, cam: Camera, n_pix: int, seed: int,
     ``k`` and the sample-group fold picked as the reference picks them; any
     other tile the pixel-pinned integrator (K9). ``inline=False`` skips the
     inline route, ``inline=True`` forces it. ``generator`` feeds the
-    strided route's strip-0 draws and is refused elsewhere."""
+    strided route's strip-0 draws and is refused elsewhere. In float64
+    (``u``, the camera or the scene) every ``persistent=True`` tile takes
+    the plain pixel-pinned body ``persistent_render_sum`` (module
+    docstring); ``inline=True`` and ``generator`` raise there."""
     W, H = int(f32_w), int(f32_h)
     full_image = n_pix == W * H
     if u is None:
@@ -382,6 +396,16 @@ def render_tile_sum(scene: Scene, cam: Camera, n_pix: int, seed: int,
         start = 0 if pixel_start is None else pixel_start
         u, v = pixel_coords(W, H, dtype=cam.origin.dtype, device=scene.device)
         u, v = u[start:start + n_pix], v[start:start + n_pix]
+    if persistent and any(x.dtype != torch.float32
+                          for x in (u, cam.origin, scene.center)):
+        if inline or generator is not None:
+            raise NotImplementedError(
+                "float64 persistent renders take the plain pixel-pinned "
+                "body; the inline kernel K8 and the strided route's "
+                "generator are float32")
+        return persistent_render_sum(scene, cam, u, v, seed, n_samples,
+                                     sample_offset, max_depth, tmin, f32_w,
+                                     f32_h, impl=impl)
     if inline is None:
         inline = pixel_start is None and inline_route_for(n_pix,
                                                           scene.n_spheres)
@@ -444,8 +468,9 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
     """Linear mean radiance ``[H, W, 3]`` (no gamma) on ``device``: the card
     unless ``device="cpu"`` (the scene and camera move there), in the float
     type ``dtype`` (the reference's ``elem_type`` switch: the film
-    coordinates' type, the camera's by default; float64 runs on the
-    fixed-depth wavefront only). Differentiable w.r.t. the scene on the
+    coordinates' type, the camera's by default; float64 runs everywhere
+    but on the float32 gradient kernel pairs, ``persistent=True`` through
+    the plain pixel-pinned body). Differentiable w.r.t. the scene on the
     default route. ``pixel_chunk`` renders contiguous chunks of that many pixels one
     after another, chunk ``c`` with seed ``fold_in(seed, c)``.
 
@@ -471,11 +496,11 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
     if not persistent:
         _check_route(fused_stages, remat_policy, tile_skip)
     dtype = cam.origin.dtype if dtype is None else dtype
-    if dtype != torch.float32 and (persistent or recorded_fused
-                                   or recorded_persist is not None):
+    if dtype != torch.float32 and not persistent and (
+            recorded_fused or recorded_persist is not None):
         raise NotImplementedError(
-            f"{dtype} renders run on the fixed-depth wavefront only; the "
-            "persistent routes and the gradient kernel pairs are float32")
+            f"the gradient kernel pairs are float32; a {dtype} render runs "
+            "on the wavefront routes or persistent=True")
     device = _resolve_device(device)
     scene = trim_scene(scene.to(device))
     cam = cam.to(device)
@@ -489,6 +514,7 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
     if len(chunks) > 1 and generator is not None:
         raise ValueError("generator is for single-chunk renders; chunked "
                          "renders seed each chunk from fold_in(seed, c)")
+    u_all, v_all = pixel_coords(W, H, dtype=dtype, device=device)
     if not persistent:
         if generator is not None:
             raise ValueError(
@@ -504,7 +530,6 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
         tracer = _pass_tracer(scene, max_depth, tmin, impl, **flags)
         retrace = (_retracer(max_depth, tmin, impl, flags) if remat_passes
                    else None)
-        u_all, v_all = pixel_coords(W, H, dtype=dtype, device=device)
     pieces = []
     for c, (start, size) in enumerate(chunks):
         seed_c = seed if len(chunks) == 1 else rng.fold_in(seed, c)
@@ -512,7 +537,8 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
             pieces.append(render_tile_sum(
                 scene, cam, size, seed_c, n_samples, 0, max_depth, tmin, fw,
                 fh, True, None if len(chunks) == 1 else start, impl,
-                generator, inline))
+                generator, inline, u=u_all[start:start + size],
+                v=v_all[start:start + size]))
         else:
             spp_pass = 1 if rays_per_pass is None else \
                 pick_samples_per_pass(size, n_samples, rays_per_pass)

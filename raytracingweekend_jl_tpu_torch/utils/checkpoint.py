@@ -1,4 +1,5 @@
-"""Checkpoint and resume for long renders on one device.
+"""Checkpoint and resume for long renders, on one device or sharded over a
+mesh of ranks.
 
 The reference renders monolithically in memory — a crash loses everything
 (reference: src/render.jl:15-43; SURVEY.md §5 'Checkpoint: None'). Here the
@@ -18,6 +19,13 @@ resume that differs in any of them, or asks for fewer samples than the file
 holds, raises ``ValueError``. A file the JAX package wrote (threefry streams,
 no ``rng`` key) loads with :func:`load_state` but is refused for resume: the
 port cannot continue its streams.
+
+The sharded driver (:func:`render_checkpointed_sharded`) keeps, on each
+rank, only its tile shard's strip of the sum (:class:`StripState`), in a
+file of its own (rank 0 the given path, rank ``r`` a ``.pNNNNN`` suffix).
+It records and checks the same settings, plus ``tile_size`` and the strip's
+range; the ranks agree on ``samples_done`` before they resume and wait for
+each other after every save.
 """
 
 from __future__ import annotations
@@ -44,6 +52,15 @@ RNG = "philox"
 #: Settings a resume must match, besides the film, the seed and ``rng``.
 RESUME_KEYS = ("spp_chunk", "max_depth", "tmin", "persistent", "compact",
                "rays_per_pass", "scene_digest")
+
+#: The same for the sharded driver (which has no ``compact``).
+STRIP_RESUME_KEYS = ("spp_chunk", "tile_size", "max_depth", "tmin",
+                     "persistent", "rays_per_pass", "scene_digest")
+
+#: How :func:`load_state` and :func:`load_strip_state` read the settings.
+_SETTING_CASTS = {"spp_chunk": int, "tile_size": int, "max_depth": int,
+                  "tmin": float, "persistent": bool, "compact": bool,
+                  "rays_per_pass": int, "scene_digest": str, "rng": str}
 
 
 @dataclass
@@ -72,9 +89,10 @@ class RenderState:
         return self.radiance_sum / max(self.samples_done, 1)
 
 
-def save_state(state: RenderState, path: str) -> None:
-    """Write ``state`` to ``path`` atomically: a temporary file, flushed to
-    disk, then renamed over ``path``."""
+def save_state(state, path: str) -> None:
+    """Write ``state`` (a :class:`RenderState` or :class:`StripState`) to
+    ``path`` atomically: a temporary file, flushed to disk, then renamed
+    over ``path``. ``None`` settings are left out."""
     arrays = {f.name: getattr(state, f.name) for f in fields(state)
               if getattr(state, f.name) is not None}
     tmp = path + ".tmp"
@@ -88,16 +106,19 @@ def save_state(state: RenderState, path: str) -> None:
 def load_state(path: str) -> RenderState:
     """Read a state written by :func:`save_state` or by the JAX package's
     ``save_state`` (whose files lack the settings: they load as ``None``)."""
-    casts = {"spp_chunk": int, "max_depth": int, "tmin": float,
-             "persistent": bool, "compact": bool, "rays_per_pass": int,
-             "scene_digest": str, "rng": str}
     with np.load(path) as z:
-        opt = {k: cast(z[k][()]) for k, cast in casts.items() if k in z.files}
         return RenderState(radiance_sum=z["radiance_sum"],
                            samples_done=int(z["samples_done"]),
                            image_width=int(z["image_width"]),
                            image_height=int(z["image_height"]),
-                           seed=int(z["seed"]), **opt)
+                           seed=int(z["seed"]), **_settings(z, RenderState))
+
+
+def _settings(z, cls) -> dict:
+    """The settings of ``cls`` that the open ``.npz`` ``z`` holds."""
+    names = {f.name for f in fields(cls)}
+    return {k: cast(z[k][()]) for k, cast in _SETTING_CASTS.items()
+            if k in z.files and k in names}
 
 
 def scene_digest(scene: Scene, cam: Camera) -> str:
@@ -112,10 +133,11 @@ def scene_digest(scene: Scene, cam: Camera) -> str:
     return h.hexdigest()
 
 
-def _check_resume(state: RenderState, want: RenderState,
-                  n_samples: int) -> None:
+def _check_resume(state, want, n_samples: int,
+                  keys: tuple = RESUME_KEYS) -> None:
     """Raise ``ValueError`` unless ``state`` can be continued as ``want``
-    to ``n_samples`` samples."""
+    to ``n_samples`` samples: the film, the seed, ``rng`` and ``keys``
+    must match."""
     have = (state.image_width, state.image_height, state.seed)
     if have != (want.image_width, want.image_height, want.seed):
         raise ValueError(
@@ -128,7 +150,7 @@ def _check_resume(state: RenderState, want: RenderState,
             f"were drawn from rng={state.rng!r} (None: a JAX-written file, "
             f"threefry streams), this render draws {RNG!r}; it cannot be "
             "continued")
-    for key in RESUME_KEYS:
+    for key in keys:
         if getattr(state, key) != getattr(want, key):
             raise ValueError(
                 f"checkpoint does not match render configuration: {key}="
@@ -169,14 +191,11 @@ def render_checkpointed(scene: Scene, cam: Camera, image_width: int,
     ``fetch`` and ``checkpoint`` phases; ``progress`` prints one JSON line
     per chunk with the running totals.
 
-    Float64 (a float64 camera) renders only with ``persistent=False``, as
-    in :func:`render.render_radiance`."""
+    A float64 camera or scene renders in float64 on either route
+    (``persistent=True`` through the plain pixel-pinned body, as in
+    :func:`render.render_tile_sum`)."""
     if spp_chunk <= 0:
         raise ValueError(f"spp_chunk={spp_chunk} must be positive")
-    if cam.origin.dtype != torch.float32 and persistent:
-        raise NotImplementedError(
-            f"{cam.origin.dtype} renders run on the fixed-depth wavefront "
-            "only (persistent=False); the persistent routes are float32")
     device = _resolve_device(device)
     scene = trim_scene(scene.to(device))
     cam = cam.to(device)
@@ -236,5 +255,202 @@ def render_checkpointed(scene: Scene, cam: Camera, image_width: int,
             print(json.dumps({"samples_done": state.samples_done,
                               "chunk_s": round(dt, 3),
                               "paths_per_s": round(W * H * todo / dt, 1),
+                              "phases": timer.as_dict()}), flush=True)
+    return state
+
+
+@dataclass
+class StripState:
+    """One rank's progress in a sharded checkpointed render: its pixel
+    strip ``[start, stop)`` of the radiance sum, the count, and the
+    settings it was rendered with (``None`` where the file does not say: a
+    JAX-written one). A mesh of one holds the whole image."""
+
+    strip_sum: np.ndarray  # [stop - start, 3] float64 accumulation on host
+    start: int             # first global pixel of the strip
+    stop: int              # one past its last
+    samples_done: int
+    image_width: int
+    image_height: int
+    seed: int
+    spp_chunk: int | None = None
+    tile_size: int | None = None
+    max_depth: int | None = None
+    tmin: float | None = None
+    persistent: bool | None = None
+    rays_per_pass: int | None = None
+    scene_digest: str | None = None
+    rng: str | None = None
+
+    @property
+    def strip_image(self) -> np.ndarray:
+        """This rank's strip of the current mean-radiance estimate."""
+        return self.strip_sum / max(self.samples_done, 1)
+
+    @property
+    def image(self) -> np.ndarray:
+        """The whole ``[H, W, 3]`` mean radiance, when this rank holds the
+        whole image (a mesh of one tile shard)."""
+        n_pix = self.image_height * self.image_width
+        if (self.start, self.stop) != (0, n_pix):
+            raise ValueError(
+                f"this rank holds pixels [{self.start}, {self.stop}) of "
+                f"{n_pix}; assemble the ranks' strips instead (see "
+                "parallel.multihost.write_host_strip/assemble_strips)")
+        return self.strip_image.reshape(self.image_height, self.image_width,
+                                        3)
+
+
+def _strip_ckpt_path(path: str) -> str:
+    """This rank's checkpoint file: rank 0 keeps ``path`` (a single rank
+    writes one file), rank ``r`` appends ``.pNNNNN``."""
+    import torch.distributed as dist
+    idx = dist.get_rank() if dist.is_initialized() else 0
+    return path if idx == 0 else f"{path}.p{idx:05d}"
+
+
+def save_strip_state(state: StripState, path: str) -> None:
+    """Write ``state`` to ``path`` atomically (:func:`save_state`)."""
+    save_state(state, path)
+
+
+def load_strip_state(path: str) -> StripState:
+    """Read a state written by :func:`save_strip_state` or by the JAX
+    package's (whose files lack most settings: they load as ``None``, and
+    its ``spp_chunk``/``tile_size`` of 0 as ``None``)."""
+    with np.load(path) as z:
+        opt = _settings(z, StripState)
+        for k in ("spp_chunk", "tile_size"):
+            if opt.get(k) == 0:
+                opt[k] = None
+        return StripState(strip_sum=z["strip_sum"], start=int(z["start"]),
+                          stop=int(z["stop"]),
+                          samples_done=int(z["samples_done"]),
+                          image_width=int(z["image_width"]),
+                          image_height=int(z["image_height"]),
+                          seed=int(z["seed"]), **opt)
+
+
+def render_checkpointed_sharded(scene: Scene, cam: Camera, image_width: int,
+                                n_samples: int, *, mesh,
+                                image_height: int | None = None,
+                                seed: int = 0, spp_chunk: int = 50,
+                                checkpoint_path: str | None = None,
+                                tile_size: int | None = None,
+                                max_depth: int = 16, tmin: float = 1e-4,
+                                persistent: bool = True,
+                                rays_per_pass: int | None = None,
+                                progress: bool = False, max_retries: int = 2,
+                                timer: PhaseTimer | None = None,
+                                impl: str | None = None) -> StripState:
+    """Checkpoint and resume composed with the mesh-sharded render.
+
+    Renders ``n_samples`` in chunks of ``spp_chunk`` through
+    ``parallel.shard.render_strip_sharded`` over ``mesh`` (on
+    ``mesh.device``), each rank accumulating its tile shard's strip of the
+    radiance sum on the host in float64 and writing its own file
+    (:func:`_strip_ckpt_path`) after every chunk, then waiting for every
+    rank. Chunk ``c`` renders global samples ``[c * spp_chunk, ...)``, so
+    an interrupted and resumed render is the uninterrupted chunked one bit
+    for bit. ``spp_chunk`` and ``n_samples`` must be multiples of the
+    ``samples`` axis.
+
+    A resume must match the film, the seed, ``rng``, ``spp_chunk``,
+    ``tile_size``, ``max_depth``, ``tmin``, ``persistent``,
+    ``rays_per_pass``, the scene's and camera's digest and the strip's
+    range, and may not hold more samples than asked; the ranks' files must
+    agree on ``samples_done`` (checked by an all-gather before the first
+    chunk). A failed chunk is retried ``max_retries`` times on a mesh of
+    one rank; on a larger mesh it raises at once, since a retry on one rank
+    alone would leave the others in a different collective.
+    ``persistent`` defaults to True, as in :func:`render_checkpointed`."""
+    from ..parallel.mesh import SAMPLES_AXIS
+    from ..parallel.shard import (DEFAULT_TILE, render_strip_sharded,
+                                  shard_rows)
+
+    if spp_chunk <= 0:
+        raise ValueError(f"spp_chunk={spp_chunk} must be positive")
+    H = (image_height if image_height is not None
+         else image_height_for(image_width))
+    W = image_width
+    tile_size = DEFAULT_TILE if tile_size is None else tile_size
+    n_sample_shards = mesh.shape[SAMPLES_AXIS]
+    if spp_chunk % n_sample_shards or n_samples % n_sample_shards:
+        raise ValueError(
+            f"spp_chunk={spp_chunk} and n_samples={n_samples} must both be "
+            f"multiples of the mesh sample axis ({n_sample_shards})")
+    scene = trim_scene(scene.to(mesh.device))
+    cam = cam.to(mesh.device)
+    start, stop = shard_rows(mesh.shape, mesh.tile_index, W, H, tile_size)
+    fresh = StripState(np.zeros((stop - start, 3)), start, stop, 0, W, H,
+                       seed, spp_chunk=spp_chunk, tile_size=tile_size,
+                       max_depth=max_depth, tmin=float(tmin),
+                       persistent=bool(persistent),
+                       rays_per_pass=rays_per_pass,
+                       scene_digest=scene_digest(scene, cam), rng=RNG)
+    ckpt = _strip_ckpt_path(checkpoint_path) if checkpoint_path else None
+    if ckpt and os.path.exists(ckpt):
+        state = load_strip_state(ckpt)
+        _check_resume(state, fresh, n_samples, STRIP_RESUME_KEYS)
+        if (state.start, state.stop) != (start, stop):
+            raise ValueError(
+                f"checkpoint does not match render configuration: it holds "
+                f"pixels [{state.start}, {state.stop}), this rank renders "
+                f"[{start}, {stop}) (keep the mesh and tile_size)")
+    else:
+        state = fresh
+    # A job stopped between two ranks' saves, or a lost file, leaves the
+    # counts apart; rendering on would offset the ranks' samples and hang in
+    # a collective, so stop here with the counts.
+    done_all = [int(x) for x in mesh.gather(torch.tensor(
+        [state.samples_done], dtype=torch.int64, device=mesh.device))]
+    if len(set(done_all)) > 1:
+        raise ValueError(
+            f"the ranks' checkpoints disagree on samples_done: {done_all} "
+            "(delete the ahead ranks' files down to the least count and "
+            "resume)")
+    retries = max_retries if mesh.size == 1 else 0
+
+    if timer is None:
+        timer = PhaseTimer()
+    while state.samples_done < n_samples:
+        done = state.samples_done
+        todo = min(spp_chunk, n_samples - done)
+        t0 = time.time()
+        for attempt in range(retries + 1):
+            try:
+                timer.start("trace")
+                _, _, acc = render_strip_sharded(
+                    scene, cam, W, todo, mesh=mesh, image_height=H,
+                    tile_size=tile_size, max_depth=max_depth, tmin=tmin,
+                    seed=seed, persistent=persistent,
+                    rays_per_pass=rays_per_pass, sample_offset=done,
+                    impl=impl)
+                timer.stop("trace")
+                timer.start("fetch")  # the copy to the host is the sync
+                acc = acc.cpu().numpy().astype(np.float64)
+                timer.stop("fetch")
+                break
+            except RuntimeError as e:  # device faults are opaque
+                for ph in ("trace", "fetch"):
+                    timer.discard(ph)
+                if attempt >= retries:
+                    raise
+                if progress:
+                    print(json.dumps({"retry": attempt + 1,
+                                      "chunk_offset": done,
+                                      "error": repr(e)[:200]}), flush=True)
+        dt = time.time() - t0
+        state.strip_sum = state.strip_sum + acc
+        state.samples_done = done + todo
+        if ckpt:
+            timer.start("checkpoint")
+            save_strip_state(state, ckpt)
+            mesh.barrier()
+            timer.stop("checkpoint")
+        if progress:
+            print(json.dumps({"samples_done": state.samples_done,
+                              "strip": [state.start, state.stop],
+                              "rank": mesh.rank, "chunk_s": round(dt, 3),
                               "phases": timer.as_dict()}), flush=True)
     return state

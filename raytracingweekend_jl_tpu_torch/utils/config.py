@@ -3,10 +3,9 @@
 
 The JAX package's ``RenderConfig`` field for field, with its defaults and
 order, plus ``device`` (``None`` means the card, as every entry point of the
-port reads it). The sharded fields (``mesh_tiles``, ``mesh_samples``,
-``tile_size``, ``multihost``, ``strip_dir``) are kept so that configs compare
-and serialise alike; the port's command line refuses values that would
-shard.
+port reads it; with a mesh, each rank's ``cuda:{LOCAL_RANK}``). The sharded
+fields (``mesh_tiles``, ``mesh_samples``, ``tile_size``, ``multihost``,
+``strip_dir``) drive the command line's sharded branch.
 """
 
 from __future__ import annotations
@@ -40,7 +39,7 @@ class RenderConfig:
     mesh_samples: int = 1               # devices on the sample axis
     tile_size: int = 8192               # pixels per shard tile
 
-    # Multi-host (not ported: the port renders on one card)
+    # Multi-process (one rank per GPU; see parallel/multihost.py)
     multihost: bool = False
     strip_dir: str | None = None        # default: "<output>.strips"
 

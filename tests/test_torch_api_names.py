@@ -13,6 +13,7 @@ import torch
 import raytracingweekend_jl_tpu as rtw
 import raytracingweekend_jl_tpu_torch as pt
 from raytracingweekend_jl_tpu_torch import grad as G
+from raytracingweekend_jl_tpu_torch.ops.integrator import persistent_render_sum
 # One intra-op torch thread per test module (an autouse fixture).
 from test_torch_scene_camera import _one_torch_thread  # noqa: F401
 
@@ -112,11 +113,23 @@ def test_render_dtype_on_fixed_depth_route(dtype):
                                    dict(recorded_fused=True),
                                    dict(recorded_persist=(4, None))])
 def test_render_float64_off_fixed_depth_raises(route):
-    # The persistent routes and the gradient kernel pairs are float32: a
-    # float64 dtype raises there instead of running in float32.
-    with pytest.raises(NotImplementedError, match="float64"):
-        pt.render_radiance(pt.scene_4_spheres(), pt.t_default_cam(), 32, 2,
-                           device="cpu", dtype=torch.float64, **route)
+    # A float64 dtype runs persistent=True (the plain pixel-pinned body in
+    # float64, as the JAX package runs it off the TPU) and matches the body
+    # called directly; the gradient kernel pairs, asked for by name, are
+    # float32 and raise instead of running in float32 or on another route.
+    args = (pt.scene_4_spheres(), pt.t_default_cam(), 32, 2)
+    if not route.get("persistent"):
+        with pytest.raises(NotImplementedError, match="float64"):
+            pt.render_radiance(*args, device="cpu", dtype=torch.float64,
+                               **route)
+        return
+    img = pt.render_radiance(*args, device="cpu", dtype=torch.float64,
+                             **route)
+    u, v = pt.pixel_coords(32, 18, dtype=torch.float64)
+    ref = persistent_render_sum(pt.trim_scene(args[0]), args[1], u, v, 0, 2,
+                                0, 16, 1e-4, 32.0, 18.0) / 2
+    assert img.dtype == torch.float64
+    assert torch.equal(img, ref.reshape(18, 32, 3))
 
 
 def test_fused_stages_raises_not_implemented():

@@ -163,12 +163,25 @@ def test_retry_gives_up_after_max_retries(monkeypatch):
         _render(4, max_retries=1)
 
 
-def test_float64_only_on_the_fixed_depth_route():
+def test_float64_only_on_the_fixed_depth_route(tmp_path):
+    # Float64 now runs on both routes: with the default persistent=True (the
+    # plain pixel-pinned body in float64) a stopped and resumed render is
+    # the uninterrupted chunked one bit for bit, and matches the float64
+    # render_radiance of the same chunk; the fixed-depth route runs too.
     kw = dict(scene=pt.scene_2_spheres(dtype=torch.float64),
-              cam=pt.t_default_cam(dtype=torch.float64))
-    with pytest.raises(NotImplementedError):
-        _render(2, spp_chunk=2, **kw)
-    st = _render(2, spp_chunk=2, persistent=False, **kw)
+              cam=pt.t_default_cam(dtype=torch.float64), spp_chunk=2)
+    p = str(tmp_path / "ck.npz")
+    full = _render(4, **kw)
+    assert _render(2, p, **kw).samples_done == 2
+    resumed = _render(4, p, **kw)
+    assert resumed.samples_done == 4 and ck.load_state(p).persistent
+    assert np.array_equal(resumed.radiance_sum, full.radiance_sum)
+    first = _render(2, **kw).image
+    direct = pt.render_radiance(kw["scene"], kw["cam"], W, 2, seed=5,
+                                persistent=True, device="cpu")
+    assert direct.dtype == torch.float64
+    assert np.array_equal(first, direct.numpy())
+    st = _render(2, persistent=False, **kw)
     assert np.isfinite(st.image).all()
 
 

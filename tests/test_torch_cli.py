@@ -22,7 +22,10 @@ import torch
 from raytracingweekend_jl_tpu import cli as jcli
 from raytracingweekend_jl_tpu.utils import config as jconfig
 from raytracingweekend_jl_tpu.utils import metrics as jmetrics
+import raytracingweekend_jl_tpu_torch as pt
 from raytracingweekend_jl_tpu_torch import cli
+from raytracingweekend_jl_tpu_torch.parallel import shard
+from raytracingweekend_jl_tpu_torch.parallel.mesh import make_render_mesh
 from raytracingweekend_jl_tpu_torch.utils import config, metrics, profiling
 from raytracingweekend_jl_tpu_torch.utils.checkpoint import load_state
 from raytracingweekend_jl_tpu_torch.utils.image import read_png, to_uint8
@@ -266,22 +269,81 @@ def test_cli_stats_prints_occupancy(tmp_path, monkeypatch, capsys):
                                    ["--multihost"],
                                    ["--mesh-tiles", "2", "--stats"]])
 def test_cli_refuses_sharded_renders(flags, tmp_path, monkeypatch):
-    # Sharded renders wait for multi-GPU: the run exits, renders nothing
-    # and writes nothing.
+    # Without a launcher the world is one rank: --multihost renders on a
+    # mesh of one (the image the plain sharded render gives), and a mesh
+    # larger than the world exits non-zero naming both, rendering and
+    # writing nothing.
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="item 18"):
-        cli.main(SMALL + ["--spp", "1", "-o", "m.png"] + flags)
+    for var in ("WORLD_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    argv = SMALL + ["--spp", "1", "--tile-size", "256", "-o", "m.png"]
+    if flags == ["--multihost"]:
+        cli.main(argv + flags)
+        rec = json.loads(open("bench_history_torch.jsonl").readline())
+        assert rec["mesh"] == {"tiles": 1, "samples": 1}
+        ref = shard.render_radiance_sharded(
+            pt.scene_2_spheres(), pt.t_default_cam(), 48, 1,
+            mesh=make_render_mesh(device="cpu"), tile_size=256,
+            persistent=True).numpy()
+        assert np.array_equal(read_png("m.png"),
+                              to_uint8(np.sqrt(np.clip(ref, 0, None)))
+                              / 255.0)
+        return
+    with pytest.raises(SystemExit, match=r"must equal the ranks.*!= 1 ranks"):
+        cli.main(argv + flags)
     assert os.listdir(tmp_path) == []
 
 
+def test_cli_two_ranks_over_gloo(tmp_path):
+    # A launch of two ranks (the launcher's variables, a file:// store):
+    # each renders its tile shard, writes its strip, and rank 0 assembles
+    # the image and alone writes it and the record; the image is the world
+    # of one's bit for bit.
+    from test_torch_multiprocess import launch
+    store = f"file://{tmp_path / 'store'}"
+    argv = [sys.executable, "-m", "raytracingweekend_jl_tpu_torch.cli",
+            *SMALL, "--spp", "2", "--tile-size", "256", "--mesh-tiles", "2",
+            "-o", "two.png"]
+    outs = launch(lambda r: argv, 2, str(tmp_path),
+                  env_of_rank=lambda r: {"WORLD_SIZE": "2", "RANK": str(r),
+                                         "RTW_INIT_METHOD": store})
+    rec = json.loads(outs[0].strip().splitlines()[-1])
+    assert rec["mesh"] == {"tiles": 2, "samples": 1}
+    assert outs[1].strip() == ""  # rank 1 writes no record
+    ref = shard.render_radiance_sharded(
+        pt.scene_2_spheres(), pt.t_default_cam(), 48, 2,
+        mesh=make_render_mesh(device="cpu"), tile_size=256,
+        persistent=True).numpy()
+    assert np.array_equal(read_png(str(tmp_path / "two.png")),
+                          to_uint8(np.sqrt(np.clip(ref, 0, None))) / 255.0)
+    strips = sorted(os.listdir(tmp_path / "two.png.strips"))
+    assert strips == ["strip_00000.npz", "strip_00001.npz"]
+    with open(tmp_path / "bench_history_torch.jsonl") as f:
+        assert len(f.readlines()) == 1
+
+
 def test_cli_f64_only_with_no_persistent(tmp_path, monkeypatch):
+    # --precision f64 runs end to end on every route: the default
+    # persistent one (the plain pixel-pinned body in float64), chunked and
+    # resumed bit for bit, and --no-persistent; the image is the float64
+    # render's.
     monkeypatch.chdir(tmp_path)
-    f64 = SMALL + ["--spp", "1", "--precision", "f64"]
-    with pytest.raises(NotImplementedError):
-        cli.main(f64 + ["-o", "a.png"])
-    with pytest.raises(NotImplementedError):
-        cli.main(f64 + ["--spp-chunk", "1", "-o", "a.png"])
-    assert not os.path.exists("a.png")
+    f64 = SMALL + ["--spp", "2", "--precision", "f64"]
+    cli.main(f64 + ["-o", "a.png"])
+    ref = pt.render_radiance(pt.scene_2_spheres(dtype=torch.float64),
+                             pt.t_default_cam(dtype=torch.float64), 48, 2,
+                             persistent=True, device="cpu").numpy()
+    assert np.array_equal(read_png("a.png"),
+                          to_uint8(np.sqrt(np.clip(ref, 0, None))) / 255.0)
+    cli.main(f64 + ["--spp-chunk", "1", "--checkpoint", "full.npz", "-o",
+                    "full.png"])
+    cli.main(SMALL + ["--spp", "1", "--precision", "f64", "--spp-chunk",
+                      "1", "--checkpoint", "ck.npz", "-o", "half.png"])
+    cli.main(f64 + ["--spp-chunk", "1", "--checkpoint", "ck.npz", "-o",
+                    "resumed.png"])
+    assert np.array_equal(load_state("ck.npz").radiance_sum,
+                          load_state("full.npz").radiance_sum)
+    assert np.array_equal(read_png("full.png"), read_png("resumed.png"))
     cli.main(f64 + ["--no-persistent", "-o", "b.png"])
     assert np.isfinite(read_png("b.png")).all()
 

@@ -16,11 +16,13 @@ import torch
 import raytracingweekend_jl_tpu as rtw
 import raytracingweekend_jl_tpu_torch as pt
 from raytracingweekend_jl_tpu import rng as jrng
+from raytracingweekend_jl_tpu.ops.integrator import (
+    persistent_render_sum as jpersistent_sum)
 from raytracingweekend_jl_tpu.ops.sampling import per_ray_uniforms
 from raytracingweekend_jl_tpu.render import (
     strided_k_for as jk_for, strided_sample_groups_for as jgroups_for)
 from raytracingweekend_jl_tpu_torch.ops.integrator import (
-    persistent_render_sum_strided)
+    persistent_render_sum, persistent_render_sum_strided)
 from raytracingweekend_jl_tpu_torch.render import (strided_k_for,
                                                    strided_sample_groups_for)
 # One intra-op torch thread per test module (an autouse fixture).
@@ -187,19 +189,97 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_float64_render_raises():
-    # The persistent routes are float32 only (their kernels and states are
-    # float32); a float64 scene must not run silently in float32 there. The
-    # fixed-depth default route renders float64 (test_torch_trace.py).
-    for inline in (True, False):
-        with pytest.raises(NotImplementedError):
-            pt.render(pt.scene_2_spheres(dtype=torch.float64),
-                      pt.t_default_cam(dtype=torch.float64), 16, 1,
-                      device="cpu", persistent=True, inline=inline)
+    # A float64 persistent render runs (as the JAX package runs it off the
+    # TPU), through the plain pixel-pinned body in float64, whatever the
+    # tile: the whole image, a pixel_start range, film coordinates. Only an
+    # explicit request for a float32 kernel raises: the inline kernel K8
+    # and the strided route's generator.
+    f64 = torch.float64
+    scene, cam = pt.scene_2_spheres(dtype=f64), pt.t_default_cam(dtype=f64)
+    img = pt.render(scene, cam, 16, 1, device="cpu", persistent=True,
+                    inline=False)
+    assert img.dtype == f64 and img.shape == (9, 16, 3)
+    whole = pt.render_radiance(scene, cam, 16, 2, device="cpu",
+                               persistent=True)
+    direct = persistent_render_sum(scene, cam, *pt.pixel_coords(
+        16, 9, dtype=f64), 0, 2, 0, 16, 1e-4, 16.0, 9.0) / 2
+    assert torch.equal(whole, direct.reshape(9, 16, 3))
+    u, v = pt.pixel_coords(16, 9, dtype=f64)
+    by_start = pt.render_tile_sum(scene, cam, 50, 7, 2, 0, 16, 1e-4, 16.0,
+                                  9.0, True, pixel_start=40)
+    by_uv = pt.render_tile_sum(scene, cam, 50, 7, 2, 0, 16, 1e-4, 16.0, 9.0,
+                               True, u=u[40:90], v=v[40:90])
+    assert by_start.dtype == f64 and torch.equal(by_start, by_uv)
+    with pytest.raises(NotImplementedError, match="float32"):
+        pt.render(scene, cam, 16, 1, device="cpu", persistent=True,
+                  inline=True)
+    with pytest.raises(NotImplementedError, match="float32"):
+        pt.render(scene, cam, 16, 1, device="cpu", persistent=True,
+                  inline=False, generator=torch.Generator())
+
+
+def _f64_cases():
+    mirror = (rtw.make_scene([rtw.metal((0, -100.0, 0), 99.0,
+                                        (0.8, 0.6, 0.4), 0.0)],
+                             dtype=jnp.float64),
+              rtw.default_camera((0, 2, 0), (1, 1, 0), dtype=jnp.float64), 16)
+    return {"mirror": mirror,
+            "sky_only": (rtw.make_scene([], dtype=jnp.float64),
+                         rtw.t_default_cam(jnp.float64), 16),
+            "depth_1": (rtw.scene_2_spheres(jnp.float64),
+                        rtw.t_default_cam(jnp.float64), 1)}
+
+
+def _f64_pair(scene_j, cam_j, spp, depth, W=48, H=27, start=None, n=None):
+    """The JAX package's float64 ``persistent_render_sum`` and the port's
+    float64 persistent route (``render_tile_sum``: the whole image, or the
+    ``pixel_start`` tile of ``n`` pixels) on the same film."""
+    u, v = rtw.pixel_coords(W, H, dtype=jnp.float64)
+    a, b = (0, W * H) if start is None else (start, start + n)
+    ref = np.asarray(jpersistent_sum(scene_j, cam_j, u[a:b], v[a:b],
+                                     jax.random.PRNGKey(3), spp, 0, depth,
+                                     1e-4, float(W), float(H)))
+    out = pt.render_tile_sum(
+        pt.scene_from_numpy(scene_j, dtype=torch.float64),
+        pt.camera_from_numpy(cam_j, dtype=torch.float64), b - a, 5, spp, 0,
+        depth, 1e-4, float(W), float(H), True, pixel_start=start)
+    assert ref.dtype == np.float64 and out.dtype == torch.float64
+    return out.numpy(), ref
+
+
+@pytest.mark.parametrize("case", ["mirror", "sky_only", "depth_1"])
+def test_float64_persistent_matches_jax_exact(case):
+    # The draw-free cases (spp 1: sample 0 centred, aperture 0; fuzz-0
+    # mirror, sky, one bounce): the port's float64 persistent render and a
+    # pixel_start tile of it against the JAX package's float64 XLA body,
+    # within 1e-12.
+    with jax.enable_x64(True):
+        scene_j, cam_j, depth = _f64_cases()[case]
+        out, ref = _f64_pair(scene_j, cam_j, 1, depth)
+        np.testing.assert_allclose(out, ref, atol=1e-12)
+        tile, ref_t = _f64_pair(scene_j, cam_j, 1, depth, start=300, n=500)
+        np.testing.assert_allclose(tile, ref_t, atol=1e-12)
+        np.testing.assert_array_equal(tile, out[300:800])
+    assert out.mean() > 0
+
+
+def test_float64_persistent_matches_jax_statistically():
+    # Independent streams on 4_spheres at spp 16 in float64: each channel's
+    # mean difference within 3 standard errors of the per-pixel difference,
+    # for the whole image and for a pixel_start tile.
+    with jax.enable_x64(True):
+        s, c = rtw.scene_4_spheres(jnp.float64), rtw.t_default_cam(
+            jnp.float64)
+        for start, n in ((None, None), (200, 1000)):
+            out, ref = _f64_pair(s, c, 16, 16, start=start, n=n)
+            d = (out - ref).reshape(-1, 3) / 16
+            se = d.std(0) / np.sqrt(d.shape[0])
+            assert (np.abs(d.mean(0)) < 3 * se).all(), (d.mean(0), se)
 
 
 def test_port_imports_no_jax():
     # A fresh interpreter: importing every module of the port, the gradient
-    # slice's among them, leaves JAX out.
+    # slice's and the parallel layer's among them, leaves JAX out.
     code = ("import sys, pkgutil, importlib, raytracingweekend_jl_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -209,7 +289,9 @@ def test_port_imports_no_jax():
             "          'ops.cuda.inline_kernel',\n"
             "          'ops.materials', 'ops.integrator', 'cli',\n"
             "          'utils.config', 'utils.checkpoint', 'utils.metrics',\n"
-            "          'utils.profiling', 'utils.xoroshiro', 'utils.image'):\n"
+            "          'utils.profiling', 'utils.xoroshiro', 'utils.image',\n"
+            "          'parallel.mesh', 'parallel.shard', 'parallel.multihost',\n"
+            "          'parallel.elastic'):\n"
             "    assert p.__name__ + '.' + m in sys.modules, m\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('raytracingweekend_jl_tpu.')]\n"

@@ -349,7 +349,9 @@ def test_float64_mirror_render_matches_float32():
     # on any device. A draw-free scene (fuzz-0 mirrors, aperture 0, the
     # centred sample 0): the float64 image within 1e-4 of the float32 one
     # (measured: 4.4e-5, float32 rounding over several grazing mirror
-    # bounces). The persistent routes keep refusing float64.
+    # bounces). The persistent route renders float64 too (the plain
+    # pixel-pinned body): on this draw-free scene within 1e-10 of the
+    # fixed-depth float64 image.
     spheres = [pt.metal((0, -100.5, -1), 100.0, (0.8, 0.8, 0.8)),
                pt.metal((0, 0, -1), 0.5, (0.9, 0.6, 0.3)),
                pt.metal((-1, 0, -1), 0.5, (0.7, 0.7, 0.9))]
@@ -361,10 +363,11 @@ def test_float64_mirror_render_matches_float32():
     assert out[torch.float64].dtype == torch.float64
     assert (out[torch.float64] - out[torch.float32].double()).abs().max() \
         <= 1e-4
-    with pytest.raises(NotImplementedError):
-        pt.render_radiance(pt.make_scene(spheres, dtype=torch.float64),
-                           pt.default_camera(dtype=torch.float64), 48, 1,
-                           device="cpu", persistent=True)
+    pers = pt.render_radiance(pt.make_scene(spheres, dtype=torch.float64),
+                              pt.default_camera(dtype=torch.float64), 48, 1,
+                              device="cpu", persistent=True)
+    assert pers.dtype == torch.float64
+    assert (pers - out[torch.float64]).abs().max() <= 1e-10
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
