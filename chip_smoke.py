@@ -107,11 +107,13 @@ and the parallel layer on a world-of-one NCCL group: ``sharded_render``
 K1 and K2 at spp 4 and through ``trace`` at spp 1, beside the unsharded
 render), ``sharded_step`` (``sharded_train_step``: K3, K7a, K7c per tile,
 bit for bit ``elastic_train_step`` on two workers of the card, beside the
-unsharded step), ``elastic`` (a worker injected to fail, the image bit for
-bit the clean run's) and ``two_rank_card`` (two processes on the card
-over gloo: images, strips, resume and step bit for bit the world of
-one's). It times the kernels, the renders,
-the steps and the fit against the plain path. Each phase prints one JSON
+unsharded step), ``sharded_vs_plain`` (every kernel call of two sharded
+tiles held bit for bit against its plain version on the same inputs, and
+the tiles against ``impl="plain"``), ``elastic`` (a worker injected to
+fail, the image bit for bit the clean run's) and ``two_rank_card`` (two
+processes on the card over gloo: images, strips, resume and step bit for
+bit the world of one's). It times the kernels, the renders, the steps
+and the fit against the plain path. Each phase prints one JSON
 line; a failed check raises and the script exits non-zero without printing
 a result. The line before the card line lists every kernel with its
 launches on its main path, its error against its plain version, its time,
@@ -4340,6 +4342,190 @@ def f64_phases(dev, card, w: int = 480) -> None:
     check(loss.dtype == f64 and g.albedo.dtype == f64, "float64 step")
 
 
+class ShadowedKernels:
+    """While active, every call of the sharded paths' kernel wrappers (K1
+    ``sweep``, K2 ``shade_strided_step``, K3 ``sweep_masked``, K7a
+    ``record_shade_step``, K7c ``replay_bwd_fused``) also runs the kernel's
+    plain version on copies of the same inputs (the kernel's own sweep
+    results for K2 and K7a), and ``stats`` counts, per kernel, the calls,
+    the lanes and the lanes on which any output word differs. The wrappers
+    are module attributes looked up at call time, so the path under test
+    runs unchanged."""
+
+    def __init__(self):
+        from raytracingweekend_jl_tpu_torch.ops.cuda import grad_kernel as GK
+        from raytracingweekend_jl_tpu_torch.ops.cuda import (
+            intersect_kernel as K1, shade_kernel as K2)
+        self.mods = {"sweep": K1, "sweep_masked": K1,
+                     "shade_strided_step": K2, "record_shade_step": GK,
+                     "replay_bwd_fused": GK}
+        self.stats = {k: {"calls": 0, "lanes": 0, "lanes_differing": 0}
+                      for k in self.mods}
+        self.real = {k: getattr(m, k) for k, m in self.mods.items()}
+        real, K1r, K2r, GKr = self.real, K1, K2, GK
+
+        def note(name, pairs, n):
+            import torch
+            if pairs[0][0].is_cuda:
+                torch.cuda.synchronize()
+            s = self.stats[name]
+            s["calls"] += 1
+            s["lanes"] += n
+            s["lanes_differing"] += int(_bitwise_lanes(pairs, n).sum())
+
+        def tmin_of(a, kw):
+            return a[0] if a else kw.get("tmin", K1r.DEFAULT_TMIN)
+
+        def sweep(rays, spheres, *a, **kw):
+            t, i = real["sweep"](rays, spheres, *a, **kw)
+            ref = K1r.sweep_ref(rays, spheres, tmin_of(a, kw))
+            note("sweep", list(zip((t, i), ref)), rays.shape[1])
+            return t, i
+
+        def sweep_masked(rays, alive, spheres, *a, **kw):
+            t, i = real["sweep_masked"](rays, alive, spheres, *a, **kw)
+            ref = K1r.sweep_masked_ref(rays, alive, spheres, tmin_of(a, kw))
+            note("sweep_masked", list(zip((t, i), ref)), rays.shape[1])
+            return t, i
+
+        def shade_strided_step(fstate, istate, buf, *rest):
+            ref = [x.clone() for x in (fstate, istate, buf)]
+            real["shade_strided_step"](fstate, istate, buf, *rest)
+            K2r.shade_strided_fetch_ref(*ref, *rest)
+            note("shade_strided_step", list(zip((fstate, istate, buf), ref)),
+                 fstate.shape[1])
+
+        def record_shade_step(t, idx, amat, st, rec_slot, *rest):
+            st_r, slot_r = st.clone(), rec_slot.clone()
+            real["record_shade_step"](t, idx, amat, st, rec_slot, *rest)
+            GKr.record_shade_fetch_ref(t, idx, amat, st_r, slot_r, *rest)
+            note("record_shade_step", [(st, st_r), (rec_slot, slot_r)],
+                 st.shape[1])
+
+        def replay_bwd_fused(rec, g3, cot, seed, u5_all=None, **kw):
+            cot_r = cot.clone()
+            d = real["replay_bwd_fused"](rec, g3, cot, seed, u5_all, **kw)
+            d_r = GKr.replay_bwd_fused_ref(rec, g3, cot_r, seed, u5_all)
+            note("replay_bwd_fused", [(d, d_r), (cot, cot_r)], cot.shape[1])
+            return d
+
+        self.spies = {"sweep": sweep, "sweep_masked": sweep_masked,
+                      "shade_strided_step": shade_strided_step,
+                      "record_shade_step": record_shade_step,
+                      "replay_bwd_fused": replay_bwd_fused}
+
+    def __enter__(self):
+        for k, m in self.mods.items():
+            setattr(m, k, self.spies[k])
+        return self
+
+    def __exit__(self, *exc):
+        for k, m in self.mods.items():
+            setattr(m, k, self.real[k])
+
+
+def sharded_vs_plain_phase(dev, card, scene, cam, W: int, H: int, target,
+                           bad, tiles=(127, 253)) -> None:
+    """``sharded_vs_plain``: the kernels of the sharded paths against their
+    plain versions at the shapes those paths give them, on two of the
+    flagship film's 254 tiles of 8 192 pixels (one in the middle, and the
+    last, 1 024 pixels long; the plain sweeps take ~0.15 s a call). Each
+    tile goes through the
+    sharded paths' own per-tile functions (``shard.tile_sum``,
+    ``shard.tile_loss_grads``, as ``render_radiance_sharded`` and
+    ``sharded_train_step`` call them) three ways: a spp 4
+    ``persistent=True`` tile (the strided loop at k = 1 with 4 sample
+    groups and ``pixel_start = t * 8192``: K1 and K2), a spp 1 ``trace``
+    tile (K1) and the training step's tile row (the fixed-depth pair: K3,
+    K7a, K7c), with every kernel call shadowed by its plain version on the
+    same inputs (:class:`ShadowedKernels`: 0 lanes may differ in any word);
+    then the same tiles through ``impl="plain"``. The ``trace`` tiles and
+    the step rows (whose plain routes sweep with K1's and K3's plain
+    versions) must be bit for bit; the strided plain route sweeps in the
+    dot form (the reference package's plain sweep), which parts from K1's
+    expanded form in the last bits near the ground sphere, so its tiles are
+    held to each channel's mean within 4 standard errors and their
+    bit-equal share is reported."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops.integrator import (
+        DEFAULT_MAX_DEPTH as DEPTH)
+    from raytracingweekend_jl_tpu_torch.ops.intersect import (
+        DEFAULT_TMIN as TMIN)
+    from raytracingweekend_jl_tpu_torch.parallel.shard import (
+        DEFAULT_TILE, _auto_grad_mode, _padded_coords, grad_route,
+        reduce_tile_rows, tile_loss_grads, tile_sum)
+
+    n_pix, tile, seed = W * H, DEFAULT_TILE, 7
+    sc = pt.trim_scene(scene.to(dev))
+    bad_t = pt.trim_scene(bad.to(dev))
+    cm = cam.to(dev)
+    u, v, _, _ = _padded_coords(W, H, tile, 1, torch.float32, dev)
+    flat = target.to(dev).reshape(n_pix, 3)
+    route = grad_route(_auto_grad_mode(torch.float32, tile))
+
+    def render(t, spp, persistent, impl=None):
+        return tile_sum(sc, cm, u, v, t, tile, n_pix, seed, spp, 0, DEPTH,
+                        TMIN, float(W), float(H), persistent, impl)
+
+    def row(t, impl=None):
+        return tile_loss_grads(bad_t, cm, u, v, t, flat, tile, n_pix, 3, 1,
+                               0, 1, DEPTH, TMIN, float(W), float(H), impl,
+                               **route)
+
+    t0 = time.perf_counter()
+    with ShadowedKernels() as shadow:
+        kern = {t: (render(t, 4, True), render(t, 1, False), row(t))
+                for t in tiles}
+    sec_shadow = time.perf_counter() - t0
+    per_tile, rows_k, rows_p = {}, [], []
+    for t in tiles:
+        n = min(tile, n_pix - t * tile)
+        strided, trace, row_k = kern[t]
+        p_strided = render(t, 4, True, "plain")
+        p_trace = render(t, 1, False, "plain")
+        row_p = row(t, "plain")
+        rows_k.append(row_k)
+        rows_p.append(row_p)
+        mu, se = mean_gap(strided[:n], p_strided[:n])
+        per_tile[str(t)] = {
+            "pixels": n,
+            "strided_pixels_bit_equal_share": float(
+                (strided[:n] == p_strided[:n]).all(1).float().mean()),
+            "strided_mean_gap": mu.tolist(), "strided_standard_error":
+                se.tolist(),
+            "strided_max_abs_err": float((strided - p_strided).abs().max()),
+            "trace_bitwise": bool(torch.equal(trace, p_trace)),
+            "trace_max_abs_err": float((trace - p_trace).abs().max()),
+            "step_row_bitwise": bool(torch.equal(row_k, row_p)),
+            "step_row_max_abs_err": float((row_k - row_p).abs().max())}
+        check(bool(((mu.abs() <= 4 * se) | (mu == 0)).all()),
+              f"tile {t}: strided kernels vs plain means {mu} ({se})")
+    loss_k, new_k = reduce_tile_rows(rows_k, bad_t, n_pix, 0.5)
+    loss_p, new_p = reduce_tile_rows(rows_p, bad_t, n_pix, 0.5)
+    step_eq = bool(torch.equal(loss_k, loss_p)) and all(
+        torch.equal(getattr(new_k, f), getattr(new_p, f))
+        for f in pt.DIFF_FIELDS)
+    emit({"phase": "sharded_vs_plain", "card": card, "size": [W, H],
+          "tile_size": tile, "tiles": list(tiles),
+          "kernel_calls_shadowed": shadow.stats, "seconds_shadowed":
+              sec_shadow, "by_tile": per_tile,
+          "step_on_these_tiles_bitwise": step_eq,
+          "tolerance": "every shadowed call: 0 lanes differ in any output "
+                       "word; trace tiles and step rows bit for bit "
+                       "impl='plain'; strided tiles: each channel mean "
+                       "within 4 standard errors of impl='plain'"})
+    for name, st in shadow.stats.items():
+        check(st["calls"] > 0, f"{name} never called on the sharded tiles")
+        check(st["lanes_differing"] == 0,
+              f"{name} differs from its plain version on the sharded "
+              f"tiles: {st}")
+    for t, r in per_tile.items():
+        check(r["trace_bitwise"] and r["step_row_bitwise"],
+              f"tile {t}: kernels differ from impl='plain': {r}")
+    check(step_eq, "the step on the tiles differs from impl='plain'")
+
+
 def parallel_phases(dev, card, W: int = 1920) -> None:
     """The parallel layer on the card, on a world-of-one NCCL group
     (``torch.distributed`` over a ``file://`` store in a temporary
@@ -4358,6 +4544,9 @@ def parallel_phases(dev, card, W: int = 1920) -> None:
       K7a, K7c), its loss and scene bit for bit ``elastic_train_step``'s
       on two workers of the card, seconds, Mpaths/s and peak memory beside
       the unsharded ``render_grads`` step;
+    - ``sharded_vs_plain``: every kernel call of a sharded tile (K1, K2,
+      K3, K7a, K7c) against its plain version on the same inputs, and the
+      tiles against ``impl="plain"`` (:func:`sharded_vs_plain_phase`);
     - ``elastic``: the flagship film at spp 1 in 65 536-pixel tiles on two
       workers of the card, the second injected to fail: quarantined, and
       the image bit for bit the clean run's and the sharded ``trace``
@@ -4523,6 +4712,9 @@ def parallel_phases(dev, card, W: int = 1920) -> None:
         check(bool(np.isfinite(float(ls))), "sharded step loss")
         check(same, "sharded step differs from elastic_train_step")
         del ss, se_
+
+        # -- sharded_vs_plain -----------------------------------------------
+        sharded_vs_plain_phase(dev, card, scene, cam, W, H, target, bad)
 
         # -- elastic (65 536-pixel tiles: 32 of them; at 8 192 the eager
         # bounces of 254 tiles take ~20 s a render) ------------------------

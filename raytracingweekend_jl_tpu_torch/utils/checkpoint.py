@@ -163,6 +163,64 @@ def _check_resume(state, want, n_samples: int,
             f"{n_samples} asked")
 
 
+def _render_chunks(state, sum_field: str, n_samples: int, spp_chunk: int,
+                   render_chunk, save, max_retries: int,
+                   timer: PhaseTimer | None, progress: bool,
+                   progress_fields) -> None:
+    """The chunk loop of both checkpointed drivers, on ``state`` in place.
+
+    While ``state`` holds fewer than ``n_samples`` samples: render the next
+    ``todo <= spp_chunk`` (``render_chunk(done, todo)``, their radiance
+    sums on the device), fetch them to the host (the ``fetch`` phase is the
+    sync), add them in float64 to ``state.<sum_field>``, count them and
+    ``save(state)`` (``save=None``: no checkpoint). A chunk that raises a
+    ``RuntimeError`` (a device fault) is retried up to ``max_retries``
+    times, then the error is raised; a refused route
+    (``NotImplementedError``) raises at once. ``timer`` accumulates the
+    ``trace``, ``fetch`` and ``checkpoint`` phases; ``progress`` prints one
+    JSON line per chunk (and per retry), with ``progress_fields(todo,
+    seconds)``."""
+    if timer is None:
+        timer = PhaseTimer()
+    while state.samples_done < n_samples:
+        done = state.samples_done
+        todo = min(spp_chunk, n_samples - done)
+        t0 = time.time()
+        for attempt in range(max_retries + 1):
+            try:
+                timer.start("trace")
+                with torch.no_grad():
+                    acc = render_chunk(done, todo)
+                timer.stop("trace")
+                timer.start("fetch")  # the copy to the host is the sync
+                acc = acc.cpu().numpy().astype(np.float64)
+                timer.stop("fetch")
+                break
+            except NotImplementedError:
+                raise
+            except RuntimeError as e:  # device faults are opaque
+                for ph in ("trace", "fetch"):
+                    timer.discard(ph)  # drop the failed attempt's timer
+                if attempt >= max_retries:
+                    raise
+                if progress:
+                    print(json.dumps({"retry": attempt + 1,
+                                      "chunk_offset": done,
+                                      "error": repr(e)[:200]}), flush=True)
+        dt = time.time() - t0
+        setattr(state, sum_field, getattr(state, sum_field) + acc)
+        state.samples_done = done + todo
+        if save is not None:
+            timer.start("checkpoint")
+            save(state)
+            timer.stop("checkpoint")
+        if progress:
+            print(json.dumps({"samples_done": state.samples_done,
+                              "chunk_s": round(dt, 3),
+                              **progress_fields(todo, dt),
+                              "phases": timer.as_dict()}), flush=True)
+
+
 def render_checkpointed(scene: Scene, cam: Camera, image_width: int,
                         n_samples: int, *, image_height: int | None = None,
                         seed: int = 0, spp_chunk: int = 50,
@@ -214,48 +272,20 @@ def render_checkpointed(scene: Scene, cam: Camera, image_width: int,
         state = fresh
     f32_w, f32_h = float(np.float32(W)), float(np.float32(H))
 
-    if timer is None:
-        timer = PhaseTimer()
-    while state.samples_done < n_samples:
-        todo = min(spp_chunk, n_samples - state.samples_done)
+    def render_chunk(done, todo):
         spp_pass = pick_samples_per_pass(W * H, todo, rays_per_pass)
-        t0 = time.time()
-        for attempt in range(max_retries + 1):
-            try:
-                timer.start("trace")
-                with torch.no_grad():
-                    acc = render_tile_sum(
-                        scene, cam, W * H, seed, todo, state.samples_done,
-                        max_depth, tmin, f32_w, f32_h, persistent,
-                        samples_per_pass=spp_pass, compact=compact)
-                timer.stop("trace")
-                timer.start("fetch")  # the copy to the host is the sync
-                acc = acc.cpu().numpy().astype(np.float64).reshape(H, W, 3)
-                timer.stop("fetch")
-                break
-            except NotImplementedError:
-                raise
-            except RuntimeError as e:  # device faults are opaque
-                for ph in ("trace", "fetch"):
-                    timer.discard(ph)  # drop the failed attempt's timer
-                if attempt >= max_retries:
-                    raise
-                if progress:
-                    print(json.dumps({"retry": attempt + 1,
-                                      "chunk_offset": state.samples_done,
-                                      "error": repr(e)[:200]}), flush=True)
-        dt = time.time() - t0
-        state.radiance_sum = state.radiance_sum + acc
-        state.samples_done += todo
-        if checkpoint_path:
-            timer.start("checkpoint")
-            save_state(state, checkpoint_path)
-            timer.stop("checkpoint")
-        if progress:
-            print(json.dumps({"samples_done": state.samples_done,
-                              "chunk_s": round(dt, 3),
-                              "paths_per_s": round(W * H * todo / dt, 1),
-                              "phases": timer.as_dict()}), flush=True)
+        return render_tile_sum(
+            scene, cam, W * H, seed, todo, done, max_depth, tmin, f32_w,
+            f32_h, persistent, samples_per_pass=spp_pass,
+            compact=compact).reshape(H, W, 3)
+
+    def save(st):
+        save_state(st, checkpoint_path)
+
+    _render_chunks(state, "radiance_sum", n_samples, spp_chunk, render_chunk,
+                   save if checkpoint_path else None, max_retries, timer,
+                   progress, lambda todo, dt: {
+                       "paths_per_s": round(W * H * todo / dt, 1)})
     return state
 
 
@@ -409,48 +439,22 @@ def render_checkpointed_sharded(scene: Scene, cam: Camera, image_width: int,
             f"the ranks' checkpoints disagree on samples_done: {done_all} "
             "(delete the ahead ranks' files down to the least count and "
             "resume)")
-    retries = max_retries if mesh.size == 1 else 0
 
-    if timer is None:
-        timer = PhaseTimer()
-    while state.samples_done < n_samples:
-        done = state.samples_done
-        todo = min(spp_chunk, n_samples - done)
-        t0 = time.time()
-        for attempt in range(retries + 1):
-            try:
-                timer.start("trace")
-                _, _, acc = render_strip_sharded(
-                    scene, cam, W, todo, mesh=mesh, image_height=H,
-                    tile_size=tile_size, max_depth=max_depth, tmin=tmin,
-                    seed=seed, persistent=persistent,
-                    rays_per_pass=rays_per_pass, sample_offset=done,
-                    impl=impl)
-                timer.stop("trace")
-                timer.start("fetch")  # the copy to the host is the sync
-                acc = acc.cpu().numpy().astype(np.float64)
-                timer.stop("fetch")
-                break
-            except RuntimeError as e:  # device faults are opaque
-                for ph in ("trace", "fetch"):
-                    timer.discard(ph)
-                if attempt >= retries:
-                    raise
-                if progress:
-                    print(json.dumps({"retry": attempt + 1,
-                                      "chunk_offset": done,
-                                      "error": repr(e)[:200]}), flush=True)
-        dt = time.time() - t0
-        state.strip_sum = state.strip_sum + acc
-        state.samples_done = done + todo
-        if ckpt:
-            timer.start("checkpoint")
-            save_strip_state(state, ckpt)
-            mesh.barrier()
-            timer.stop("checkpoint")
-        if progress:
-            print(json.dumps({"samples_done": state.samples_done,
-                              "strip": [state.start, state.stop],
-                              "rank": mesh.rank, "chunk_s": round(dt, 3),
-                              "phases": timer.as_dict()}), flush=True)
+    def render_chunk(done, todo):
+        return render_strip_sharded(
+            scene, cam, W, todo, mesh=mesh, image_height=H,
+            tile_size=tile_size, max_depth=max_depth, tmin=tmin, seed=seed,
+            persistent=persistent, rays_per_pass=rays_per_pass,
+            sample_offset=done, impl=impl)[2]
+
+    def save(st):
+        save_strip_state(st, ckpt)
+        mesh.barrier()
+
+    # A retry on one rank alone would leave the others in another collective.
+    retries = max_retries if mesh.size == 1 else 0
+    _render_chunks(state, "strip_sum", n_samples, spp_chunk, render_chunk,
+                   save if ckpt else None, retries, timer, progress,
+                   lambda todo, dt: {
+                       "strip": [state.start, state.stop], "rank": mesh.rank})
     return state

@@ -13,11 +13,32 @@ each, then the card's name and power limit:
   lane regenerates 255 of every 256 camera rays in the strided step);
 - ``strided_k8``, ``strided_k1``: the strided loop at k = 8 and k = 1, no
   sample groups (later samples' camera rays regenerated in the step);
+- ``strided_k1_torch_draws``: ``strided_k1`` with the step's nine
+  uniforms a lane drawn by ``torch.rand`` from a seeded generator
+  (``rng_u9_fn``) in place of the in-kernel Philox stream;
 - ``strided_k1_groups``: k = 1 with the samples folded into groups (every
   camera ray from the host's strip-0 draws);
 - ``sharded``: ``render_radiance_sharded`` on a mesh of one (8 192-pixel
   tiles, each strided at k = 1 with 4 sample groups);
 - ``trace``: the wavefront at another seed (the spread of the reference).
+
+Then one JSON line per route with its gap pooled over the seeds (the mean
+of the per-seed gaps, and its standard error), and, for ``strided_k64``,
+the pooled gap split by what the pixel's centred camera ray first meets:
+the sky, the ground sphere or another sphere.
+
+``--ablate`` prints instead, at spp 2 and k = 1, the gap of the layout
+that regenerates sample 1's camera ray in the step (no sample groups)
+to the one that starts it from the host's strip-0 rays (2 groups), with
+the same uniforms in both: ``constant`` gives every lane one set of nine
+uniforms at every iteration (sample 1's jitter and lens from its rows
+5-8 in both layouts), so both trace the same paths up to the camera
+ray's rounding; ``fresh`` draws new uniforms every iteration (the paths
+then differ, the gap is statistical). Then ``host_rsqrt``: the 2-group
+layout with constant uniforms, its strip-0 camera directions normalised
+as the step normalises a regenerated one (``torch.rsqrt`` of the squared
+length, in place of ``camera.make_rays``'s ``1 / sqrt``), minus the same
+layout unchanged.
 """
 
 import argparse
@@ -29,10 +50,87 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
+def ablate(seeds, scene, cam, W: int, H: int, dev) -> None:
+    """The ``--ablate`` lines (module docstring)."""
+    import torch
+    from raytracingweekend_jl_tpu_torch.ops.integrator import (
+        persistent_render_sum_strided)
+    n = W * H
+
+    def pair(seed, fresh):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        u4 = torch.rand((n, 4), generator=g, device=dev)
+        u9 = torch.rand((9, n), generator=g, device=dev)
+        draws = {}
+
+        def rows(it, lanes):
+            if fresh and it not in draws:
+                draws[it] = torch.rand((9, n), generator=g, device=dev)
+            x = draws[it] if fresh else u9
+            return x if lanes == n else torch.cat([x, x], 1)
+
+        first = u9 if not fresh else rows(0, n)
+        u4_1 = first[5:9].T.contiguous()
+        run = {}
+        for m in (1, 2):
+            run[m] = persistent_render_sum_strided(
+                scene, cam, n, seed, 2, 0, 16, 1e-4, float(W), float(H),
+                k=1, sample_groups=m,
+                init_u4=u4 if m == 1 else torch.cat([u4, u4_1]),
+                rng_u9_fn=lambda it, m=m: rows(it, n * m)) / 2
+        return (run[1].double() - run[2].double())
+
+    from raytracingweekend_jl_tpu_torch import camera
+    from raytracingweekend_jl_tpu_torch.ops import integrator
+
+    def make_rays_rsqrt(cam_, s_, t_, disk):
+        o, d = camera.make_rays(cam_, s_, t_, disk)
+        raw = (cam_.lower_left_corner + s_[..., None] * cam_.horizontal
+               + t_[..., None] * cam_.vertical - o)
+        return o, raw * torch.rsqrt((raw * raw).sum(-1, keepdim=True))
+
+    def host_rsqrt(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        u4 = torch.rand((2 * n, 4), generator=g, device=dev)
+        u9 = torch.rand((9, 2 * n), generator=g, device=dev)
+        run = []
+        for patched in (True, False):
+            integrator.make_rays = (make_rays_rsqrt if patched
+                                    else camera.make_rays)
+            try:
+                run.append(persistent_render_sum_strided(
+                    scene, cam, n, seed, 2, 0, 16, 1e-4, float(W), float(H),
+                    k=1, sample_groups=2, init_u4=u4,
+                    rng_u9_fn=lambda it: u9).double() / 2)
+            finally:
+                integrator.make_rays = camera.make_rays
+        return run[0] - run[1]
+
+    for mode in ("constant", "fresh", "host_rsqrt"):
+        gaps = []
+        for seed in seeds:
+            d = (host_rsqrt(seed) if mode == "host_rsqrt"
+                 else pair(seed, mode == "fresh"))
+            gaps.append(d.mean(0))
+            print(json.dumps({
+                "ablate": mode, "seed": seed, "size": [W, H], "spp": 2,
+                "pixels_bit_equal": float((d == 0).all(1).float().mean()),
+                "pixels_off_1e-3": int((d.abs() > 1e-3).any(1).sum()),
+                "mean_gap_regenerated_minus_host": d.mean(0).tolist(),
+                "standard_error": (d.std(0) / n ** 0.5).tolist()}),
+                flush=True)
+        g = torch.stack(gaps)
+        print(json.dumps({
+            "ablate": mode, "seeds": seeds, "pooled_gap": g.mean(0).tolist(),
+            "pooled_standard_error": (g.std(0) / len(seeds) ** 0.5).tolist()
+            if len(seeds) > 1 else None}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[7, 8])
     ap.add_argument("--spp", type=int, default=4)
+    ap.add_argument("--ablate", action="store_true")
     args = ap.parse_args()
     import torch
     import raytracingweekend_jl_tpu_torch as pt
@@ -55,26 +153,69 @@ def main() -> None:
             k=k, sample_groups=groups)
         return (out / S).reshape(H, W, 3)
 
+    def torch_draws(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        out = persistent_render_sum_strided(
+            scene, cam, W * H, seed, S, 0, 16, 1e-4, float(W), float(H),
+            k=1, rng_u9_fn=lambda it: torch.rand((9, W * H), generator=g,
+                                                 device=dev))
+        return (out / S).reshape(H, W, 3)
+
+    if args.ablate:
+        ablate(args.seeds, scene, cam, W, H, dev)
+        return
+
     routes = {
         "strided_k64": lambda s: pt.render_radiance(
             scene, cam, W, S, persistent=True, device=dev, seed=s),
         "strided_k8": lambda s: strided(s, 8, 1),
         "strided_k1": lambda s: strided(s, 1, 1),
+        "strided_k1_torch_draws": torch_draws,
         "strided_k1_groups": lambda s: strided(s, 1, S),
         "sharded": lambda s: render_radiance_sharded(
             scene, cam, W, S, mesh=mesh, persistent=True, seed=s),
         "trace": lambda s: pt.render_radiance(scene, cam, W, S, device=dev,
                                               seed=s + 1000),
     }
+    # What each pixel's centred camera ray meets first: 0 sky, 1 the ground
+    # (the largest sphere), 2 another sphere.
+    u, v = pt.pixel_coords(W, H, device=dev)
+    o, d = pt.make_rays(cam, u, v, torch.zeros((W * H, 2), device=dev))
+    hit = pt.intersect_spheres(o, d, scene)
+    ground = int(scene.radius.argmax())
+    cls = torch.where(~hit.hit, 0, torch.where(hit.index == ground, 1, 2))
+    gaps = {name: [] for name in routes}
+    by_class = []
     for seed in args.seeds:
         ref = pt.render_radiance(scene, cam, W, S, device=dev, seed=seed)
         for name, fn in routes.items():
             d = (fn(seed).double() - ref.double()).reshape(-1, 3)
+            gaps[name].append(d.mean(0))
+            if name == "strided_k64":
+                by_class.append(torch.stack([
+                    d[cls == c].sum(0) / d.shape[0] for c in range(3)]))
             print(json.dumps({
                 "route": name, "seed": seed, "size": [W, H], "spp": S,
                 "mean_gap_vs_trace": d.mean(0).tolist(),
                 "standard_error": (d.std(0) / d.shape[0] ** 0.5).tolist()}),
                 flush=True)
+    n = len(args.seeds)
+    for name, g in gaps.items():
+        g = torch.stack(g)
+        print(json.dumps({
+            "route": name, "seeds": args.seeds,
+            "pooled_gap": g.mean(0).tolist(),
+            "pooled_standard_error": (g.std(0) / n ** 0.5).tolist()
+            if n > 1 else None}), flush=True)
+    b = torch.stack(by_class)
+    print(json.dumps({
+        "route": "strided_k64", "pooled_gap_by_first_hit": {
+            name: {"pixel_share": float((cls == c).float().mean()),
+                   "gap_share_of_image_mean": b[:, c].mean(0).tolist(),
+                   "standard_error": (b[:, c].std(0) / n ** 0.5).tolist()
+                   if n > 1 else None}
+            for c, name in enumerate(("sky", "ground", "other"))}}),
+        flush=True)
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

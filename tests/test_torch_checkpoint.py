@@ -163,6 +163,19 @@ def test_retry_gives_up_after_max_retries(monkeypatch):
         _render(4, max_retries=1)
 
 
+def test_refused_route_is_not_retried(monkeypatch):
+    calls = []
+
+    def refused(*a, **k):
+        calls.append(1)
+        raise NotImplementedError("simulated refusal")
+
+    monkeypatch.setattr(ck, "render_tile_sum", refused)
+    with pytest.raises(NotImplementedError, match="simulated"):
+        _render(4, max_retries=2)
+    assert len(calls) == 1
+
+
 def test_float64_only_on_the_fixed_depth_route(tmp_path):
     # Float64 now runs on both routes: with the default persistent=True (the
     # plain pixel-pinned body in float64) a stopped and resumed render is

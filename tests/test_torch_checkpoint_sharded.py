@@ -22,6 +22,7 @@ from raytracingweekend_jl_tpu.utils.checkpoint import (
 from raytracingweekend_jl_tpu_torch import cli
 from raytracingweekend_jl_tpu_torch.parallel.mesh import (RenderMesh,
                                                           make_render_mesh)
+from raytracingweekend_jl_tpu_torch.parallel import shard as shard_mod
 from raytracingweekend_jl_tpu_torch.parallel.shard import (
     render_radiance_sharded)
 from raytracingweekend_jl_tpu_torch.utils import checkpoint as ck
@@ -134,6 +135,23 @@ def test_sharded_checkpoint_refusals(tmp_path):
         _render(4, mesh=two, spp_chunk=3)
     with pytest.raises(ValueError, match="positive"):
         _render(4, spp_chunk=0)
+
+
+@pytest.mark.parametrize("error,calls", [(NotImplementedError, 1),
+                                         (RuntimeError, 3)])
+def test_sharded_chunk_retries_only_device_faults(error, calls, monkeypatch):
+    # The chunk loop the two drivers share: a refused route raises at once,
+    # a device fault is retried max_retries times on a mesh of one.
+    seen = []
+
+    def broken(*a, **k):
+        seen.append(1)
+        raise error("simulated")
+
+    monkeypatch.setattr(shard_mod, "render_strip_sharded", broken)
+    with pytest.raises(error, match="simulated"):
+        _render(4, max_retries=2)
+    assert len(seen) == calls
 
 
 def test_sharded_checkpoint_defaults_to_persistent(tmp_path):

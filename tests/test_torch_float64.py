@@ -2,8 +2,11 @@
 with no path flag (the recorded wavefront, the JAX package's default off
 its device, since the port's kernel pairs are float32) against the JAX
 package's ``render_grads`` on a draw-free scene and against central
-differences, float32's defaults unchanged bit for bit, and a float64
-``fit_scene`` step with each geom against the JAX package's first loss.
+differences, float32's defaults unchanged bit for bit, a float64
+``fit_scene`` step with each geom against the JAX package's first loss,
+and the float32 flagship image's gap to the float64 one against the JAX
+package's (``PYTHONPATH=. python tests/test_torch_float64.py [SPP]``
+prints both gaps).
 The float64 renders are in ``test_torch_render.py``, the checkpointed
 render in ``test_torch_checkpoint.py``, the CLI in ``test_torch_cli.py``."""
 
@@ -126,3 +129,44 @@ def test_float64_fit_scene_each_geom(geom):
     assert np.isfinite(out.losses).all()
     assert out.losses[0] == pytest.approx(float(ref.losses[0]), rel=0.05)
     assert not torch.equal(out.scene.albedo, scene0.albedo)
+
+
+def f32_minus_f64(spp: int, width: int = 64) -> dict:
+    """Per package (``"jax"``, ``"port"``): each channel's mean of the
+    float32 image minus the float64 image of the flagship scene
+    (``scene_random_spheres(seed=1)``, ``t_cam1``, the ``trace`` route that
+    both packages render in either float type; seeds 1 and 2), and its
+    standard error, on the CPU."""
+    def gap(a, b):
+        d = (np.asarray(a, np.float64) - np.asarray(b, np.float64))
+        d = d.reshape(-1, 3)
+        return d.mean(0), d.std(0) / np.sqrt(d.shape[0])
+
+    with jax.enable_x64(True):
+        jax_imgs = [rtw.render_radiance(
+            rtw.scene_random_spheres(seed=1, dtype=f), rtw.t_cam1(dtype=f),
+            width, spp, seed=s, dtype=f)
+            for f, s in ((jnp.float32, 1), (jnp.float64, 2))]
+    port_imgs = [pt.render_radiance(
+        pt.scene_random_spheres(seed=1, dtype=f), pt.t_cam1(dtype=f), width,
+        spp, seed=s, device="cpu").numpy()
+        for f, s in ((torch.float32, 1), (F64, 2))]
+    return {"jax": gap(*jax_imgs), "port": gap(*port_imgs)}
+
+
+def test_float32_flagship_is_darker_as_in_the_jax_package():
+    # Float32 renders the flagship scene darker than float64; the JAX
+    # package does too, and the port's gap matches the JAX package's
+    # within 4 standard errors in every channel.
+    gaps = f32_minus_f64(8)
+    (g_j, se_j), (g_p, se_p) = gaps["jax"], gaps["port"]
+    assert (np.abs(g_p - g_j) <= 4 * np.hypot(se_p, se_j)).all(), gaps
+    assert g_j.mean() < 0 and g_p.mean() < 0, gaps
+
+
+if __name__ == "__main__":
+    import sys
+    spp = int(sys.argv[1]) if len(sys.argv) > 1 else 64
+    for name, (g, se) in f32_minus_f64(spp).items():
+        print(name, "spp", spp, "float32 - float64 mean gap", g.tolist(),
+              "standard error", se.tolist(), flush=True)
