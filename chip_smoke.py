@@ -19,7 +19,13 @@ K1 and K3 split each ray's sweep over a group of threads and are held bit
 for bit against the kept one-thread kernel (the previous K10,
 ``sweep_fetch_one_thread``) at every split (``k1_vs_plain``,
 ``k3_vs_plain``, ``sweep_redesign``), and ``sweep_redesign`` times them at
-the main paths' widths. K2 and K4 fetch the sweep winner's attributes
+the main paths' widths. ``regen_ray`` holds the camera rays that K2, K9
+and K12 regenerate inside a step bit for bit against the rays
+``camera.make_rays`` builds on the card for the same pixels, samples and
+uniforms, and ``jax_goldens`` runs the strided, pinned and megakernel
+routes with the JAX package's draws (rebuilt by the port's threefry,
+``rng.reference_strided_draws``) against the JAX package's per-pixel
+goldens (``tests/goldens/persistent_interpret_64x36_spp4.npz``). K2 and K4 fetch the sweep winner's attributes
 themselves: they are held bit for bit
 against their plain versions (the gather, then the attribute-level step;
 ``k2_vs_plain``, ``k2_loop_vs_plain`` over the render's first 32
@@ -4535,10 +4541,10 @@ def parallel_phases(dev, card, W: int = 1920) -> None:
       ``t_cam1``, 1920x1080) through ``render_radiance_sharded`` at spp 4
       ``persistent=True`` (254 tiles of 8 192 pixels, each through the
       strided route: K1 and K2) and spp 1 ``persistent=False`` (``trace``:
-      K1); launches per render, a bitwise repeat, the means within 4
-      standard errors of the unsharded fixed-depth wavefront's (the gap to
-      the unsharded strided render reported beside it), seconds of the
-      sharded and the unsharded render in turns;
+      K1); launches per render, a bitwise repeat, the means of the
+      sharded and (``persistent=True``) of the unsharded strided render
+      within 4 standard errors of the unsharded fixed-depth wavefront's,
+      seconds of the sharded and the unsharded render in turns;
     - ``sharded_step``: the flagship gradient step (spp 1, albedo x 0.8)
       through ``sharded_train_step`` (the fixed-depth pair per tile: K3,
       K7a, K7c), its loss and scene bit for bit ``elastic_train_step``'s
@@ -4616,7 +4622,7 @@ def parallel_phases(dev, card, W: int = 1920) -> None:
             wave = ref if not persistent else pt.render_radiance(
                 scene, cam, W, spp, device=dev, seed=8)
             mu_w, se_w = mean_gap(a, wave)
-            mu_uw, _ = mean_gap(ref, wave)
+            mu_uw, se_uw = mean_gap(ref, wave)
             name = "persistent_spp4" if persistent else "trace_spp1"
             sec_sh, sec_pl = sorted(t_sh)[len(t_sh) // 2], \
                 sorted(t_pl)[len(t_pl) // 2]
@@ -4627,6 +4633,7 @@ def parallel_phases(dev, card, W: int = 1920) -> None:
                 "mean_gap_vs_wavefront": mu_w.tolist(),
                 "standard_error_vs_wavefront": se_w.tolist(),
                 "unsharded_gap_vs_wavefront": mu_uw.tolist(),
+                "standard_error_unsharded_vs_wavefront": se_uw.tolist(),
                 "seconds_sharded_runs": t_sh, "seconds_unsharded_runs": t_pl,
                 "seconds_sharded_median": sec_sh,
                 "seconds_unsharded_median": sec_pl,
@@ -4639,7 +4646,10 @@ def parallel_phases(dev, card, W: int = 1920) -> None:
                   f"{name}: means off the wavefront render's: {mu_w} "
                   f"({se_w})")
             check(launched.get("sweep", 0) > 0, f"{name} launched {launched}")
-            if persistent:
+            if persistent:  # (the trace route's unsharded render is wave)
+                check(bool((mu_uw.abs() < 4 * se_uw).all()),
+                      f"{name}: the unsharded render's means off the "
+                      f"wavefront render's: {mu_uw} ({se_uw})")
                 check(launched.get("shade_strided", 0) > 0
                       and launched.get("gather", 0) == 0,
                       f"{name} launched {launched}")
@@ -4647,12 +4657,12 @@ def parallel_phases(dev, card, W: int = 1920) -> None:
         emit({"phase": "sharded_render", "card": card, "size": [W, H],
               "mesh": mesh.shape, "backend": dist.get_backend(),
               "tile_size": 8192, "tiles": -(-W * H // 8192), **renders,
-              "checks": "bitwise repeat; each channel mean within 4 "
-                        "standard errors of the unsharded fixed-depth "
-                        "wavefront's render of the same film and spp (the "
-                        "gap to the unsharded strided render is reported: "
-                        "ROADMAP Queue 3); K1 (and K2 on the persistent "
-                        "route) launched, no gather"})
+              "checks": "bitwise repeat; each channel mean of the "
+                        "sharded render, and of the unsharded strided "
+                        "render, within 4 standard errors of the unsharded "
+                        "fixed-depth wavefront's render of the same film "
+                        "and spp; K1 (and K2 on the persistent route) "
+                        "launched, no gather"})
 
         # -- sharded_step ---------------------------------------------------
         bad = scene._replace(albedo=torch.clamp(scene.albedo * 0.8, 0, 1))
@@ -4837,6 +4847,196 @@ def parallel_phases(dev, card, W: int = 1920) -> None:
         shutil.rmtree(rdzv, ignore_errors=True)
 
 
+def _ulps(a, b):
+    """Largest distance in float32 units in the last place between ``a``
+    and ``b`` (same-signed values; 0 where they are equal)."""
+    import torch
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    return int((ia - ib).abs().max())
+
+
+def _unit_stats(d) -> dict:
+    """Mean of ``|d|^2 - 1`` over the rays ``d`` [3, n] (float32
+    components, summed in float64) and its standard error."""
+    e = (d.double() ** 2).sum(0) - 1.0
+    return {"mean": e.mean().item(),
+            "standard_error": (e.std() / e.numel() ** 0.5).item(),
+            "max_abs": e.abs().max().item(), "rays": e.numel()}
+
+
+def regen_ray_phase(dev, card, W: int = 1920, H: int = 1080) -> None:
+    """``regen_ray``: the camera ray K2, K9 and K12 regenerate inside a
+    step against the one ``camera.make_rays`` builds on the card for the
+    same pixel, sample and uniforms (``ops/cuda/regen_lanes.py``), at the
+    flagship film on the flagship camera (a lens) and the default camera,
+    for the centred sample 0 and sample 3: every pixel a lane (the film's
+    edges and each strip's last pixel among them), origin and direction
+    bit for bit, by the kernel and by its plain version; one launch per
+    kernel call. Then ``|d|^2 - 1`` over the 2 073 600 rays K2 regenerates on the
+    flagship camera beside ``make_rays``' rays and the same raw directions
+    normalised by ``torch.rsqrt`` (the approximate reciprocal square root
+    the regenerated ray took before, ``rsqrtf`` on the card)."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch import camera as C
+    from raytracingweekend_jl_tpu_torch.ops.cuda.regen_lanes import (
+        regen_lanes)
+    scene = pt.scene_4_spheres(device=dev)
+    rows, stats = {}, {}
+    counters = {"strided_same": "shade_strided",
+                "strided_switch": "shade_strided", "pinned": "shade_pinned",
+                "mega": "mega"}
+    for cam_name in ("t_cam1", "t_default_cam"):
+        cam = getattr(pt, cam_name)(device=dev)
+        for kind in counters:
+            for sample in (0, 3):
+                reset_counts()
+                got, want = regen_lanes(kind, scene, cam, sample, True, W, H)
+                launched = counts()[counters[kind]]
+                plain, _ = regen_lanes(kind, scene, cam, sample, False, W, H)
+                n = got.shape[1]
+                # The film's corners (strided_switch: its last lane is the
+                # last pixel of strip 0, moving to the film's last pixel).
+                edge = torch.tensor([0, W - 1, n - W, n - 1], device=dev)
+                bad = (got != want).any(0)
+                rows[f"{kind}/{cam_name}/sample{sample}"] = {
+                    "lanes": n, "launches": launched,
+                    "kernel_lanes_differing": int(bad.sum()),
+                    "kernel_direction_max_ulps": _ulps(got[3:6], want[3:6]),
+                    "edge_lanes_equal": not bool(bad[edge].any()),
+                    "plain_lanes_differing": int((plain != want).any(0).sum())}
+                if kind == "strided_same" and cam_name == "t_cam1" \
+                        and sample == 3:
+                    # make_rays' directions before they are normalised.
+                    saved, C.normalize = C.normalize, lambda d: d
+                    try:
+                        raw = regen_lanes(kind, scene, cam, sample, False, W,
+                                          H)[1][3:6]
+                    finally:
+                        C.normalize = saved
+                    sq = (raw * raw).sum(0)
+                    stats = {"kernel": _unit_stats(got[3:6]),
+                             "make_rays": _unit_stats(want[3:6]),
+                             "rsqrt_before": _unit_stats(
+                                 raw * torch.rsqrt(sq.clamp(min=1e-20)))}
+                del got, want, plain
+    emit({"phase": "regen_ray", "card": card, "size": [W, H], "rows": rows,
+          "unit_length_error": stats,
+          "tolerance": "origin and direction bit for bit make_rays' on "
+                       "every lane, by the kernel and its plain version; "
+                       "one launch per kernel call"})
+    for name, r in rows.items():
+        check(r["launches"] == 1, f"regen_ray {name}: launches {r}")
+        check(r["kernel_lanes_differing"] == 0 and r["edge_lanes_equal"],
+              f"regen_ray {name}: kernel ray off make_rays': {r}")
+        check(r["plain_lanes_differing"] == 0,
+              f"regen_ray {name}: plain ray off make_rays': {r}")
+
+
+#: The JAX package's per-pixel goldens (tests/make_goldens.py): 64x36, spp
+#: 4, key PRNGKey(0), its strided (k = 4) and pixel-pinned routes in
+#: interpret mode. name: (scene, camera, strided share within 1e-4, pinned
+#: share within 1e-5 * max(1, |x|)), the shares of
+#: tests/test_torch_render.py::test_strided_slice_matches_goldens and
+#: tests/test_torch_pinned.py::test_pinned_route_matches_jax.
+GOLDEN_CASES = {"4_spheres": ("scene_4_spheres", "t_default_cam", 0.99, 0.99),
+                "diel_spheres_hollow": ("scene_diel_spheres_hollow",
+                                        "hollow_glass_cam", 0.99, 0.98),
+                "random_spheres": ("scene_random_spheres", "t_cam1", 0.60,
+                                   0.70)}
+
+
+def jax_goldens_phase(dev, card, W: int = 64, H: int = 36,
+                      SPP: int = 4) -> None:
+    """``jax_goldens``: the forward routes on the card against the JAX
+    package's own images, with the JAX package's draws rebuilt by the
+    port's threefry (``rng.reference_strided_draws``,
+    ``rng.reference_pinned_draws``; no JAX here): the strided route (K1 +
+    K2, k = 4) against ``{name}/strided``, the pinned route (K1 + K9) and
+    the megakernel route (K12) against ``{name}/fused``. Per pixel: the
+    share within the CPU tests' tolerance (1e-4 for the strided route,
+    1e-5 * max(1, |x|) for the pinned ones) at least theirs; each channel
+    mean within 1% (strided) and 0.5% (pinned); the megakernel image bit
+    for bit the pinned route's; each route's kernels launched."""
+    import os
+    import numpy as np
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch import rng
+    from raytracingweekend_jl_tpu_torch.ops import integrator as I
+    from raytracingweekend_jl_tpu_torch.ops.experimental.mega import (
+        persistent_render_sum_mega)
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  "tests", "goldens",
+                                  "persistent_interpret_64x36_spp4.npz"))
+    key = rng.threefry_key(0, device=dev)
+    u, v = pt.pixel_coords(W, H, device=dev)
+    rows = {}
+    for name, (scene_fn, cam_name, s_share, p_share) in GOLDEN_CASES.items():
+        scene = getattr(pt, scene_fn)(device=dev)
+        cam = getattr(pt, cam_name)(device=dev)
+        routes = {}
+        u4, u9_fn = rng.reference_strided_draws(key, W * H, 4)
+        reset_counts()
+        routes["strided"] = I.persistent_render_sum_strided(
+            scene, cam, W * H, 0, SPP, 0, 16, 1e-4, float(W), float(H), k=4,
+            init_u4=u4, rng_u9_fn=u9_fn)
+        launched = {"strided": counts()}
+        u4, u9_fn = rng.reference_pinned_draws(key, W * H)
+        for route, fn in (("pinned", I.persistent_render_sum_fused),
+                          ("mega", persistent_render_sum_mega)):
+            reset_counts()
+            routes[route] = fn(scene, cam, u, v, 0, SPP, 0, 16, 1e-4,
+                               float(W), float(H), init_u4=u4,
+                               rng_u9_fn=u9_fn)
+            launched[route] = counts()
+        row = {}
+        for route, img in routes.items():
+            ref = golden[f"{name}/{'strided' if route == 'strided' else 'fused'}"]
+            out = img.cpu().numpy()
+            if route == "strided":
+                close = (np.abs(out - ref) <= 1e-4).all(-1)
+                share, rtol = s_share, 0.01
+            else:
+                close = (np.abs(out - ref)
+                         <= 1e-5 * np.maximum(1, np.abs(ref))).all(-1)
+                share, rtol = p_share, 0.005
+            rel = np.abs(out.mean(0) / ref.mean(0) - 1).max()
+            row[route] = {"share_close": float(close.mean()),
+                          "share_required": share,
+                          "mean_rel_diff": float(rel), "mean_rtol": rtol,
+                          "finite": bool(np.isfinite(out).all()),
+                          "launches": {k: c for k, c in
+                                       launched[route].items() if c}}
+        row["mega_bitwise_pinned"] = bool(torch.equal(routes["mega"],
+                                                      routes["pinned"]))
+        rows[name] = row
+    emit({"phase": "jax_goldens", "card": card, "size": [W, H], "spp": SPP,
+          "golden": "tests/goldens/persistent_interpret_64x36_spp4.npz",
+          "rows": rows,
+          "tolerance": "per pixel within 1e-4 (strided) or 1e-5 * max(1, "
+                       "|x|) (pinned, mega) on at least the CPU tests' "
+                       "shares; channel means within 1% / 0.5%; the "
+                       "megakernel image bit for bit the pinned route's"})
+    need = {"strided": ("sweep", "shade_strided"),
+            "pinned": ("sweep", "shade_pinned"), "mega": ("mega",)}
+    for name, row in rows.items():
+        check(row["mega_bitwise_pinned"], f"jax_goldens {name}: K12 image "
+                                          "differs from the pinned route's")
+        for route, r in row.items():
+            if route == "mega_bitwise_pinned":
+                continue
+            check(r["finite"], f"jax_goldens {name}/{route}: non-finite")
+            check(r["share_close"] >= r["share_required"],
+                  f"jax_goldens {name}/{route}: {r}")
+            check(r["mean_rel_diff"] <= r["mean_rtol"],
+                  f"jax_goldens {name}/{route}: {r}")
+            check(all(r["launches"].get(k, 0) > 0 for k in need[route])
+                  and r["launches"].get("gather", 0) == 0,
+                  f"jax_goldens {name}/{route}: launched {r['launches']}")
+
+
 def k1_phase_rays(dev, cam, spheres, g=None):
     """The K1 phase's 2^20 rays [6, 2^20] of the flagship: 2^19 camera rays
     (film points and lens samples from ``g``, by default a generator seeded
@@ -5014,6 +5214,11 @@ def main() -> int:
           "tolerance": "0 lanes differ in any word after every iteration"})
     check(not any(loop_bad), f"K2's loop differs from plain: {loop_bad}")
     del st_k, st_p
+
+    # -- 3b. the regenerated camera ray against make_rays' (K2, K9, K12);
+    # the forward routes against the JAX package's goldens ----------------
+    regen_ray_phase(dev, card)
+    jax_goldens_phase(dev, card)
 
     # -- 4. in-kernel Philox against the plain path: 4 spheres, 256x144x64,
     # the strided route pinned (the image is small enough for K8) -----------

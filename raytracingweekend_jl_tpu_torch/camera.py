@@ -82,10 +82,21 @@ def default_camera(lookfrom=(0.0, 0.0, 0.0), lookat=(0.0, 0.0, -1.0),
                              device=device, dtype=dtype)
 
 
+def film_point(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``x / size``, the film coordinate of pixel coordinate ``x`` on a film
+    ``size`` pixels across, as a correctly rounded division on any device
+    (PyTorch on CUDA multiplies by the reciprocal of a Python-number
+    divisor); the kernels that rebuild a camera ray divide the same."""
+    return x / torch.full((), float(size), dtype=x.dtype, device=x.device)
+
+
 def make_rays(cam: Camera, s: torch.Tensor, t: torch.Tensor,
               disk_pts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Film coords ``s``/``t`` [R] plus an explicit ``[R,2]`` unit-disk lens
-    sample -> (origins [R,3], unit directions [R,3]) (src/camera.jl:43-48)."""
+    sample -> (origins [R,3], unit directions [R,3]) (src/camera.jl:43-48).
+    The direction is normalised in one order on every device
+    (:func:`ops.vecmath.normalize`), so the camera rays that K2, K9 and K12
+    rebuild inside a step are these bit for bit."""
     rd = cam.lens_radius * disk_pts
     offset = rd[..., 0:1] * cam.u + rd[..., 1:2] * cam.v
     origin = cam.origin + offset

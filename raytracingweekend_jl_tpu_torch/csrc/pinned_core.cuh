@@ -48,36 +48,15 @@ __device__ __forceinline__ void rtw_pinned_step(
     bo = newb;
   }
 
-  // Regenerate: the same pixel's next sample, in place.
+  // Regenerate: the same pixel's next sample, in place, built as
+  // pinned_start_rays builds the first.
   const bool need = s.miss || exhausted;
   const int nxt = sa + 1;
   const bool can = need && (nxt <= last_sample);
-  const float inv_w = cam[19], inv_h = cam[20];
-  const bool centered = nxt == 0;
-  const float ju = centered ? 0.0f : u[5] * inv_w;
-  const float jv = centered ? 0.0f : u[6] * inv_h;
-  const float s_f = fu + ju;
-  const float t_f = fv + jv;
-  // Concentric square -> disk map.
-  const float ca = 2.0f * u[7] - 1.0f, cb = 2.0f * u[8] - 1.0f;
-  const bool use_a = fabsf(ca) > fabsf(cb);
-  const float rr = use_a ? ca : cb;
-  const float qp = 0.7853981633974483f, hp = 1.5707963267948966f;
-  const float safe_a = ca == 0.0f ? 1.0f : ca;
-  const float safe_b = cb == 0.0f ? 1.0f : cb;
-  float theta = use_a ? qp * (cb / safe_a) : hp - qp * (ca / safe_b);
-  if (ca == 0.0f && cb == 0.0f) theta = 0.0f;
-  const float da = rr * cosf(theta), db = rr * sinf(theta);
-  const float rdx = cam[18] * da, rdy = cam[18] * db;
-  const float offx = rdx * cam[12] + rdy * cam[15];
-  const float offy = rdx * cam[13] + rdy * cam[16];
-  const float offz = rdx * cam[14] + rdy * cam[17];
-  const float gox = cam[0] + offx, goy = cam[1] + offy, goz = cam[2] + offz;
-  float gdx = cam[3] + s_f * cam[6] + t_f * cam[9] - cam[0] - offx;
-  float gdy = cam[4] + s_f * cam[7] + t_f * cam[10] - cam[1] - offy;
-  float gdz = cam[5] + s_f * cam[8] + t_f * cam[11] - cam[2] - offz;
-  const float gno = rtw_rsqrt(gdx * gdx + gdy * gdy + gdz * gdz);
-  gdx = gdx * gno; gdy = gdy * gno; gdz = gdz * gno;
+  float da, db, gox, goy, goz, gdx, gdy, gdz;
+  rtw_lens_disk(u[7], u[8], da, db);
+  rtw_camera_ray(cam, fu, fv, nxt == 0, u[5], u[6], da, db, gox, goy, goz,
+                 gdx, gdy, gdz);
 
   const float canf = can ? 1.0f : 0.0f;
   const float ncanf = 1.0f - canf;

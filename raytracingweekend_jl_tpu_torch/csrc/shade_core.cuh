@@ -1,6 +1,7 @@
 // The shading core shared by the strided forward step (K2, shade_strided.cu)
-// and the persistent record step (K4, persist_record.cu), and the winner
-// fetch both take from the sweep's index (rtw_fetch_row).
+// and the persistent record step (K4, persist_record.cu), the winner fetch
+// both take from the sweep's index (rtw_fetch_row), and the camera ray that
+// K2 and the pixel-pinned step (pinned_core.cuh) rebuild (rtw_camera_ray).
 //
 // Replaces the value-level helpers of the TPU kernels in
 // raytracingweekend_jl_tpu/ops/pallas/shade_kernel.py: _shade_core (sky on
@@ -23,6 +24,50 @@
 
 __device__ __forceinline__ float rtw_rsqrt(float x) {
   return rsqrtf(fmaxf(x, 1e-20f));
+}
+
+// The concentric square -> disk map of two uniforms: the lens point (da, db)
+// of a camera ray (sampling.concentric_disk_map).
+__device__ __forceinline__ void rtw_lens_disk(float u7, float u8, float& da,
+                                              float& db) {
+  const float ca = 2.0f * u7 - 1.0f, cb = 2.0f * u8 - 1.0f;
+  const bool use_a = fabsf(ca) > fabsf(cb);
+  const float rr = use_a ? ca : cb;
+  const float qp = 0.7853981633974483f, hp = 1.5707963267948966f;
+  const float safe_a = ca == 0.0f ? 1.0f : ca;
+  const float safe_b = cb == 0.0f ? 1.0f : cb;
+  float theta = use_a ? qp * (cb / safe_a) : hp - qp * (ca / safe_b);
+  if (ca == 0.0f && cb == 0.0f) theta = 0.0f;
+  da = rr * cosf(theta);
+  db = rr * sinf(theta);
+}
+
+// The thin-lens camera ray (src/camera.jl) of film point (fu, fv), jitter
+// uniforms u5, u6 and lens point (da, db), as camera.make_rays builds it,
+// the one camera ray that K2 and the pixel-pinned step (K9, K12) rebuild:
+// the jitter times 1/W and 1/H (none for a centred sample), make_rays'
+// sums, then 1 / sqrt of (x*x + y*y) + z*z (vecmath.normalize), a correctly
+// rounded square root and division (nvcc without --use_fast_math). The
+// shading core's scatter directions keep rtw_rsqrt, as the TPU kernel does.
+// cam: the 21 packed camera constants. The plain version is
+// ops/cuda/shade_kernel.py::camera_ray.
+__device__ __forceinline__ void rtw_camera_ray(
+    const float* __restrict__ cam, float fu, float fv, bool centered,
+    float u5, float u6, float da, float db, float& ox, float& oy, float& oz,
+    float& dx, float& dy, float& dz) {
+  const float s_f = fu + (centered ? 0.0f : u5 * cam[19]);
+  const float t_f = fv + (centered ? 0.0f : u6 * cam[20]);
+  const float rdx = cam[18] * da, rdy = cam[18] * db;
+  const float offx = rdx * cam[12] + rdy * cam[15];
+  const float offy = rdx * cam[13] + rdy * cam[16];
+  const float offz = rdx * cam[14] + rdy * cam[17];
+  const float gdx = cam[3] + s_f * cam[6] + t_f * cam[9] - cam[0] - offx;
+  const float gdy = cam[4] + s_f * cam[7] + t_f * cam[10] - cam[1] - offy;
+  const float gdz = cam[5] + s_f * cam[8] + t_f * cam[11] - cam[2] - offz;
+  const float inv =
+      1.0f / sqrtf(fmaxf(gdx * gdx + gdy * gdy + gdz * gdz, 1e-20f));
+  ox = cam[0] + offx; oy = cam[1] + offy; oz = cam[2] + offz;
+  dx = gdx * inv; dy = gdy * inv; dz = gdz * inv;
 }
 
 // Three standard normals from four uniforms (Box-Muller).

@@ -122,35 +122,13 @@ __global__ void shade_strided_kernel(
   const bool start = same_pix || (done_pix && (new_strip < k) && valid_new);
 
   if (start) {
-    // Thin-lens camera ray from integer pixel coordinates (src/camera.jl).
-    const float inv_w = cam[19], inv_h = cam[20];
-    const float u_f = (float)(pxi + 1) * inv_w;
-    const float v_f = (float)(H - 1 - pyi) * inv_h;
-    const bool centered = sa == 0;
-    const float ju = centered ? 0.0f : u[5] * inv_w;
-    const float jv = centered ? 0.0f : u[6] * inv_h;
-    const float s_f = u_f + ju;
-    const float t_f = v_f + jv;
-    // Concentric square -> disk map.
-    const float ca = 2.0f * u[7] - 1.0f, cb = 2.0f * u[8] - 1.0f;
-    const bool use_a = fabsf(ca) > fabsf(cb);
-    const float rr = use_a ? ca : cb;
-    const float qp = 0.7853981633974483f, hp = 1.5707963267948966f;
-    const float safe_a = ca == 0.0f ? 1.0f : ca;
-    const float safe_b = cb == 0.0f ? 1.0f : cb;
-    float theta = use_a ? qp * (cb / safe_a) : hp - qp * (ca / safe_b);
-    if (ca == 0.0f && cb == 0.0f) theta = 0.0f;
-    const float da = rr * cosf(theta), db = rr * sinf(theta);
-    const float rdx = cam[18] * da, rdy = cam[18] * db;
-    const float offx = rdx * cam[12] + rdy * cam[15];
-    const float offy = rdx * cam[13] + rdy * cam[16];
-    const float offz = rdx * cam[14] + rdy * cam[17];
-    const float gdx = cam[3] + s_f * cam[6] + t_f * cam[9] - cam[0] - offx;
-    const float gdy = cam[4] + s_f * cam[7] + t_f * cam[10] - cam[1] - offy;
-    const float gdz = cam[5] + s_f * cam[8] + t_f * cam[11] - cam[2] - offz;
-    const float gno = rtw_rsqrt(gdx * gdx + gdy * gdy + gdz * gdz);
-    ox = cam[0] + offx; oy = cam[1] + offy; oz = cam[2] + offz;
-    dx = gdx * gno; dy = gdy * gno; dz = gdz * gno;
+    // The thin-lens camera ray of the lane's pixel, built as
+    // init_strided_state builds a strip-0 ray: the film point by division.
+    float da, db;
+    rtw_lens_disk(u[7], u[8], da, db);
+    rtw_camera_ray(cam, (float)(pxi + 1) / (float)W,
+                   (float)(H - 1 - pyi) / (float)H, sa == 0, u[5], u[6], da,
+                   db, ox, oy, oz, dx, dy, dz);
     tx = 1.0f; ty = 1.0f; tz = 1.0f;
     bo = 0;
   }

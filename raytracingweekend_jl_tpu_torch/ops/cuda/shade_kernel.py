@@ -44,7 +44,9 @@ import numpy as np
 import torch
 
 from ..intersect import BIG
+from ..vecmath import inv_length
 from ... import rng
+from ...camera import film_point
 from . import build
 
 #: Number of K2 launches since the last reset (incremented only where the
@@ -93,6 +95,29 @@ def _concentric(u: torch.Tensor, v: torch.Tensor):
 
 def _rsqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.rsqrt(torch.clamp(x, min=1e-20))
+
+
+def camera_ray(cam: torch.Tensor, fu, fv, centered, u9) -> tuple:
+    """The thin-lens camera ray (src/camera.jl) of film point ``(fu, fv)``
+    and the uniforms ``u9[5:9]`` (jitter, lens), built as
+    ``camera.make_rays`` builds it: the jitter times 1/W and 1/H (none where
+    ``centered``), ``make_rays``' sums, ``1 / sqrt`` of ``(x*x + y*y) +
+    z*z``. Returns ``(ox, oy, oz, dx, dy, dz)``; the kernels'
+    ``rtw_lens_disk`` and ``rtw_camera_ray`` (csrc/shade_core.cuh)."""
+    zero = torch.zeros((), dtype=torch.float32, device=fu.device)
+    s_f = fu + torch.where(centered, zero, u9[5] * cam[19])
+    t_f = fv + torch.where(centered, zero, u9[6] * cam[20])
+    da, db = _concentric(u9[7], u9[8])
+    rdx, rdy = cam[18] * da, cam[18] * db
+    offx = rdx * cam[12] + rdy * cam[15]
+    offy = rdx * cam[13] + rdy * cam[16]
+    offz = rdx * cam[14] + rdy * cam[17]
+    gdx = cam[3] + s_f * cam[6] + t_f * cam[9] - cam[0] - offx
+    gdy = cam[4] + s_f * cam[7] + t_f * cam[10] - cam[1] - offy
+    gdz = cam[5] + s_f * cam[8] + t_f * cam[11] - cam[2] - offz
+    inv = inv_length(gdx * gdx + gdy * gdy + gdz * gdz)
+    return (cam[0] + offx, cam[1] + offy, cam[2] + offz, gdx * inv,
+            gdy * inv, gdz * inv)
 
 
 def gauss3(u0, u1, u2, u3):
@@ -270,30 +295,13 @@ def shade_strided_step_ref(fstate: torch.Tensor, istate: torch.Tensor,
     valid_new = (npy * W + npx) < p_end
     start = same_pix | (done_pix & (new_strip < k) & valid_new)
 
-    # Thin-lens camera ray for lanes that start a sample (src/camera.jl).
-    inv_w, inv_h = cam[19], cam[20]
-    u_f = (pxi + 1).to(torch.float32) * inv_w
-    v_f = (H - 1 - pyi).to(torch.float32) * inv_h
-    centered = sa == 0
-    ju = torch.where(centered, zero, u9[5] * inv_w)
-    jv = torch.where(centered, zero, u9[6] * inv_h)
-    s_f = u_f + ju
-    t_f = v_f + jv
-    da, db = _concentric(u9[7], u9[8])
-    rdx, rdy = cam[18] * da, cam[18] * db
-    offx = rdx * cam[12] + rdy * cam[15]
-    offy = rdx * cam[13] + rdy * cam[16]
-    offz = rdx * cam[14] + rdy * cam[17]
-    gdx = cam[3] + s_f * cam[6] + t_f * cam[9] - cam[0] - offx
-    gdy = cam[4] + s_f * cam[7] + t_f * cam[10] - cam[1] - offy
-    gdz = cam[5] + s_f * cam[8] + t_f * cam[11] - cam[2] - offz
-    gno = _rsqrt(gdx * gdx + gdy * gdy + gdz * gdz)
-    ox = torch.where(start, cam[0] + offx, ox)
-    oy = torch.where(start, cam[1] + offy, oy)
-    oz = torch.where(start, cam[2] + offz, oz)
-    dx = torch.where(start, gdx * gno, dx)
-    dy = torch.where(start, gdy * gno, dy)
-    dz = torch.where(start, gdz * gno, dz)
+    # Thin-lens camera ray for lanes that start a sample, built as
+    # init_strided_state builds a strip-0 ray.
+    ray = camera_ray(cam, film_point((pxi + 1).to(torch.float32), W),
+                     film_point((H - 1 - pyi).to(torch.float32), H),
+                     sa == 0, u9)
+    ox, oy, oz, dx, dy, dz = (torch.where(start, r, x) for r, x in
+                              zip(ray, (ox, oy, oz, dx, dy, dz)))
     tx = torch.where(start, one, tx)
     ty = torch.where(start, one, ty)
     tz = torch.where(start, one, tz)
@@ -408,7 +416,6 @@ def shade_and_regen_ref(fstate: torch.Tensor, istate: torch.Tensor,
     ox, oy, oz, dx, dy, dz, tx, ty, tz, rx, ry, rz = fstate.unbind(0)
     bo, sa, ac = istate.unbind(0)
     active = ac != 0
-    zero = torch.zeros_like(t)
     one = torch.ones_like(t)
 
     rx, ry, rz, hitm, miss, px, py, pz, ndx, ndy, ndz = shade_core(
@@ -427,27 +434,13 @@ def shade_and_regen_ref(fstate: torch.Tensor, istate: torch.Tensor,
     tz = torch.where(cont, tz * attrs[6], tz)
     bo = torch.where(cont, newb, bo)
 
-    # Regenerate: the same pixel's next sample, in place.
+    # Regenerate: the same pixel's next sample, in place, built as
+    # pinned_start_rays builds the first.
     need = miss | exhausted
     nxt = sa + 1
     can = need & (nxt <= last_sample)
-    inv_w, inv_h = cam[19], cam[20]
-    centered = nxt == 0
-    ju = torch.where(centered, zero, u9[5] * inv_w)
-    jv = torch.where(centered, zero, u9[6] * inv_h)
-    s_f = film_u + ju
-    t_f = film_v + jv
-    da, db = _concentric(u9[7], u9[8])
-    rdx, rdy = cam[18] * da, cam[18] * db
-    offx = rdx * cam[12] + rdy * cam[15]
-    offy = rdx * cam[13] + rdy * cam[16]
-    offz = rdx * cam[14] + rdy * cam[17]
-    gox, goy, goz = cam[0] + offx, cam[1] + offy, cam[2] + offz
-    gdx = cam[3] + s_f * cam[6] + t_f * cam[9] - cam[0] - offx
-    gdy = cam[4] + s_f * cam[7] + t_f * cam[10] - cam[1] - offy
-    gdz = cam[5] + s_f * cam[8] + t_f * cam[11] - cam[2] - offz
-    gno = _rsqrt(gdx * gdx + gdy * gdy + gdz * gdz)
-    gdx, gdy, gdz = gdx * gno, gdy * gno, gdz * gno
+    gox, goy, goz, gdx, gdy, gdz = camera_ray(cam, film_u, film_v, nxt == 0,
+                                              u9)
     canf = can.to(torch.float32)
     ncanf = 1.0 - canf
     ox, oy, oz = (canf * gox + ncanf * ox, canf * goy + ncanf * oy,

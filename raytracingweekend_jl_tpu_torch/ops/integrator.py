@@ -40,7 +40,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..camera import make_rays
+from ..camera import film_point, make_rays
 from ..scene import Scene
 from .. import rng
 from .intersect import BIG, DEFAULT_TMIN, HitResult, intersect_spheres
@@ -158,8 +158,8 @@ def init_strided_state(cam, n_pix: int, W: int, H: int, seed: int,
     jit_uv = torch.where((sample_ids == 0)[:, None], torch.zeros_like(u4[:, :2]),
                          u4[:, 0:2] * scale)
     disk = concentric_disk_map(u4[:, 2:4] * 2.0 - 1.0)
-    u_lane = (px0.to(f32) + 1.0) / float(W)
-    v_lane = (float(H - 1) - py0.to(f32)) / float(H)
+    u_lane = film_point(px0.to(f32) + 1.0, W)
+    v_lane = film_point(float(H - 1) - py0.to(f32), H)
     org, d = make_rays(cam, u_lane + jit_uv[:, 0], v_lane + jit_uv[:, 1], disk)
 
     fstate = torch.zeros((12, n_lanes), dtype=f32, device=device)

@@ -32,11 +32,22 @@ def near_zero(v: torch.Tensor) -> torch.Tensor:
     return squared_length(v) < NEAR_ZERO_EPS
 
 
+def inv_length(sq: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(sq)``, ``sq`` clamped to a tiny floor: a correctly rounded
+    square root, then a correctly rounded division (the kernels' camera
+    ray, ``rtw_camera_ray`` in csrc/shade_core.cuh, rounds the same)."""
+    return 1.0 / torch.sqrt(torch.clamp(sq, min=_SAFE_EPS))
+
+
 def normalize(v: torch.Tensor) -> torch.Tensor:
-    """Unit-normalise over the trailing axis; a zero vector stays zero."""
-    sq = squared_length(v)
-    inv = torch.where(sq > 0, 1.0 / torch.sqrt(torch.clamp(sq, min=_SAFE_EPS)),
-                      torch.zeros_like(sq))
+    """Unit-normalise ``[..., 3]`` vectors; a zero vector stays zero.
+    ``|v|^2`` is summed as ``(x*x + y*y) + z*z`` on every device, as the
+    kernels that rebuild a camera ray sum it: a reduction's order is the
+    library's (PyTorch's CPU sum of a row of three adds in this order, its
+    CUDA sum of ``[R, 3]`` rows as ``(x*x + z*z) + y*y``, one ulp apart on
+    some rows)."""
+    sq = (v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2]
+    inv = torch.where(sq > 0, inv_length(sq), torch.zeros_like(sq))
     return v * inv[..., None]
 
 

@@ -214,9 +214,8 @@ SPLIT_START = """  const long long g = (long long)blockIdx.x * blockDim.x + thre
   const bool store = lane < n && q == 0;
   const int i = lane < n ? (int)lane : n - 1;
 """
-DISK = re.compile(r"    // Concentric square -> disk map\.\n.*?"
-                  r"    const float da = rr \* cosf\(theta\), "
-                  r"db = rr \* sinf\(theta\);\n", re.S)
+DISK = ("    float da, db;\n"
+        "    rtw_lens_disk(u[7], u[8], da, db);\n")
 GAUSS = ("  float g0, g1, g2;\n"
          "  rtw_gauss3(u[0], u[1], u[2], u[3], g0, g1, g2);\n")
 

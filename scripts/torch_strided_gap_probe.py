@@ -7,7 +7,7 @@ On the card, at the flagship film (``scene_random_spheres(seed=1)``,
 layouts at each seed and prints, for each, the per-channel mean of its
 per-pixel difference to the fixed-depth wavefront's image (``trace``, the
 reference package's default route) with the standard error, one JSON line
-each, then the card's name and power limit:
+each, then the card's name and power limit (also after ``--ablate``):
 
 - ``strided_k64``: the unsharded ``persistent=True`` render (k = 64: each
   lane regenerates 255 of every 256 camera rays in the strided step);
@@ -20,6 +20,11 @@ each, then the card's name and power limit:
   camera ray from the host's strip-0 draws);
 - ``sharded``: ``render_radiance_sharded`` on a mesh of one (8 192-pixel
   tiles, each strided at k = 1 with 4 sample groups);
+- ``pinned``: the pixel-pinned route over the whole film
+  (``persistent_render_sum_fused``: K1 and K9, each lane regenerating its
+  own pixel's camera rays in the step);
+- ``mega``: the megakernel route (``persistent_render_sum_mega``: K12,
+  the same regeneration as K9);
 - ``trace``: the wavefront at another seed (the spread of the reference).
 
 Then one JSON line per route with its gap pooled over the seeds (the mean
@@ -36,9 +41,26 @@ uniforms at every iteration (sample 1's jitter and lens from its rows
 ray's rounding; ``fresh`` draws new uniforms every iteration (the paths
 then differ, the gap is statistical). Then ``host_rsqrt``: the 2-group
 layout with constant uniforms, its strip-0 camera directions normalised
-as the step normalises a regenerated one (``torch.rsqrt`` of the squared
-length, in place of ``camera.make_rays``'s ``1 / sqrt``), minus the same
-layout unchanged.
+with ``torch.rsqrt`` of the squared length (``rsqrtf`` on the card, as
+the step normalised a regenerated camera ray before it took
+``camera.make_rays``' ``1 / sqrt``), minus the same layout unchanged. Then
+``bounce_rsqrt``, at ``--spp``: whether bounce rays carry a gap of their
+own. The strided, pinned and megakernel steps normalise their scatter
+directions with ``rsqrtf`` (the shading core, as both packages' TPU
+kernels do), the wavefront ``trace`` with ``1 / sqrt``; the ablation
+renders ``trace`` with the Lambertian, metal and refracted directions of
+its scatter normalised by ``torch.rsqrt`` (this script's own imports of
+``materials.normalize`` and ``vecmath.normalize`` replaced), minus
+``trace`` unchanged, the same draws in both.
+
+``--goldens`` asks instead whether ``chip_smoke.py``'s ``jax_goldens``
+phase (the strided, pinned and megakernel routes at 64x36, spp 4, against
+the JAX package's goldens) can see a fault of the size of the camera-ray
+bias that the regenerated rays carried before they took ``make_rays``'
+construction: it runs the phase with the shipped kernels, then with the
+kernels built from a copy of the sources whose camera ray is the former
+one (``rsqrtf`` of the squared length, and K2's film point times 1/W),
+and prints each run's lines and whether the phase's checks passed.
 """
 
 import argparse
@@ -50,7 +72,7 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
-def ablate(seeds, scene, cam, W: int, H: int, dev) -> None:
+def ablate(seeds, scene, cam, W: int, H: int, spp: int, dev) -> None:
     """The ``--ablate`` lines (module docstring)."""
     import torch
     from raytracingweekend_jl_tpu_torch.ops.integrator import (
@@ -106,17 +128,42 @@ def ablate(seeds, scene, cam, W: int, H: int, dev) -> None:
                 integrator.make_rays = camera.make_rays
         return run[0] - run[1]
 
-    for mode in ("constant", "fresh", "host_rsqrt"):
+    from raytracingweekend_jl_tpu_torch.ops import materials, vecmath
+    import raytracingweekend_jl_tpu_torch as pt
+
+    def rsqrt_normalize(v):
+        sq = (v * v).sum(-1)
+        return v * torch.rsqrt(torch.clamp(sq, min=1e-20))[..., None]
+
+    def bounce_rsqrt(seed):
+        run = []
+        for patched in (True, False):
+            fn = rsqrt_normalize if patched else vecmath.normalize
+            saved = materials.normalize, vecmath.normalize
+            materials.normalize = fn
+            vecmath.normalize = fn
+            try:
+                run.append(pt.render_radiance(
+                    scene, cam, W, spp, device=dev,
+                    seed=seed).double().reshape(-1, 3))
+            finally:
+                materials.normalize, vecmath.normalize = saved
+        return run[0] - run[1]
+
+    for mode in ("constant", "fresh", "host_rsqrt", "bounce_rsqrt"):
         gaps = []
         for seed in seeds:
             d = (host_rsqrt(seed) if mode == "host_rsqrt"
+                 else bounce_rsqrt(seed) if mode == "bounce_rsqrt"
                  else pair(seed, mode == "fresh"))
             gaps.append(d.mean(0))
             print(json.dumps({
-                "ablate": mode, "seed": seed, "size": [W, H], "spp": 2,
+                "ablate": mode, "seed": seed, "size": [W, H],
+                "spp": spp if mode == "bounce_rsqrt" else 2,
                 "pixels_bit_equal": float((d == 0).all(1).float().mean()),
                 "pixels_off_1e-3": int((d.abs() > 1e-3).any(1).sum()),
-                "mean_gap_regenerated_minus_host": d.mean(0).tolist(),
+                ("mean_gap_rsqrt_minus_unchanged" if mode == "bounce_rsqrt"
+                 else "mean_gap_regenerated_minus_host"): d.mean(0).tolist(),
                 "standard_error": (d.std(0) / n ** 0.5).tolist()}),
                 flush=True)
         g = torch.stack(gaps)
@@ -126,22 +173,86 @@ def ablate(seeds, scene, cam, W: int, H: int, dev) -> None:
             if len(seeds) > 1 else None}), flush=True)
 
 
+def _sub(src: str, old: str, new: str) -> str:
+    """``src`` with the one occurrence of ``old`` replaced by ``new``."""
+    if src.count(old) != 1:
+        raise RuntimeError(f"rewrite target found {src.count(old)} times: "
+                           f"{old!r:.80}")
+    return src.replace(old, new)
+
+
+#: The former camera ray of K2, K9 and K12: (file, shipped text, former).
+FORMER_CAMERA_RAY = (
+    ("shade_core.cuh",
+     "  const float inv =\n"
+     "      1.0f / sqrtf(fmaxf(gdx * gdx + gdy * gdy + gdz * gdz, 1e-20f));\n",
+     "  const float inv = rtw_rsqrt(gdx * gdx + gdy * gdy + gdz * gdz);\n"),
+    ("shade_strided.cu",
+     "(float)(pxi + 1) / (float)W,\n"
+     "                   (float)(H - 1 - pyi) / (float)H,",
+     "(float)(pxi + 1) * cam[19],\n"
+     "                   (float)(H - 1 - pyi) * cam[20],"),
+)
+
+
+def goldens(dev, card) -> None:
+    """The ``--goldens`` lines (module docstring)."""
+    import shutil
+    import tempfile
+    import chip_smoke
+    from raytracingweekend_jl_tpu_torch.ops.cuda import build
+    work = tempfile.mkdtemp()
+    try:
+        for kernels in ("shipped", "former_camera_ray"):
+            if kernels == "former_camera_ray":
+                csrc = os.path.join(work, "csrc")
+                shutil.copytree(build.CSRC_DIR, csrc)
+                for name, old, new in FORMER_CAMERA_RAY:
+                    path = os.path.join(csrc, name)
+                    with open(path) as f:
+                        src = _sub(f.read(), old, new)
+                    with open(path, "w") as f:
+                        f.write(src)
+                build.CSRC_DIR = csrc
+                build.BUILD_DIR = os.path.join(work, "kernels")
+                build._LIB = None
+            print(json.dumps({"goldens_kernels": kernels}), flush=True)
+            try:
+                chip_smoke.jax_goldens_phase(dev, card)
+                failure = None
+            except AssertionError as e:
+                failure = str(e)
+            print(json.dumps({"goldens_kernels": kernels,
+                              "checks_pass": failure is None,
+                              "failure": failure}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[7, 8])
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--goldens", action="store_true")
     args = ap.parse_args()
     import torch
     import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops.experimental.mega import (
+        persistent_render_sum_mega)
     from raytracingweekend_jl_tpu_torch.ops.integrator import (
-        persistent_render_sum_strided)
+        persistent_render_sum_fused, persistent_render_sum_strided)
     from raytracingweekend_jl_tpu_torch.parallel.mesh import make_render_mesh
     from raytracingweekend_jl_tpu_torch.parallel.shard import (
         render_radiance_sharded)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda")
+    if args.goldens:
+        card = card_line()
+        goldens(dev, card)
+        print(card, flush=True)
+        return
     W, H, S = 1920, 1080, args.spp
     scene = pt.trim_scene(pt.scene_random_spheres(seed=1).to(dev))
     cam = pt.t_cam1(device=dev)
@@ -161,8 +272,15 @@ def main() -> None:
                                                  device=dev))
         return (out / S).reshape(H, W, 3)
 
+    u, v = pt.pixel_coords(W, H, device=dev)
+
+    def pinned(seed, fn):
+        out = fn(scene, cam, u, v, seed, S, 0, 16, 1e-4, float(W), float(H))
+        return (out / S).reshape(H, W, 3)
+
     if args.ablate:
-        ablate(args.seeds, scene, cam, W, H, dev)
+        ablate(args.seeds, scene, cam, W, H, S, dev)
+        print(card_line(), flush=True)
         return
 
     routes = {
@@ -174,12 +292,13 @@ def main() -> None:
         "strided_k1_groups": lambda s: strided(s, 1, S),
         "sharded": lambda s: render_radiance_sharded(
             scene, cam, W, S, mesh=mesh, persistent=True, seed=s),
+        "pinned": lambda s: pinned(s, persistent_render_sum_fused),
+        "mega": lambda s: pinned(s, persistent_render_sum_mega),
         "trace": lambda s: pt.render_radiance(scene, cam, W, S, device=dev,
                                               seed=s + 1000),
     }
     # What each pixel's centred camera ray meets first: 0 sky, 1 the ground
     # (the largest sphere), 2 another sphere.
-    u, v = pt.pixel_coords(W, H, device=dev)
     o, d = pt.make_rays(cam, u, v, torch.zeros((W * H, 2), device=dev))
     hit = pt.intersect_spheres(o, d, scene)
     ground = int(scene.radius.argmax())
@@ -216,10 +335,15 @@ def main() -> None:
                    if n > 1 else None}
             for c, name in enumerate(("sky", "ground", "other"))}}),
         flush=True)
+    print(card_line(), flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
-    print(out.stdout.strip().splitlines()[0], flush=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
 """Arguments and public names of the JAX package that the port now takes:
 ``near_zero``, ``color_vec3_in_rgb``, ``uniform_between`` and
-``resolve_grad_path`` in the package namespace, ``render_radiance(dtype=)``
+``resolve_grad_path`` in the package namespace, every public name of the
+JAX package's ``rng`` (``purpose_key`` last) in the port's,
+``render_radiance(dtype=)``
 (the reference's ``elem_type`` switch) and ``fused_stages=`` (the staged
 fixed-depth pair), which runs and refuses a malformed schedule."""
 
@@ -72,6 +74,25 @@ def test_uniform_between_cases_and_jax_transform():
             want = np.maximum(lo, u * (np.float64(hi) - lo) + lo)
         assert got.dtype == dtype
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_rng_names_and_purpose_key():
+    # Every public name of the JAX package's rng module (the purpose tags
+    # and purpose_key) exists in the port's with the same value; the port's
+    # purpose_key derives the JAX package's key data.
+    from raytracingweekend_jl_tpu import rng as jrng
+    from raytracingweekend_jl_tpu_torch import rng
+    names = [n for n in vars(jrng) if not n.startswith("_")
+             and n not in ("annotations", "jax")]
+    assert "purpose_key" in names
+    for n in names:
+        assert hasattr(rng, n), n
+        if isinstance(getattr(jrng, n), int):
+            assert getattr(rng, n) == getattr(jrng, n), n
+    want = jrng.purpose_key(jax.random.PRNGKey(7), jrng.LENS, 2, 9)
+    np.testing.assert_array_equal(
+        rng.purpose_key(rng.threefry_key(7), rng.LENS, 2, 9).numpy(),
+        np.asarray(jax.random.key_data(want)).astype(np.int64))
 
 
 def test_resolve_grad_path_exported():
