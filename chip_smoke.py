@@ -22,7 +22,13 @@ for bit against the kept one-thread kernel (the previous K10,
 the main paths' widths. ``regen_ray`` holds the camera rays that K2, K9
 and K12 regenerate inside a step bit for bit against the rays
 ``camera.make_rays`` builds on the card for the same pixels, samples and
-uniforms, and ``jax_goldens`` runs the strided, pinned and megakernel
+uniforms; ``inv_length_exhaustive`` holds the kernels' one normalisation
+(``rtw_inv_length``) bit for bit against its plain version on every
+non-negative float, ``scatter_unit`` measures ``|d|^2 - 1`` of the
+directions K2, K9, K12 and K7a scatter into, and ``persistent_bias``
+holds the strided, pinned and megakernel routes within 5 standard errors
+of the wavefront ``trace`` at the flagship film (seeds 7-14 pooled);
+and ``jax_goldens`` runs the strided, pinned and megakernel
 routes with the JAX package's draws (rebuilt by the port's threefry,
 ``rng.reference_strided_draws``) against the JAX package's per-pixel
 goldens (``tests/goldens/persistent_interpret_64x36_spp4.npz``). K2 and K4 fetch the sweep winner's attributes
@@ -4856,15 +4862,6 @@ def _ulps(a, b):
     return int((ia - ib).abs().max())
 
 
-def _unit_stats(d) -> dict:
-    """Mean of ``|d|^2 - 1`` over the rays ``d`` [3, n] (float32
-    components, summed in float64) and its standard error."""
-    e = (d.double() ** 2).sum(0) - 1.0
-    return {"mean": e.mean().item(),
-            "standard_error": (e.std() / e.numel() ** 0.5).item(),
-            "max_abs": e.abs().max().item(), "rays": e.numel()}
-
-
 def regen_ray_phase(dev, card, W: int = 1920, H: int = 1080) -> None:
     """``regen_ray``: the camera ray K2, K9 and K12 regenerate inside a
     step against the one ``camera.make_rays`` builds on the card for the
@@ -4882,6 +4879,8 @@ def regen_ray_phase(dev, card, W: int = 1920, H: int = 1080) -> None:
     from raytracingweekend_jl_tpu_torch import camera as C
     from raytracingweekend_jl_tpu_torch.ops.cuda.regen_lanes import (
         regen_lanes)
+    from raytracingweekend_jl_tpu_torch.ops.cuda.scatter_lanes import (
+        unit_length_error)
     scene = pt.scene_4_spheres(device=dev)
     rows, stats = {}, {}
     counters = {"strided_same": "shade_strided",
@@ -4916,9 +4915,9 @@ def regen_ray_phase(dev, card, W: int = 1920, H: int = 1080) -> None:
                     finally:
                         C.normalize = saved
                     sq = (raw * raw).sum(0)
-                    stats = {"kernel": _unit_stats(got[3:6]),
-                             "make_rays": _unit_stats(want[3:6]),
-                             "rsqrt_before": _unit_stats(
+                    stats = {"kernel": unit_length_error(got[3:6]),
+                             "make_rays": unit_length_error(want[3:6]),
+                             "rsqrt_before": unit_length_error(
                                  raw * torch.rsqrt(sq.clamp(min=1e-20)))}
                 del got, want, plain
     emit({"phase": "regen_ray", "card": card, "size": [W, H], "rows": rows,
@@ -4932,6 +4931,202 @@ def regen_ray_phase(dev, card, W: int = 1920, H: int = 1080) -> None:
               f"regen_ray {name}: kernel ray off make_rays': {r}")
         check(r["plain_lanes_differing"] == 0,
               f"regen_ray {name}: plain ray off make_rays': {r}")
+
+
+def inv_length_exhaustive_phase(dev, card, chunk: int = 1 << 26) -> None:
+    """``inv_length_exhaustive``: the kernels' ``rtw_inv_length``
+    (``__frsqrt_rn``, through ``csrc/inv_length.cu``) against its plain
+    version (``vecmath.inv_length``: float64 root and division, one
+    rounding) on every non-negative float, +0 to +inf (2 139 095 041 bit
+    patterns), on the card: the bits equal on all. Beside it, the share of
+    those floats on which ``torch.rsqrt`` (``rsqrtf``) and a float32 root
+    then division (rounded twice) differ from it: recorded, not checked."""
+    import torch
+    from raytracingweekend_jl_tpu_torch.ops import vecmath
+    from raytracingweekend_jl_tpu_torch.ops.cuda.scatter_lanes import (
+        inv_length_bits)
+    end = 0x7F800000 + 1
+    bad = approx = twice = 0
+    first_bad = None
+    t0 = time.perf_counter()
+    for start in range(0, end, chunk):
+        n = min(chunk, end - start)
+        got = inv_length_bits(start, n, dev)
+        x = torch.arange(start, start + n, dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        want = vecmath.inv_length(x)
+        diff = got.view(torch.int32) != want.view(torch.int32)
+        k = int(diff.sum())
+        if k and first_bad is None:
+            i = int(diff.nonzero()[0])
+            first_bad = {"bits": start + i, "kernel": got[i].item(),
+                         "plain": want[i].item()}
+        bad += k
+        xc = torch.clamp(x, min=1e-20)
+        approx += int((torch.rsqrt(xc) != want).sum())
+        twice += int(((1.0 / torch.sqrt(xc)) != want).sum())
+        del got, x, want, diff, xc
+    emit({"phase": "inv_length_exhaustive", "card": card, "floats": end,
+          "kernel_vs_plain_differing": bad, "first_differing": first_bad,
+          "rsqrt_differing_share": approx / end,
+          "twice_rounded_differing_share": twice / end,
+          "seconds": time.perf_counter() - t0,
+          "tolerance": "0 floats differ kernel to plain"})
+    check(bad == 0, f"inv_length_exhaustive: {bad} floats differ, first "
+                    f"{first_bad}")
+
+
+def scatter_unit_phase(dev, card, W: int = 1920, H: int = 1080) -> None:
+    """``scatter_unit``: ``|d|^2 - 1`` of the directions the shading
+    kernels scatter into (``ops/cuda/scatter_lanes.py``): the flagship
+    film's 2 073 600 camera rays swept (K1), every sphere made Lambertian,
+    metal (fuzz 0.5) or dielectric (index 1.5, the coin 1: every hit
+    refracts), one step of K2, K9, K12 and K7a on them, each kernel beside
+    its plain version, read on the hit lanes; the unit vectors of the
+    shading core (Box-Muller of the same uniforms), of ``slot_draws`` and
+    of ``unit_sphere_directions`` beside the same Gaussian triples
+    normalised by ``torch.rsqrt`` (``rsqrtf`` on the card) and by a float32
+    square root then division (rounded twice); and the wavefront's scatter
+    (``materials.scatter``) of the same hits. Every kernel and plain mean
+    within 1e-9 of 0, but the refracted direction's, which is unit before
+    it is normalised and keeps a float32 floor: within 1e-9 of the
+    wavefront's and 5e-9 of 0. K2, K9, K12 and K7a scatter every lane
+    alike, and each kernel as its plain version."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops import materials as M
+    from raytracingweekend_jl_tpu_torch.ops.cuda import scatter_lanes as SL
+    from raytracingweekend_jl_tpu_torch.ops.sampling import (
+        unit_sphere_directions)
+    scene = pt.trim_scene(pt.scene_random_spheres(seed=1, device=dev))
+    lanes = SL.film_lanes(scene, pt.t_cam1(device=dev), W, H)
+    hit, n = lanes["hit"], W * H
+    counter = {"strided": "shade_strided", "pinned": "shade_pinned",
+               "mega": "mega", "record": "record_shade"}
+    rows, launches, differing = {}, {}, {}
+    for material in SL.MATERIALS:
+        amat = SL.material_table(scene, material)
+        first = None
+        for kind in SL.KINDS:
+            reset_counts()
+            got = SL.scatter_lanes(kind, amat, lanes, True)[:, hit]
+            torch.cuda.synchronize()
+            launches[f"{kind}/{material}"] = counts()[counter[kind]]
+            plain = SL.scatter_lanes(kind, amat, lanes, False)[:, hit]
+            first = got if first is None else first
+            differing[f"{kind}/{material}"] = {
+                "kernel_vs_plain": int((got != plain).any(0).sum()),
+                "kernel_vs_strided_kernel": int((got != first).any(0).sum())}
+            rows[f"{kind}/{material}"] = SL.unit_length_error(got)
+            rows[f"{kind}_plain/{material}"] = SL.unit_length_error(plain)
+            del got, plain
+        wf = SL.wavefront_scatter(amat, lanes)[:, hit]
+        rows[f"wavefront/{material}"] = SL.unit_length_error(wf)
+        differing[f"wavefront/{material}"] = {
+            "vs_strided_kernel": int((wf != first).any(0).sum())}
+        del wf, first
+    g = torch.randn((3, n), generator=torch.Generator(device=dev).manual_seed(
+        9), device=dev)
+    sq = (g[0] * g[0] + g[1] * g[1]) + g[2] * g[2]
+    unit = {"shade_core": SL.unit_length_error(SL.unit_vectors(lanes["u9"])),
+            "slot_draws": SL.unit_length_error(M.slot_draws(
+                11, 0, torch.arange(n, dtype=torch.int32, device=dev))[0].T),
+            "unit_sphere_directions": SL.unit_length_error(
+                unit_sphere_directions((n,), torch.Generator(
+                    device=dev).manual_seed(9), device=dev).T),
+            "gaussian_rsqrt": SL.unit_length_error(g * torch.rsqrt(sq)),
+            "gaussian_twice_rounded": SL.unit_length_error(
+                g * (1.0 / torch.sqrt(sq)))}
+    emit({"phase": "scatter_unit", "card": card, "size": [W, H],
+          "hit_lanes": int(hit.sum()), "unit_length_error": rows,
+          "unit_vectors": unit, "lanes_differing": differing,
+          "launches": launches,
+          "tolerance": "mean |d|^2 - 1 within 1e-9 for every kernel and "
+                       "plain version and unit vector (gaussian_* are the "
+                       "rejected forms: recorded, not checked); refracted: "
+                       "within 1e-9 of the wavefront's, 5e-9 of 0; 0 lanes "
+                       "differing kernel to plain and kind to kind (the "
+                       "wavefront's: recorded); one launch per kernel call"})
+    for name, c in launches.items():
+        check(c == 1, f"scatter_unit {name}: {c} launches")
+    for name, d in differing.items():
+        for what, v in d.items():
+            if not name.startswith("wavefront"):
+                check(v == 0, f"scatter_unit {name}: {what} {v} lanes")
+    for name, r in list(rows.items()) + [
+            (k, v) for k, v in unit.items() if not k.startswith("gaussian")]:
+        if name.endswith("dielectric"):
+            wf = rows["wavefront/dielectric"]["mean"]
+            ok = abs(r["mean"] - wf) <= 1e-9 and abs(r["mean"]) <= 5e-9
+        else:
+            ok = abs(r["mean"]) <= 1e-9
+        check(ok, f"scatter_unit {name}: mean |d|^2 - 1 {r}")
+
+
+#: The flagship film's seeds that ``persistent_bias`` pools.
+BIAS_SEEDS = tuple(range(7, 15))
+
+
+def persistent_bias_phase(dev, card, W: int = 1920, H: int = 1080,
+                          SPP: int = 4, seeds=BIAS_SEEDS) -> None:
+    """``persistent_bias``: the persistent routes against the wavefront
+    ``trace`` at the flagship film (spp 4), as
+    ``scripts/torch_strided_gap_probe.py`` pools them: at each seed the
+    per-channel mean of the per-pixel difference between a route's image
+    and ``trace``'s, then over the seeds their mean and its standard error.
+    The routes: ``strided_k64`` (``render_radiance(persistent=True)``, K1
+    and K2), ``pinned`` (K1 and K9) and ``mega`` (K12). The seeds are fixed,
+    so a build gives one result; fails above 5 standard errors."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops.experimental.mega import (
+        persistent_render_sum_mega)
+    from raytracingweekend_jl_tpu_torch.ops.integrator import (
+        persistent_render_sum_fused)
+    scene = pt.trim_scene(pt.scene_random_spheres(seed=1).to(dev))
+    cam = pt.t_cam1(device=dev)
+    u, v = pt.pixel_coords(W, H, device=dev)
+
+    def pinned(fn, seed):
+        out = fn(scene, cam, u, v, seed, SPP, 0, 16, 1e-4, float(W), float(H))
+        return (out / SPP).reshape(H, W, 3)
+
+    routes = {"strided_k64": lambda s: pt.render_radiance(
+                  scene, cam, W, SPP, persistent=True, device=dev, seed=s),
+              "pinned": lambda s: pinned(persistent_render_sum_fused, s),
+              "mega": lambda s: pinned(persistent_render_sum_mega, s)}
+    gaps = {name: [] for name in routes}
+    reset_counts()
+    t0 = time.perf_counter()
+    for seed in seeds:
+        ref = pt.render_radiance(scene, cam, W, SPP, device=dev,
+                                 seed=seed).double()
+        for name, fn in routes.items():
+            gaps[name].append((fn(seed).double() - ref).reshape(-1, 3)
+                              .mean(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: v for k, v in counts().items()
+                if k in ("sweep", "shade_strided", "shade_pinned", "mega")}
+    rows = {}
+    for name, g in gaps.items():
+        g = torch.stack(g)
+        gap, se = g.mean(0), g.std(0) / len(seeds) ** 0.5
+        rows[name] = {"pooled_gap": gap.tolist(),
+                      "pooled_standard_error": se.tolist(),
+                      "standard_errors": (gap / se).tolist(),
+                      "per_seed": g.tolist()}
+    emit({"phase": "persistent_bias", "card": card, "size": [W, H],
+          "spp": SPP, "seeds": list(seeds), "routes": rows,
+          "launches": launched, "seconds": seconds,
+          "tolerance": "each route's pooled gap to trace within 5 standard "
+                       "errors on every channel"})
+    for name, c in launched.items():
+        check(c > 0, f"persistent_bias: {name} never launched")
+    for name, r in rows.items():
+        check(max(abs(z) for z in r["standard_errors"]) <= 5,
+              f"persistent_bias {name}: {r['standard_errors']} standard "
+              "errors from trace")
 
 
 #: The JAX package's per-pixel goldens (tests/make_goldens.py): 64x36, spp
@@ -5216,9 +5411,15 @@ def main() -> int:
     del st_k, st_p
 
     # -- 3b. the regenerated camera ray against make_rays' (K2, K9, K12);
-    # the forward routes against the JAX package's goldens ----------------
+    # the kernels' normalisation against its plain version on every float;
+    # the scatter directions' unit length (K2, K9, K12, K7a); the forward
+    # routes against the JAX package's goldens; the persistent routes
+    # against the wavefront at the flagship film --------------------------
     regen_ray_phase(dev, card)
+    inv_length_exhaustive_phase(dev, card)
+    scatter_unit_phase(dev, card)
     jax_goldens_phase(dev, card)
+    persistent_bias_phase(dev, card)
 
     # -- 4. in-kernel Philox against the plain path: 4 spheres, 256x144x64,
     # the strided route pinned (the image is small enough for K8) -----------

@@ -61,14 +61,14 @@ __device__ __forceinline__ RtwAdjFwd rtw_adjoint_forward(const float* u,
   const float nx = nox * sgn, ny = noy * sgn, nz = noz * sgn;
   float g0, g1, g2;
   rtw_gauss3(u[0], u[1], u[2], u[3], g0, g1, g2);
-  const float gnorm = rtw_rsqrt(g0 * g0 + g1 * g1 + g2 * g2);
+  const float gnorm = rtw_inv_length(g0 * g0 + g1 * g1 + g2 * g2);
   const float ux = g0 * gnorm, uy = g1 * gnorm, uz = g2 * gnorm;
   const float xi = u[4];
   // lambert
   const float lx = nx + ux, ly = ny + uy, lz = nz + uz;
   const float lsq = lx * lx + ly * ly + lz * lz;
   const bool degen = lsq < 1e-5f;
-  const float lno = rtw_rsqrt(lsq);
+  const float lno = rtw_inv_length(lsq);
   const float lamx = degen ? nx : lx * lno;
   const float lamy = degen ? ny : ly * lno;
   const float lamz = degen ? nz : lz * lno;
@@ -77,7 +77,7 @@ __device__ __forceinline__ RtwAdjFwd rtw_adjoint_forward(const float* u,
   const float mxv = (dx - 2.0f * dn * nx) + afz * ux;
   const float myv = (dy - 2.0f * dn * ny) + afz * uy;
   const float mzv = (dz - 2.0f * dn * nz) + afz * uz;
-  const float mno = rtw_rsqrt(mxv * mxv + myv * myv + mzv * mzv);
+  const float mno = rtw_inv_length(mxv * mxv + myv * myv + mzv * mzv);
   const float metx = mxv * mno, mety = myv * mno, metz = mzv * mno;
   // dielectric
   const float safe_ir = air == 0.0f ? 1.0f : air;
@@ -97,7 +97,7 @@ __device__ __forceinline__ RtwAdjFwd rtw_adjoint_forward(const float* u,
   const float S = 1.0f - (rpx * rpx + rpy * rpy + rpz * rpz);
   const float par = -sqrtf(fabsf(S));
   const float fx = rpx + par * nx, fy = rpy + par * ny, fz_ = rpz + par * nz;
-  const float fno = rtw_rsqrt(fx * fx + fy * fy + fz_ * fz_);
+  const float fno = rtw_inv_length(fx * fx + fy * fy + fz_ * fz_);
   const float frx = fx * fno, fry = fy * fno, frz = fz_ * fno;
   const bool is_lam = amt == 0.0f, is_met = amt == 1.0f;
   const bool is_diel = !is_lam && !is_met;
@@ -277,7 +277,8 @@ __device__ __forceinline__ void rtw_adjoint_reverse(
   gn_z = gn_z + par * gf_z;
   // par = -sqrt(|S|)
   const float sgnS = S >= 0.0f ? 1.0f : -1.0f;
-  const float gS = gpar * (-sgnS * 0.5f * rsqrtf(fmaxf(fabsf(S), 1e-12f)));
+  const float gS =
+      gpar * (-sgnS * 0.5f * rtw_inv_length(fmaxf(fabsf(S), 1e-12f)));
   // S = 1 - rp.rp
   grp_x = grp_x - 2.0f * rpx * gS;
   grp_y = grp_y - 2.0f * rpy * gS;

@@ -22,8 +22,19 @@
 #define RTW_BIG 3.0e38f
 #endif
 
-__device__ __forceinline__ float rtw_rsqrt(float x) {
-  return rsqrtf(fmaxf(x, 1e-20f));
+// 1 / sqrt(x), x clamped to a tiny floor, correctly rounded: __frsqrt_rn
+// rounds the exact value once to the nearest float. It normalises every
+// direction the kernels build (the camera ray, the unit vector, the three
+// materials' scatter directions) and the adjoint's d sqrt|S|. Its plain
+// version, ops/vecmath.py::inv_length (the square root and the division in
+// double, then one rounding to float), gives the same bits on every
+// non-negative float, on the card and on the CPU (chip_smoke.py's
+// inv_length_exhaustive). The approximate reciprocal square root intrinsic
+// it replaces differs on a sixth of the floats and leaves directions short
+// (|d|^2 - 1 averages -6.5e-9 over camera rays); the sweep takes a
+// direction as unit (sweep_core.cuh: no a term), so that biased the hits.
+__device__ __forceinline__ float rtw_inv_length(float x) {
+  return __frsqrt_rn(fmaxf(x, 1e-20f));
 }
 
 // The concentric square -> disk map of two uniforms: the lens point (da, db)
@@ -46,9 +57,7 @@ __device__ __forceinline__ void rtw_lens_disk(float u7, float u8, float& da,
 // uniforms u5, u6 and lens point (da, db), as camera.make_rays builds it,
 // the one camera ray that K2 and the pixel-pinned step (K9, K12) rebuild:
 // the jitter times 1/W and 1/H (none for a centred sample), make_rays'
-// sums, then 1 / sqrt of (x*x + y*y) + z*z (vecmath.normalize), a correctly
-// rounded square root and division (nvcc without --use_fast_math). The
-// shading core's scatter directions keep rtw_rsqrt, as the TPU kernel does.
+// sums, then rtw_inv_length of (x*x + y*y) + z*z (vecmath.normalize).
 // cam: the 21 packed camera constants. The plain version is
 // ops/cuda/shade_kernel.py::camera_ray.
 __device__ __forceinline__ void rtw_camera_ray(
@@ -64,8 +73,7 @@ __device__ __forceinline__ void rtw_camera_ray(
   const float gdx = cam[3] + s_f * cam[6] + t_f * cam[9] - cam[0] - offx;
   const float gdy = cam[4] + s_f * cam[7] + t_f * cam[10] - cam[1] - offy;
   const float gdz = cam[5] + s_f * cam[8] + t_f * cam[11] - cam[2] - offz;
-  const float inv =
-      1.0f / sqrtf(fmaxf(gdx * gdx + gdy * gdy + gdz * gdz, 1e-20f));
+  const float inv = rtw_inv_length(gdx * gdx + gdy * gdy + gdz * gdz);
   ox = cam[0] + offx; oy = cam[1] + offy; oz = cam[2] + offz;
   dx = gdx * inv; dy = gdy * inv; dz = gdz * inv;
 }
@@ -144,7 +152,7 @@ __device__ __forceinline__ RtwShade rtw_shade_core(
   // Three normals by Box-Muller -> a uniform unit vector.
   float g0, g1, g2;
   rtw_gauss3(u[0], u[1], u[2], u[3], g0, g1, g2);
-  const float gn = rtw_rsqrt(g0 * g0 + g1 * g1 + g2 * g2);
+  const float gn = rtw_inv_length(g0 * g0 + g1 * g1 + g2 * g2);
   const float ux = g0 * gn, uy = g1 * gn, uz = g2 * gn;
   const float xi = u[4];
 
@@ -152,7 +160,7 @@ __device__ __forceinline__ RtwShade rtw_shade_core(
   const float lx = nx + ux, ly = ny + uy, lz = nz + uz;
   const float lsq = lx * lx + ly * ly + lz * lz;
   const bool degen = lsq < 1e-5f;
-  const float lno = rtw_rsqrt(lsq);
+  const float lno = rtw_inv_length(lsq);
   const float lamx = degen ? nx : lx * lno;
   const float lamy = degen ? ny : ly * lno;
   const float lamz = degen ? nz : lz * lno;
@@ -163,7 +171,7 @@ __device__ __forceinline__ RtwShade rtw_shade_core(
   const float refy = dy - 2.0f * dn * ny;
   const float refz = dz - 2.0f * dn * nz;
   const float mx = refx + afz * ux, my = refy + afz * uy, mz = refz + afz * uz;
-  const float mno = rtw_rsqrt(mx * mx + my * my + mz * mz);
+  const float mno = rtw_inv_length(mx * mx + my * my + mz * mz);
   const float metx = mx * mno, mety = my * mno, metz = mz * mno;
 
   // Dielectric (src/material.jl:41-53, src/light.jl:12-25).
@@ -183,7 +191,7 @@ __device__ __forceinline__ RtwShade rtw_shade_core(
   const float rpz = eta * (dz + cos_t * nz);
   const float par = -sqrtf(fabsf(1.0f - (rpx * rpx + rpy * rpy + rpz * rpz)));
   const float fx = rpx + par * nx, fy = rpy + par * ny, fz = rpz + par * nz;
-  const float fno = rtw_rsqrt(fx * fx + fy * fy + fz * fz);
+  const float fno = rtw_inv_length(fx * fx + fy * fy + fz * fz);
   const float dielx = choose_reflect ? refx : fx * fno;
   const float diely = choose_reflect ? refy : fy * fno;
   const float dielz = choose_reflect ? refz : fz * fno;

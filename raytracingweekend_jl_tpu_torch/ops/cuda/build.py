@@ -120,6 +120,8 @@ _SIGNATURES = {
                                  _P, _P],
     # G, K, P, &regs, &blocks_per_sm, &sm_count
     "rtw_grid_sweep_occupancy": [_I, _I, _I, _IP, _IP, _IP],
+    # start, n, out[n], stream
+    "rtw_inv_length_bits": [_U, _I, _P, _P],
 }
 
 

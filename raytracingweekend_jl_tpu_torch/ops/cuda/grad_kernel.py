@@ -53,7 +53,8 @@ import torch
 from ... import rng
 from ..intersect import BIG
 from . import build
-from .shade_kernel import _rsqrt, gauss3, shade_core
+from ..vecmath import inv_length
+from .shade_kernel import gauss3, shade_core
 
 #: Launches of K7a, K7b and K7c since the last reset (incremented only where
 #: the kernel is launched).
@@ -108,14 +109,14 @@ def bounce_adjoint(u5, vals, g3, cots, hitm, missm):
     sgn = w(front, one, -one)
     nx, ny, nz = nox * sgn, noy * sgn, noz * sgn
     g0, g1, g2 = gauss3(u5[0], u5[1], u5[2], u5[3])
-    gnorm = _rsqrt(g0 * g0 + g1 * g1 + g2 * g2)
+    gnorm = inv_length(g0 * g0 + g1 * g1 + g2 * g2)
     ux, uy, uz = g0 * gnorm, g1 * gnorm, g2 * gnorm
     xi = u5[4]
     # lambert
     lx, ly, lz = nx + ux, ny + uy, nz + uz
     lsq = lx * lx + ly * ly + lz * lz
     degen = lsq < 1e-5
-    lno = _rsqrt(lsq)
+    lno = inv_length(lsq)
     lamx = w(degen, nx, lx * lno)
     lamy = w(degen, ny, ly * lno)
     lamz = w(degen, nz, lz * lno)
@@ -124,7 +125,7 @@ def bounce_adjoint(u5, vals, g3, cots, hitm, missm):
     mxv = (dx - 2.0 * dn * nx) + afz * ux
     myv = (dy - 2.0 * dn * ny) + afz * uy
     mzv = (dz - 2.0 * dn * nz) + afz * uz
-    mno = _rsqrt(mxv * mxv + myv * myv + mzv * mzv)
+    mno = inv_length(mxv * mxv + myv * myv + mzv * mzv)
     metx, mety, metz = mxv * mno, myv * mno, mzv * mno
     # dielectric
     safe_ir = w(air == 0, one, air)
@@ -146,7 +147,7 @@ def bounce_adjoint(u5, vals, g3, cots, hitm, missm):
     fx = rpx + par * nx
     fy = rpy + par * ny
     fz_ = rpz + par * nz
-    fno = _rsqrt(fx * fx + fy * fy + fz_ * fz_)
+    fno = inv_length(fx * fx + fy * fy + fz_ * fz_)
     frx, fry, frz = fx * fno, fy * fno, fz_ * fno
     is_lam = amt == 0
     is_met = amt == 1
@@ -219,7 +220,7 @@ def bounce_adjoint(u5, vals, g3, cots, hitm, missm):
     # par = -sqrt(|S|)
     sgnS = w(S >= 0, one, -one)
     gS = gpar * (-sgnS * 0.5
-                 * torch.rsqrt(torch.clamp(torch.abs(S), min=1e-12)))
+                 * inv_length(torch.clamp(torch.abs(S), min=1e-12)))
     # S = 1 - rp.rp
     grp_x = grp_x - 2.0 * rpx * gS
     grp_y = grp_y - 2.0 * rpy * gS

@@ -93,10 +93,6 @@ def _concentric(u: torch.Tensor, v: torch.Tensor):
     return r * torch.cos(theta), r * torch.sin(theta)
 
 
-def _rsqrt(x: torch.Tensor) -> torch.Tensor:
-    return torch.rsqrt(torch.clamp(x, min=1e-20))
-
-
 def camera_ray(cam: torch.Tensor, fu, fv, centered, u9) -> tuple:
     """The thin-lens camera ray (src/camera.jl) of film point ``(fu, fv)``
     and the uniforms ``u9[5:9]`` (jitter, lens), built as
@@ -171,7 +167,7 @@ def shade_core(u, t, attrs, ox, oy, oz, dx, dy, dz, tx, ty, tz, active,
 
     # Three normals by Box-Muller -> a uniform unit vector.
     g0, g1, g2 = gauss3(u[0], u[1], u[2], u[3])
-    gn = _rsqrt(g0 * g0 + g1 * g1 + g2 * g2)
+    gn = inv_length(g0 * g0 + g1 * g1 + g2 * g2)
     ux, uy, uz = g0 * gn, g1 * gn, g2 * gn
     xi = u[4]
 
@@ -179,7 +175,7 @@ def shade_core(u, t, attrs, ox, oy, oz, dx, dy, dz, tx, ty, tz, active,
     lx, ly, lz = nx + ux, ny + uy, nz + uz
     lsq = lx * lx + ly * ly + lz * lz
     degen = lsq < 1e-5
-    lno = _rsqrt(lsq)
+    lno = inv_length(lsq)
     lamx = torch.where(degen, nx, lx * lno)
     lamy = torch.where(degen, ny, ly * lno)
     lamz = torch.where(degen, nz, lz * lno)
@@ -190,7 +186,7 @@ def shade_core(u, t, attrs, ox, oy, oz, dx, dy, dz, tx, ty, tz, active,
     refy = dy - 2.0 * dn * ny
     refz = dz - 2.0 * dn * nz
     mx, my, mz = refx + afz * ux, refy + afz * uy, refz + afz * uz
-    mno = _rsqrt(mx * mx + my * my + mz * mz)
+    mno = inv_length(mx * mx + my * my + mz * mz)
     metx, mety, metz = mx * mno, my * mno, mz * mno
 
     # Dielectric (src/material.jl:41-53, src/light.jl:12-25).
@@ -210,7 +206,7 @@ def shade_core(u, t, attrs, ox, oy, oz, dx, dy, dz, tx, ty, tz, active,
     rpz = eta * (dz + cos_t * nz)
     par = -torch.sqrt(torch.abs(1.0 - (rpx * rpx + rpy * rpy + rpz * rpz)))
     fx, fy, fz = rpx + par * nx, rpy + par * ny, rpz + par * nz
-    fno = _rsqrt(fx * fx + fy * fy + fz * fz)
+    fno = inv_length(fx * fx + fy * fy + fz * fz)
     dielx = torch.where(choose_reflect, refx, fx * fno)
     diely = torch.where(choose_reflect, refy, fy * fno)
     dielz = torch.where(choose_reflect, refz, fz * fno)

@@ -25,10 +25,10 @@ import torch
 from .. import rng
 from ..scene import Scene, LAMBERTIAN, METAL
 from .sampling import unit_sphere_directions
-from .vecmath import (dot, normalize, reflect, refract, reflectance, safe_sqrt,
-                      NEAR_ZERO_EPS)
+from .vecmath import (dot, inv_length, normalize, reflect, refract,
+                      reflectance, safe_sqrt, NEAR_ZERO_EPS)
 from .cuda.grad_kernel import dattr_contract
-from .cuda.shade_kernel import _rsqrt, gauss3
+from .cuda.shade_kernel import gauss3
 
 
 class ScatterResult(NamedTuple):
@@ -124,7 +124,7 @@ def slot_draws(seed: int, bounce: int, slots: torch.Tensor,
     u5 = rng.philox_uniforms(seed, bounce, slots.shape[0], 5,
                              device=slots.device, lanes=slots, coords=coords)
     g0, g1, g2 = gauss3(u5[0], u5[1], u5[2], u5[3])
-    gn = _rsqrt(g0 * g0 + g1 * g1 + g2 * g2)
+    gn = inv_length(g0 * g0 + g1 * g1 + g2 * g2)
     return (torch.stack([g0 * gn, g1 * gn, g2 * gn], -1).to(dtype),
             u5[4].to(dtype))
 
@@ -138,7 +138,7 @@ def scatter(origin: torch.Tensor, direction: torch.Tensor, t: torch.Tensor,
 
     Rays that hit nothing get finite garbage that the integrator masks; ``t``
     must already be finite for them. Every guard sits before its operation
-    (``inv_r``, ``safe_sqrt``, the clamped rsqrt of ``normalize``), so a
+    (``inv_r``, ``safe_sqrt``, the clamped ``inv_length`` of ``normalize``), so a
     branch that is not taken cannot put a NaN into the gradients."""
     one = torch.ones((), dtype=origin.dtype, device=origin.device)
     p = origin + t[..., None] * direction

@@ -12,14 +12,18 @@ import math
 
 import torch
 
+from .vecmath import inv_length
+
 
 def unit_sphere_directions(shape: tuple, generator: torch.Generator | None = None,
                            dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """``shape + (3,)`` i.i.d. uniform unit vectors (src/rand.jl:29)."""
+    """``shape + (3,)`` i.i.d. uniform unit vectors (src/rand.jl:29):
+    Gaussian triples times ``inv_length`` of ``(x*x + y*y) + z*z``, the
+    kernels' normalisation, in that order on every device."""
     g = torch.randn(tuple(shape) + (3,), generator=generator, dtype=dtype,
                     device=device)
-    sq = (g * g).sum(dim=-1, keepdim=True)
-    return g * torch.rsqrt(torch.clamp(sq, min=1e-20))
+    sq = (g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1]) + g[..., 2] * g[..., 2]
+    return g * inv_length(sq)[..., None]
 
 
 def concentric_disk_map(uv: torch.Tensor) -> torch.Tensor:

@@ -33,10 +33,18 @@ def near_zero(v: torch.Tensor) -> torch.Tensor:
 
 
 def inv_length(sq: torch.Tensor) -> torch.Tensor:
-    """``1 / sqrt(sq)``, ``sq`` clamped to a tiny floor: a correctly rounded
-    square root, then a correctly rounded division (the kernels' camera
-    ray, ``rtw_camera_ray`` in csrc/shade_core.cuh, rounds the same)."""
-    return 1.0 / torch.sqrt(torch.clamp(sq, min=_SAFE_EPS))
+    """``1 / sqrt(sq)``, ``sq`` clamped to a tiny floor, rounded once to
+    ``sq``'s dtype: the square root and the division in float64, then one
+    rounding. Every normalisation of the port takes it, as every kernel
+    takes ``rtw_inv_length`` (csrc/shade_core.cuh, the correctly rounded
+    ``__frsqrt_rn``): the same bits on every non-negative float32, on the
+    card and on the CPU, whose float32 square root is not correctly rounded
+    (it differs from IEEE on ~0.7% of inputs and biases ``|d|^2 - 1`` by
+    +1.1e-9). The card's approximate reciprocal square root leaves
+    directions short (-6.5e-9); the sweep takes a direction as unit, so a
+    biased length biases the hits."""
+    x = torch.clamp(sq, min=_SAFE_EPS)
+    return (1.0 / torch.sqrt(x.to(torch.float64))).to(sq.dtype)
 
 
 def normalize(v: torch.Tensor) -> torch.Tensor:

@@ -44,14 +44,16 @@ layout with constant uniforms, its strip-0 camera directions normalised
 with ``torch.rsqrt`` of the squared length (``rsqrtf`` on the card, as
 the step normalised a regenerated camera ray before it took
 ``camera.make_rays``' ``1 / sqrt``), minus the same layout unchanged. Then
-``bounce_rsqrt``, at ``--spp``: whether bounce rays carry a gap of their
-own. The strided, pinned and megakernel steps normalise their scatter
-directions with ``rsqrtf`` (the shading core, as both packages' TPU
-kernels do), the wavefront ``trace`` with ``1 / sqrt``; the ablation
+``bounce_rsqrt``, at ``--spp``: what the scatter directions'
+normalisation does to the image. Every route normalises them with
+``vecmath.inv_length`` (the kernels' ``rtw_inv_length``: ``1 / sqrt``
+rounded once); the strided, pinned and megakernel steps took ``rsqrtf``
+before (as both packages' TPU kernels take ``rsqrt``). The ablation
 renders ``trace`` with the Lambertian, metal and refracted directions of
-its scatter normalised by ``torch.rsqrt`` (this script's own imports of
-``materials.normalize`` and ``vecmath.normalize`` replaced), minus
-``trace`` unchanged, the same draws in both.
+its scatter normalised by ``torch.rsqrt`` (``rsqrtf`` on the card; this
+script's own imports of ``materials.normalize`` and
+``vecmath.normalize`` replaced), minus ``trace`` unchanged, the same
+draws in both.
 
 ``--goldens`` asks instead whether ``chip_smoke.py``'s ``jax_goldens``
 phase (the strided, pinned and megakernel routes at 64x36, spp 4, against
@@ -61,6 +63,16 @@ construction: it runs the phase with the shipped kernels, then with the
 kernels built from a copy of the sources whose camera ray is the former
 one (``rsqrtf`` of the squared length, and K2's film point times 1/W),
 and prints each run's lines and whether the phase's checks passed.
+
+``--scatter-former`` runs ``chip_smoke.py``'s ``scatter_unit`` phase with
+the shipped kernels and plain versions, then with the former
+normalisation: kernels built from a copy of the sources whose
+``rtw_inv_length`` is ``rsqrtf`` (the scatter directions before the
+repair; the camera ray a float square root then division, as it was), and
+the plain versions' ``inv_length`` replaced by ``torch.rsqrt`` (the
+shading core, ``slot_draws``, ``unit_sphere_directions``) and by the
+twice-rounded ``1 / torch.sqrt`` (``vecmath``), as they were; and prints
+whether the phase's checks passed each time.
 """
 
 import argparse
@@ -181,12 +193,15 @@ def _sub(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
+#: The camera ray's normalisation in the shipped shading core.
+CAMERA_INV = ("  const float inv = rtw_inv_length(gdx * gdx + gdy * gdy + "
+              "gdz * gdz);\n")
+
 #: The former camera ray of K2, K9 and K12: (file, shipped text, former).
 FORMER_CAMERA_RAY = (
-    ("shade_core.cuh",
-     "  const float inv =\n"
-     "      1.0f / sqrtf(fmaxf(gdx * gdx + gdy * gdy + gdz * gdz, 1e-20f));\n",
-     "  const float inv = rtw_rsqrt(gdx * gdx + gdy * gdy + gdz * gdz);\n"),
+    ("shade_core.cuh", CAMERA_INV,
+     "  const float inv = rsqrtf(fmaxf(gdx * gdx + gdy * gdy + gdz * gdz, "
+     "1e-20f));\n"),
     ("shade_strided.cu",
      "(float)(pxi + 1) / (float)W,\n"
      "                   (float)(H - 1 - pyi) / (float)H,",
@@ -195,37 +210,122 @@ FORMER_CAMERA_RAY = (
 )
 
 
+#: The shipped body of ``rtw_inv_length`` (csrc/shade_core.cuh).
+INV_LENGTH = "  return __frsqrt_rn(fmaxf(x, 1e-20f));\n"
+
+#: The kernels' normalisation before it was rounded once: the scatter
+#: directions by ``rsqrtf``, the camera ray by a float square root then a
+#: float division (file, shipped text, former).
+FORMER_NORMALISATION = (
+    ("shade_core.cuh", INV_LENGTH, "  return rsqrtf(fmaxf(x, 1e-20f));\n"),
+    ("shade_core.cuh", CAMERA_INV,
+     "  const float inv =\n"
+     "      1.0f / sqrtf(fmaxf(gdx * gdx + gdy * gdy + gdz * gdz, 1e-20f));\n"),
+)
+
+
+def rewritten_csrc(work: str, rewrites) -> str:
+    """A copy of the kernel sources under ``work`` with ``rewrites``
+    ((file, shipped text, former), each found once) applied; its path."""
+    import shutil
+    from raytracingweekend_jl_tpu_torch.ops.cuda import build
+    csrc = os.path.join(work, "csrc")
+    shutil.copytree(build.CSRC_DIR, csrc)
+    for name, old, new in rewrites:
+        path = os.path.join(csrc, name)
+        with open(path) as f:
+            src = _sub(f.read(), old, new)
+        with open(path, "w") as f:
+            f.write(src)
+    return csrc
+
+
+def load_library(csrc: str, out: str):
+    """The kernel library built from the sources ``csrc`` into ``out``,
+    loaded. Every kernel wrapper calls the library that ``build._LIB``
+    holds: set it to route them to this one."""
+    from raytracingweekend_jl_tpu_torch.ops.cuda import build
+    saved = build.CSRC_DIR, build.BUILD_DIR, build._LIB
+    build.CSRC_DIR, build.BUILD_DIR, build._LIB = csrc, out, None
+    try:
+        return build.load()
+    finally:
+        build.CSRC_DIR, build.BUILD_DIR, build._LIB = saved
+
+
+def _phase_passes(fn) -> str | None:
+    """Runs a ``chip_smoke`` phase; the failed check's message, or None."""
+    try:
+        fn()
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
 def goldens(dev, card) -> None:
     """The ``--goldens`` lines (module docstring)."""
     import shutil
     import tempfile
     import chip_smoke
     from raytracingweekend_jl_tpu_torch.ops.cuda import build
+    shipped = build.load()
     work = tempfile.mkdtemp()
     try:
         for kernels in ("shipped", "former_camera_ray"):
             if kernels == "former_camera_ray":
-                csrc = os.path.join(work, "csrc")
-                shutil.copytree(build.CSRC_DIR, csrc)
-                for name, old, new in FORMER_CAMERA_RAY:
-                    path = os.path.join(csrc, name)
-                    with open(path) as f:
-                        src = _sub(f.read(), old, new)
-                    with open(path, "w") as f:
-                        f.write(src)
-                build.CSRC_DIR = csrc
-                build.BUILD_DIR = os.path.join(work, "kernels")
-                build._LIB = None
+                build._LIB = load_library(
+                    rewritten_csrc(work, FORMER_CAMERA_RAY),
+                    os.path.join(work, "kernels"))
             print(json.dumps({"goldens_kernels": kernels}), flush=True)
-            try:
-                chip_smoke.jax_goldens_phase(dev, card)
-                failure = None
-            except AssertionError as e:
-                failure = str(e)
+            failure = _phase_passes(
+                lambda: chip_smoke.jax_goldens_phase(dev, card))
             print(json.dumps({"goldens_kernels": kernels,
                               "checks_pass": failure is None,
                               "failure": failure}), flush=True)
     finally:
+        build._LIB = shipped
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def scatter_former(dev, card) -> None:
+    """The ``--scatter-former`` lines (module docstring)."""
+    import shutil
+    import tempfile
+    import torch
+    import chip_smoke
+    from raytracingweekend_jl_tpu_torch.ops import materials, sampling, vecmath
+    from raytracingweekend_jl_tpu_torch.ops.cuda import build, grad_kernel
+    from raytracingweekend_jl_tpu_torch.ops.cuda import shade_kernel
+
+    def rsqrt(x):
+        return torch.rsqrt(torch.clamp(x, min=1e-20))
+
+    def twice(x):
+        return 1.0 / torch.sqrt(torch.clamp(x, min=1e-20))
+
+    plain = ((shade_kernel, rsqrt), (grad_kernel, rsqrt), (materials, rsqrt),
+             (sampling, rsqrt), (vecmath, twice))
+    saved = [(m, m.inv_length) for m, _ in plain]
+    shipped = build.load()
+    work = tempfile.mkdtemp()
+    try:
+        for kernels in ("shipped", "former_normalisation"):
+            if kernels == "former_normalisation":
+                build._LIB = load_library(
+                    rewritten_csrc(work, FORMER_NORMALISATION),
+                    os.path.join(work, "kernels"))
+                for m, fn in plain:
+                    m.inv_length = fn
+            print(json.dumps({"scatter_kernels": kernels}), flush=True)
+            failure = _phase_passes(
+                lambda: chip_smoke.scatter_unit_phase(dev, card))
+            print(json.dumps({"scatter_kernels": kernels,
+                              "checks_pass": failure is None,
+                              "failure": failure}), flush=True)
+    finally:
+        for m, fn in saved:
+            m.inv_length = fn
+        build._LIB = shipped
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -235,6 +335,7 @@ def main() -> None:
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--goldens", action="store_true")
+    ap.add_argument("--scatter-former", action="store_true")
     args = ap.parse_args()
     import torch
     import raytracingweekend_jl_tpu_torch as pt
@@ -248,9 +349,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda")
-    if args.goldens:
+    if args.goldens or args.scatter_former:
         card = card_line()
-        goldens(dev, card)
+        (goldens if args.goldens else scatter_former)(dev, card)
         print(card, flush=True)
         return
     W, H, S = 1920, 1080, args.spp

@@ -66,15 +66,19 @@ def test_make_rays_normalises_in_one_order():
     # make_rays' normalize sums |d|^2 as (x*x + y*y) + z*z on every device,
     # as the kernels do (PyTorch's CUDA sum of [R, 3] rows adds x*x + z*z
     # first); on the CPU that is the order of PyTorch's own sum, so it is
-    # the reduction's result there, bit for bit.
+    # the reduction's result there, bit for bit. 1 / sqrt is rounded once:
+    # the square root and the division in float64, then to float32.
     from raytracingweekend_jl_tpu_torch.ops.vecmath import (normalize,
                                                             squared_length)
+
+    def inv(x):
+        return (1.0 / torch.sqrt(x.clamp(min=1e-20).double())).float()
     d = torch.randn((4099, 3), generator=torch.Generator().manual_seed(4)) * 3
     d[7] = 0.0
     sq = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
-    want = d * (1.0 / torch.sqrt(sq.clamp(min=1e-20)))[:, None]
+    want = d * inv(sq)[:, None]
     assert torch.equal(normalize(d), want)
-    by_sum = d * (1.0 / torch.sqrt(squared_length(d).clamp(min=1e-20)))[:, None]
+    by_sum = d * inv(squared_length(d))[:, None]
     assert torch.equal(normalize(d), by_sum)
     assert torch.equal(normalize(d)[7], torch.zeros(3))
 
