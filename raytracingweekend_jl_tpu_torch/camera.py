@@ -16,6 +16,7 @@ import torch
 from . import rng
 from .ops.vecmath import normalize
 from .ops.sampling import unit_disk_points
+from .utils.profiling import sync
 
 _FIELDS = ("origin", "lower_left_corner", "horizontal", "vertical", "u", "v",
            "w", "lens_radius")
@@ -130,9 +131,9 @@ def sample_pass_rays(cam: Camera, u: torch.Tensor, v: torch.Tensor,
     jit = torch.rand((spp * n_pix, 2), device=device,
                      generator=rng.generator(seed, rng.PIXEL_JITTER, s0,
                                              device=device))
-    # Filled on the device: a copy from the host would wait for the card.
     scale = torch.full((2,), 1.0 / f32_w, dtype=torch.float32, device=device)
-    scale[1] = 1.0 / f32_h
+    with sync("jitter_scale"):  # setting an item copies it from the host
+        scale[1] = 1.0 / f32_h
     jit = torch.where((sid == 0)[:, None], torch.zeros_like(jit), jit * scale)
     return get_rays(cam, u.repeat(spp) + jit[:, 0], v.repeat(spp) + jit[:, 1],
                     generator=rng.generator(seed, rng.LENS, s0, device=device))

@@ -35,6 +35,7 @@ from .camera import Camera
 from .ops.persist_grad import default_n_iters, persist_record_bytes
 from .render import _resolve_device, render_radiance
 from .scene import Scene
+from .utils.profiling import span, spanned
 
 #: Fields of :class:`Scene` that are differentiable parameters.
 DIFF_FIELDS = ("center", "radius", "albedo", "fuzz", "ir")
@@ -206,52 +207,59 @@ def render_loss(scene: Scene, cam: Camera, target: torch.Tensor,
     them. ``kwargs`` go to :func:`render.render_radiance` (``device``, the
     card unless ``"cpu"``; ``seed``, ``max_depth``, ``impl``, ``stats``, the
     path flags); ``pixel_chunk`` is picked to keep the records inside the
-    device's memory."""
+    device's memory. Spans ``rtw.grad.plan`` (the route and the memory
+    plan) and ``rtw.grad.loss``."""
     ih = kwargs.pop("image_height", None)
     if ih is not None and ih != target.shape[0]:
         raise ValueError(f"image_height={ih} conflicts with "
                          f"target height {target.shape[0]}")
     n_pix = target.shape[0] * image_width
-    resolve_grad_path(kwargs, n_pix, default_grad_backend(
-        kwargs.get("dtype"), cam.origin.dtype, scene.center.dtype))
-    device = _resolve_device(kwargs.get("device"))
-    persist = kwargs.get("recorded_persist")
-    depth = kwargs.get("max_depth", 16)
-    if kwargs["recorded"] and "pixel_chunk" not in kwargs:
-        if persist:
-            s_p, n_it = persist[0], persist[1]
-            n_it = default_n_iters(s_p, depth) if n_it is None else n_it
-            bprb = max((21 * 4 + 4) * n_it // (s_p * depth), 1)
-            soft_cap = 1 << 21
-        else:
-            bprb = (_FUSED_BYTES_PER_RAY_BOUNCE
-                    if kwargs.get("recorded_fused") else None)
-            soft_cap = 1 << 20
-        kwargs["pixel_chunk"] = auto_pixel_chunk(
-            n_pix, depth, budget=record_hbm_budget(device),
-            bytes_per_ray_bounce=bprb, soft_cap=soft_cap)
-    plan_pass_memory(kwargs, n_pix, n_samples, device=device)
+    with span("rtw.grad.plan"):
+        resolve_grad_path(kwargs, n_pix, default_grad_backend(
+            kwargs.get("dtype"), cam.origin.dtype, scene.center.dtype))
+        device = _resolve_device(kwargs.get("device"))
+        persist = kwargs.get("recorded_persist")
+        depth = kwargs.get("max_depth", 16)
+        if kwargs["recorded"] and "pixel_chunk" not in kwargs:
+            if persist:
+                s_p, n_it = persist[0], persist[1]
+                n_it = default_n_iters(s_p, depth) if n_it is None else n_it
+                bprb = max((21 * 4 + 4) * n_it // (s_p * depth), 1)
+                soft_cap = 1 << 21
+            else:
+                bprb = (_FUSED_BYTES_PER_RAY_BOUNCE
+                        if kwargs.get("recorded_fused") else None)
+                soft_cap = 1 << 20
+            kwargs["pixel_chunk"] = auto_pixel_chunk(
+                n_pix, depth, budget=record_hbm_budget(device),
+                bytes_per_ray_bounce=bprb, soft_cap=soft_cap)
+        plan_pass_memory(kwargs, n_pix, n_samples, device=device)
     img = render_radiance(scene, cam, image_width, n_samples,
                           image_height=target.shape[0], persistent=False,
                           **kwargs)
-    target = torch.as_tensor(target, dtype=img.dtype).to(img.device)
-    if loss_fn is None:
-        return torch.mean((img - target) ** 2)
-    return loss_fn(img, target)
+    with span("rtw.grad.loss"):
+        target = torch.as_tensor(target, dtype=img.dtype).to(img.device)
+        if loss_fn is None:
+            return torch.mean((img - target) ** 2)
+        return loss_fn(img, target)
 
 
+@spanned("rtw.grad.step", root=True)
 def render_grads(scene: Scene, cam: Camera, target: torch.Tensor,
                  image_width: int, n_samples: int, **kwargs
                  ) -> tuple[torch.Tensor, SceneGrads]:
     """``(loss, SceneGrads)``: the loss of :func:`render_loss` and its
     gradients w.r.t. every differentiable scene field, in the caller's
-    shapes and on the caller's device (padding spheres get zeros)."""
+    shapes and on the caller's device (padding spheres get zeros). Each
+    call is the span ``rtw.grad.step`` (a new step id); the backward is
+    ``rtw.grad.backward``, on the calling thread."""
     leaves = {f: getattr(scene, f).detach().requires_grad_(True)
               for f in DIFF_FIELDS}
     loss = render_loss(scene._replace(**leaves), cam, target, image_width,
                        n_samples, **kwargs)
-    grads = torch.autograd.grad(loss, list(leaves.values()),
-                                allow_unused=True)
+    with span("rtw.grad.backward"):
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves.values(), grads)]
     return loss.detach(), SceneGrads(*grads)

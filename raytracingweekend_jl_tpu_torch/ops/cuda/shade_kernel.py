@@ -47,6 +47,7 @@ from ..intersect import BIG
 from ..vecmath import inv_length
 from ... import rng
 from ...camera import film_point
+from ...utils.profiling import sync
 from . import build
 
 #: Number of K2 launches since the last reset (incremented only where the
@@ -76,7 +77,12 @@ def pack_camera_consts(cam, image_width: int, image_height: int,
                         np.float32(1.0) / np.float32(image_height)], dtype=f32)
     parts = [cam.origin, cam.lower_left_corner, cam.horizontal, cam.vertical,
              cam.u, cam.v, cam.lens_radius.reshape(1)]
-    return torch.cat([p.to(f32).cpu() for p in parts] + [inv]).to(device)
+    host = []
+    for p in parts:  # each copy between host and card waits for the card
+        with sync("camera_consts"):
+            host.append(p.to(f32).cpu())
+    with sync("camera_consts"):
+        return torch.cat(host + [inv]).to(device)
 
 
 def _concentric(u: torch.Tensor, v: torch.Tensor):

@@ -40,6 +40,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..scene import Scene
+from ..utils.profiling import count, span
 from .integrator import resolve_impl
 from .intersect import DEFAULT_TMIN
 from .materials import attr_mat
@@ -69,8 +70,8 @@ def start_state(origin: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
 
 
 def _record_forward(scene: Scene, origin, direction, cfg: _Config):
-    """The record bounces. Returns ``(radiance [R, 3], rec [depth, 21, R],
-    rec_idx [depth, R])``."""
+    """The record bounces, counted under ``rtw.grad.record_iters``. Returns
+    ``(radiance [R, 3], rec [depth, 21, R], rec_idx [depth, R])``."""
     R = origin.shape[0]
     dev = origin.device
     st = start_state(origin, direction)
@@ -87,6 +88,7 @@ def _record_forward(scene: Scene, origin, direction, cfg: _Config):
         rec_idx[b] = idx
         u5 = None if cfg.u5_fn is None else cfg.u5_fn(b, R).to(dev)
         step(t, idx, amat, st, rec[b], cfg.seed, b, u5)
+    count("rtw.grad.record_iters", cfg.max_depth)
     return st[9:12].T.contiguous(), rec, rec_idx
 
 
@@ -115,15 +117,17 @@ def _replay_backward(rec, rec_idx, g_rad, n: int, cfg: _Config):
 
 
 class _FusedTrace(torch.autograd.Function):
-    """Forward: the record bounces. Backward: the replay. The record lives
-    on ``ctx`` between the two and is released by the backward."""
+    """Forward: the record bounces (span ``rtw.grad.record``, as the
+    persistent pair's). Backward: the replay. The record lives on ``ctx``
+    between the two and is released by the backward."""
 
     @staticmethod
     def forward(ctx, center, radius, albedo, fuzz, ir, origin, direction,
                 mat, cfg):
         scene = Scene(center, radius, albedo, fuzz, ir, mat)
-        radiance, rec, rec_idx = _record_forward(scene, origin, direction,
-                                                 cfg)
+        with span("rtw.grad.record"):
+            radiance, rec, rec_idx = _record_forward(scene, origin,
+                                                     direction, cfg)
         ctx.res = (rec, rec_idx)
         ctx.n = scene.n_spheres
         ctx.cfg = cfg

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..camera import film_point, make_rays
 from ..scene import Scene
+from ..utils.profiling import count, span, sync
 from .. import rng
 from .intersect import BIG, DEFAULT_TMIN, HitResult, intersect_spheres
 from .materials import (attr_mat, fetch_attr_planes, gather_sphere_attrs,
@@ -154,7 +155,8 @@ def init_strided_state(cam, n_pix: int, W: int, H: int, seed: int,
         init_u4 = per_ray_uniforms(n_lanes, 4, generator=generator,
                                    device=device)
     u4 = init_u4.to(device=device, dtype=f32)
-    scale = torch.tensor([1.0 / W, 1.0 / H], dtype=f32, device=device)
+    with sync("film_scale"):  # a copy from the host waits for the card
+        scale = torch.tensor([1.0 / W, 1.0 / H], dtype=f32, device=device)
     jit_uv = torch.where((sample_ids == 0)[:, None], torch.zeros_like(u4[:, :2]),
                          u4[:, 0:2] * scale)
     disk = concentric_disk_map(u4[:, 2:4] * 2.0 - 1.0)
@@ -248,7 +250,11 @@ def persistent_render_sum_strided(
     ``scene`` and ``cam`` must be on one device, which is where it runs.
     Float32 only. Test hooks: ``init_u4`` [n_lanes, 4] replaces the
     strip-0 draws, ``rng_u9_fn(it)`` -> [9, n_lanes] the per-iteration ones
-    (the in-kernel Philox stream otherwise)."""
+    (the in-kernel Philox stream otherwise).
+
+    Spans ``rtw.render.loop`` and ``rtw.render.result``; the counter
+    ``rtw.render.iters`` counts the loop's passes, the last of which may be
+    the active check that found no lane active."""
     device = scene.device
     if cam.origin.device != device:
         raise ValueError(f"scene on {device} but camera on {cam.origin.device}")
@@ -270,13 +276,18 @@ def persistent_render_sum_strided(
     tables = (scene, intersect_kernel.sphere_consts(scene), attr_mat(scene))
     seed32 = rng.persistent_seed(seed, sample_offset)
 
-    for it in range(st.iter_limit):
-        if it % ACTIVE_CHECK_EVERY == 0 and not bool(st.istate[5].any()):
-            break
-        u9 = None if rng_u9_fn is None else rng_u9_fn(it)
-        strided_step(tables, st, cam_consts, seed32, it, sample_offset,
-                     max_depth, tmin, impl, u9)
-    return strided_result(st)
+    with span("rtw.render.loop"):
+        for it in range(st.iter_limit):  # iter_limit >= 1
+            if it % ACTIVE_CHECK_EVERY == 0:
+                with sync("active_check"):
+                    if not bool(st.istate[5].any()):
+                        break
+            u9 = None if rng_u9_fn is None else rng_u9_fn(it)
+            strided_step(tables, st, cam_consts, seed32, it, sample_offset,
+                         max_depth, tmin, impl, u9)
+    count("rtw.render.iters", it + 1)
+    with span("rtw.render.result"):
+        return strided_result(st)
 
 
 # ---------------------------------------------------------------------------

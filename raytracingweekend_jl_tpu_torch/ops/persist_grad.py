@@ -37,6 +37,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..scene import Scene
+from ..utils.profiling import count, span, sync
 from .integrator import ACTIVE_CHECK_EVERY, resolve_impl
 from .intersect import DEFAULT_TMIN
 from .materials import attr_mat
@@ -158,7 +159,8 @@ def _run_record_phase(scene_tabs, strips, sf, si, rad, n_slots: int,
     ``ACTIVE_CHECK_EVERY`` iterations; an all-dead iteration writes a zero
     record and changes nothing). Each iteration is K3 and K4 (which fetches
     the winner's attributes itself), or with ``cfg.fused_step`` one K11,
-    which writes ``rec_idx`` itself."""
+    which writes ``rec_idx`` itself. Counts its passes under
+    ``rtw.grad.record_iters``."""
     spheres, amat = scene_tabs
     W = sf.shape[1]
     dev = sf.device
@@ -175,9 +177,13 @@ def _run_record_phase(scene_tabs, strips, sf, si, rad, n_slots: int,
     rec_idx = torch.empty((n_slots, W), dtype=torch.int32, device=dev)
     counts = torch.zeros((n_slots,), dtype=torch.int64, device=dev)
     seed = base_seed(cfg.seed)
+    passes = 0
     for s in range(n_slots):
-        if s % ACTIVE_CHECK_EVERY == 0 and not bool(si[2].any()):
-            break
+        passes += 1
+        if s % ACTIVE_CHECK_EVERY == 0:
+            with sync("active_check"):
+                if not bool(si[2].any()):
+                    break
         counts[s] = si[2].sum()
         u5 = None if cfg.u5_fn is None else cfg.u5_fn(i0 + s, W).to(dev)
         if cfg.fused_step:
@@ -188,6 +194,7 @@ def _run_record_phase(scene_tabs, strips, sf, si, rad, n_slots: int,
         rec_idx[s] = idx
         step(t, idx, amat, strips, sf, si, rad, rec[s], seed, i0 + s,
              cfg.max_depth, u5)
+    count("rtw.grad.record_iters", passes)
     return _Phase(rec, rec_idx, counts, i0)
 
 
@@ -227,7 +234,8 @@ def _record_forward(scene: Scene, origin, direction, cfg: _Config):
 
     b1 = (cfg.n_iters if cfg.tail_compact is None
           else min(cfg.tail_compact[0], cfg.n_iters))
-    ph1 = _run_record_phase(tabs, strips, sf, si, rad, b1, 0, cfg)
+    with span("rtw.grad.record.phase1"):
+        ph1 = _run_record_phase(tabs, strips, sf, si, rad, b1, 0, cfg)
     oy = strips[1::6]
     if cfg.tail_compact is None:
         dropped = (_real_inflight(sf, si).sum()
@@ -236,26 +244,30 @@ def _record_forward(scene: Scene, origin, direction, cfg: _Config):
         return _unstrip(rad, S, R, 0), (ph1,), dropped
 
     # Boundary: gather the survivors into a W2-wide wavefront.
-    act = si[2]
-    nz = torch.nonzero(act).squeeze(1)
-    n_act = nz.numel()
-    W2 = phase2_width(rows, S, cfg.tail_compact[1])
-    sel = torch.zeros((W2,), dtype=torch.int64, device=dev)
-    k = min(n_act, W2)
-    sel[:k] = nz[:k]
-    valid2 = (torch.arange(W2, device=dev) < n_act).to(torch.int32)
-    sf2 = sf[:, sel]
-    si2 = si[:, sel]
-    si2[2] *= valid2
-    strips2 = strips[:, sel]
-    rad2 = torch.zeros((3 * S, W2), dtype=torch.float32, device=dev)
-    ph2 = _run_record_phase(tabs, strips2, sf2, si2, rad2, cfg.n_iters - b1,
-                            b1, cfg)
+    with span("rtw.grad.boundary"):
+        act = si[2]
+        with sync("boundary"):
+            nz = torch.nonzero(act).squeeze(1)
+        n_act = nz.numel()
+        W2 = phase2_width(rows, S, cfg.tail_compact[1])
+        sel = torch.zeros((W2,), dtype=torch.int64, device=dev)
+        k = min(n_act, W2)
+        sel[:k] = nz[:k]
+        valid2 = (torch.arange(W2, device=dev) < n_act).to(torch.int32)
+        sf2 = sf[:, sel]
+        si2 = si[:, sel]
+        si2[2] *= valid2
+        strips2 = strips[:, sel]
+        rad2 = torch.zeros((3 * S, W2), dtype=torch.float32, device=dev)
+    with span("rtw.grad.record.phase2"):
+        ph2 = _run_record_phase(tabs, strips2, sf2, si2, rad2,
+                                cfg.n_iters - b1, b1, cfg)
     # Each ray banks once, in one phase; padded sel entries add exact zeros.
     rad.index_add_(1, sel, rad2 * valid2.to(torch.float32))
 
     selected = torch.zeros((W,), dtype=torch.int32, device=dev)
-    selected[sel[:k]] = 1
+    with sync("dropped_audit"):  # the 1 is copied from the host
+        selected[sel[:k]] = 1
     unsel = act * (1 - selected)
     cur_real = (sf[1] != DUMMY_Y).to(torch.int32)
     fut_dummy = _dummy_future(si[1], oy)
@@ -285,7 +297,8 @@ def _replay_phase(ph: _Phase, amat, grad_strips, cot, dep,
                   cfg: _Config) -> torch.Tensor:
     """Reverse-walk one phase's realized slots, in place on ``cot`` and
     ``dep``. Returns the phase's per-sphere cotangent rows [N, 9]."""
-    n_walk = int((ph.counts > 0).sum())
+    with sync("replay_walk"):
+        n_walk = int((ph.counts > 0).sum())
     n = amat.shape[0]
     W = cot.shape[1]
     if n_walk == 0:
@@ -310,7 +323,8 @@ def _replay_phase(ph: _Phase, amat, grad_strips, cot, dep,
             step(cot, dep, ph.rec[s], rec_idx[s], amat, grad_strips, seed,
                  ph.i0 + s, None if u5_all is None else u5_all[s],
                  out=dattr[s])
-    return dattr_contract(dattr, rec_idx, n)
+    with span("rtw.grad.contract"):
+        return dattr_contract(dattr, rec_idx, n)
 
 
 def grad_strip_planes(g_rad: torch.Tensor, n_strips: int,
@@ -338,16 +352,19 @@ def _replay_backward(amat, res, g_rad, R: int, cfg: _Config):
         W2 = sel.shape[0]
         cot2 = torch.zeros((9, W2), dtype=torch.float32, device=dev)
         dep2 = torch.zeros((6 * S, W2), dtype=torch.float32, device=dev)
-        g_attr = g_attr + _replay_phase(ph2, amat,
-                                        grad_strips[:, sel].contiguous(),
-                                        cot2, dep2, cfg)
+        with span("rtw.grad.replay.phase2"):
+            g_attr = g_attr + _replay_phase(ph2, amat,
+                                            grad_strips[:, sel].contiguous(),
+                                            cot2, dep2, cfg)
         # Transpose of the boundary gather; padded entries add exact zeros.
         v2f = valid2.to(torch.float32)
         cot.index_add_(1, sel, cot2 * v2f)
         dep.index_add_(1, sel, dep2 * v2f)
     else:
         (ph1,) = res
-    g_attr = g_attr + _replay_phase(ph1, amat, grad_strips, cot, dep, cfg)
+    with span("rtw.grad.replay.phase1"):
+        g_attr = g_attr + _replay_phase(ph1, amat, grad_strips, cot, dep,
+                                        cfg)
     # The carry left after slot 0 is the cotangent of strip 0's camera rays.
     dep[0:6] = cot[0:6]
     return g_attr, _unstrip(dep, S, R, 0), _unstrip(dep, S, R, 3)
@@ -355,23 +372,27 @@ def _replay_backward(amat, res, g_rad, R: int, cfg: _Config):
 
 def _poison(dropped: torch.Tensor) -> torch.Tensor:
     """NaN where any path was dropped, else 1."""
-    return torch.where(dropped > 0, torch.tensor(float("nan"),
-                                                 device=dropped.device),
-                       torch.tensor(1.0, device=dropped.device))
+    with sync("poison"):  # a copy from the host waits for the card
+        nan = torch.tensor(float("nan"), device=dropped.device)
+    with sync("poison"):
+        one = torch.tensor(1.0, device=dropped.device)
+    return torch.where(dropped > 0, nan, one)
 
 
 class _PersistTrace(torch.autograd.Function):
-    """Forward: the record phases. Backward: the replay phases. The records
-    live on ``ctx`` between the two and are released by the backward."""
+    """Forward: the record phases (span ``rtw.grad.record``). Backward:
+    the replay phases. The records live on ``ctx`` between the two and are
+    released by the backward."""
 
     @staticmethod
     def forward(ctx, center, radius, albedo, fuzz, ir, origin, direction,
                 mat, cfg):
-        scene = Scene(center, radius, albedo, fuzz, ir, mat)
-        radiance, res, dropped = _record_forward(scene, origin, direction,
-                                                 cfg)
-        if cfg.strict:
-            radiance = radiance * _poison(dropped)
+        with span("rtw.grad.record"):
+            scene = Scene(center, radius, albedo, fuzz, ir, mat)
+            radiance, res, dropped = _record_forward(scene, origin,
+                                                     direction, cfg)
+            if cfg.strict:
+                radiance = radiance * _poison(dropped)
         ctx.res = res
         ctx.amat = attr_mat(scene)
         ctx.cfg = cfg

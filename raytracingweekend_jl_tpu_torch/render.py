@@ -78,6 +78,7 @@ from .ops.intersect import DEFAULT_TMIN
 from .ops.persist_grad import trace_recorded_persist
 from .ops.vecmath import gamma2_encode
 from .scene import Scene, trim_scene
+from .utils.profiling import span, spanned, sync
 
 
 def image_height_for(image_width: int) -> int:
@@ -94,8 +95,11 @@ def pixel_coords(image_width: int, image_height: int, dtype=torch.float32,
     u = (j + 1.0) / image_width
     v = (image_height - 1.0 - i) / image_height
     uu, vv = np.meshgrid(u, v)  # [H, W]
-    return (torch.as_tensor(uu.ravel(), dtype=dtype).to(device),
-            torch.as_tensor(vv.ravel(), dtype=dtype).to(device))
+    out = []
+    for x in (uu, vv):
+        with sync("film_coords"):  # a copy from the host waits for the card
+            out.append(torch.as_tensor(x.ravel(), dtype=dtype).to(device))
+    return tuple(out)
 
 
 def pick_samples_per_pass(n_pix: int, n_samples: int,
@@ -247,9 +251,10 @@ def _pass_sum(cam: Camera, u: torch.Tensor, v: torch.Tensor, seed: int,
               trace_fn: Callable) -> torch.Tensor:
     """Radiance sum ``[n_pix, 3]`` of one sample pass: global samples ``s0
     .. s0 + spp - 1`` of the pixels at ``u``/``v``, traced in one wavefront
-    by ``trace_fn``."""
-    origin, direction = sample_pass_rays(cam, u, v, seed, s0, spp, f32_w,
-                                         f32_h)
+    by ``trace_fn``. The rays are span ``rtw.rays``."""
+    with span("rtw.rays"):
+        origin, direction = sample_pass_rays(cam, u, v, seed, s0, spp, f32_w,
+                                             f32_h)
     radiance = trace_fn(origin, direction,
                         rng.purpose_seed(seed, rng.SCATTER_DIR, s0)
                         & 0xFFFFFFFF)
@@ -356,6 +361,7 @@ def render_tile_sum_traced(scene: Scene, cam: Camera, u: torch.Tensor,
     return acc
 
 
+@spanned("rtw.render.call", root=True)
 def render_tile_sum(scene: Scene, cam: Camera, n_pix: int, seed: int,
                     n_samples: int, sample_offset: int, max_depth: int,
                     tmin: float, f32_w: float, f32_h: float,
@@ -385,7 +391,8 @@ def render_tile_sum(scene: Scene, cam: Camera, n_pix: int, seed: int,
     strided route's strip-0 draws and is refused elsewhere. In float64
     (``u``, the camera or the scene) every ``persistent=True`` tile takes
     the plain pixel-pinned body ``persistent_render_sum`` (module
-    docstring); ``inline=True`` and ``generator`` raise there."""
+    docstring); ``inline=True`` and ``generator`` raise there. Each call
+    is the span ``rtw.render.call``, a new call id."""
     W, H = int(f32_w), int(f32_h)
     full_image = n_pix == W * H
     if u is None:
@@ -492,7 +499,8 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
     ``fused_stages`` (with ``recorded_fused``: the staged fixed-depth
     pair); ``trace`` takes ``tile_skip`` and ``remat_policy`` (module
     docstring). A staged budget that overflows warns once per call and adds
-    its count (a device tensor) to ``stats["overflow"]``."""
+    its count (a device tensor) to ``stats["overflow"]``. The film
+    coordinates, like each pass's camera rays, are span ``rtw.rays``."""
     if not persistent:
         _check_route(fused_stages, remat_policy, tile_skip)
     dtype = cam.origin.dtype if dtype is None else dtype
@@ -514,7 +522,8 @@ def render_radiance(scene: Scene, cam: Camera, image_width: int = 400,
     if len(chunks) > 1 and generator is not None:
         raise ValueError("generator is for single-chunk renders; chunked "
                          "renders seed each chunk from fold_in(seed, c)")
-    u_all, v_all = pixel_coords(W, H, dtype=dtype, device=device)
+    with span("rtw.rays"):
+        u_all, v_all = pixel_coords(W, H, dtype=dtype, device=device)
     if not persistent:
         if generator is not None:
             raise ValueError(

@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .utils.profiling import sync
+
 # Material codes (replace the reference's Material type hierarchy).
 LAMBERTIAN = 0
 METAL = 1
@@ -70,7 +72,8 @@ def scene_from_numpy(arrays, device="cpu", dtype=torch.float32,
 def trim_scene(scene: Scene, multiple: int = 8) -> Scene:
     """Drop trailing zero-radius padding spheres, keeping ``N`` a multiple of
     ``multiple``. Bitwise-safe: a padding sphere never changes a hit."""
-    r = scene.radius.detach().cpu().numpy()
+    with sync("trim_scene"):  # a copy to the host waits for the card
+        r = scene.radius.detach().cpu().numpy()
     nz = np.flatnonzero(r != 0)
     n = int(nz[-1]) + 1 if nz.size else 1
     n = min(scene.n_spheres, max(multiple, -(-n // multiple) * multiple))

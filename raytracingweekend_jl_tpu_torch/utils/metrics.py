@@ -17,6 +17,8 @@ import time
 
 import torch
 
+from .profiling import span
+
 #: The port's history file; the JAX package's is ``bench_history.jsonl``.
 HISTORY_FILE = "bench_history_torch.jsonl"
 
@@ -66,23 +68,38 @@ def append_history(rec: dict, path: str = HISTORY_FILE) -> None:
 
 
 class PhaseTimer:
-    """Per-phase wall timers (e.g. trace, fetch, checkpoint) — the structured
-    stand-in for the reference's BenchmarkTools sprinkling (SURVEY.md §5)."""
+    """Per-phase wall timers of the checkpointed drivers (``trace``,
+    ``fetch``, ``checkpoint``) — the structured stand-in for the
+    reference's BenchmarkTools sprinkling (SURVEY.md §5).
+
+    Phase ``p`` is the program span ``rtw.ckpt.<p>``
+    (:func:`utils.profiling.span`): :meth:`start` opens it and :meth:`stop`
+    closes it, and ``totals`` sums its host time on every run, recording or
+    not. ``trace`` is the host's enqueue of a chunk's render: the card
+    returns before it has finished, so ``fetch``, the copy of the chunk's
+    sums to the host, holds the card's time."""
 
     def __init__(self):
         self.totals: dict[str, float] = {}
-        self._t0: dict[str, float] = {}
+        self._open: dict[str, tuple] = {}
 
     def start(self, phase: str) -> None:
-        self._t0[phase] = time.time()
+        s = span("rtw.ckpt." + phase)
+        s.__enter__()
+        self._open[phase] = (s, time.perf_counter())
 
     def stop(self, phase: str) -> None:
-        self.totals[phase] = (self.totals.get(phase, 0.0) + time.time()
-                              - self._t0.pop(phase))
+        s, t0 = self._open.pop(phase)
+        s.close()
+        self.totals[phase] = (self.totals.get(phase, 0.0)
+                              + time.perf_counter() - t0)
 
     def discard(self, phase: str) -> None:
-        """Drop an open timer without accumulating (e.g. a failed attempt)."""
-        self._t0.pop(phase, None)
+        """Close an open phase without accumulating (e.g. a failed
+        attempt)."""
+        s, _ = self._open.pop(phase, (None, None))
+        if s is not None:
+            s.close()
 
     def as_dict(self) -> dict:
         return {k: round(v, 4) for k, v in sorted(self.totals.items())}

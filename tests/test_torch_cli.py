@@ -188,8 +188,6 @@ def test_phase_timer_matches_jax():
 
 
 def test_profiling_helpers(tmp_path):
-    out, sec = profiling.timed(lambda x: (x * 2, x), torch.ones(3))
-    assert torch.equal(out[0], torch.full((3,), 2.0)) and sec >= 0
     with profiling.profiler_trace(str(tmp_path / "prof")) as prof:
         torch.ones(64).sum()
     assert prof is not None
