@@ -4362,12 +4362,23 @@ class ShadowedKernels:
     results for K2 and K7a), and ``stats`` counts, per kernel, the calls,
     the lanes and the lanes on which any output word differs. The wrappers
     are module attributes looked up at call time, so the path under test
-    runs unchanged."""
+    runs unchanged, but for one thing: the strided loop runs pass by pass
+    (``integrator._eager_strided_loop``), since its chunks otherwise replay
+    a captured graph, whose launches no wrapper sees (``strided_graph``
+    holds the two loops bit for bit at these tiles' shapes)."""
 
     def __init__(self):
+        from raytracingweekend_jl_tpu_torch.ops import integrator as I
         from raytracingweekend_jl_tpu_torch.ops.cuda import grad_kernel as GK
         from raytracingweekend_jl_tpu_torch.ops.cuda import (
             intersect_kernel as K1, shade_kernel as K2)
+
+        def pass_by_pass(tables, st, cc, seed32, offset, depth, tmin):
+            I._eager_strided_loop(tables, st, cc, seed32, offset, depth,
+                                  tmin, "kernels")
+            return I.strided_result(st)
+
+        self.loop = (I, I._chunked_strided_sums, pass_by_pass)
         self.mods = {"sweep": K1, "sweep_masked": K1,
                      "shade_strided_step": K2, "record_shade_step": GK,
                      "replay_bwd_fused": GK}
@@ -4429,11 +4440,13 @@ class ShadowedKernels:
     def __enter__(self):
         for k, m in self.mods.items():
             setattr(m, k, self.spies[k])
+        self.loop[0]._chunked_strided_sums = self.loop[2]
         return self
 
     def __exit__(self, *exc):
         for k, m in self.mods.items():
             setattr(m, k, self.real[k])
+        self.loop[0]._chunked_strided_sums = self.loop[1]
 
 
 def sharded_vs_plain_phase(dev, card, scene, cam, W: int, H: int, target,
@@ -5255,6 +5268,113 @@ def k1_phase_rays(dev, cam, spheres, g=None):
     return torch.cat([rays_cam, torch.cat([p.T, d_sc.T])], dim=1).contiguous()
 
 
+def strided_graph_phase(dev, card) -> None:
+    """``strided_graph``: the strided loop's chunks replayed as one captured
+    CUDA graph each (``integrator._chunked_strided_sums``, the route of
+    ``impl="kernels"``) against the loop pass by pass
+    (``integrator._eager_strided_loop`` with the kernels), bit for bit: the
+    flagship film (1920x1080, k = 64, spp 4), the defocus benchmark's film
+    (96x54, spp 16 in 16 sample groups) and two sharded tiles (8 192
+    pixels from ``pixel_start = 127 * 8192``, then the film's last, ragged
+    1 024: k = 1, 4 sample groups), each shape twice with other seeds and
+    first samples through one plan, so that no call's scalar is held in a
+    graph. Reports the program's ``rtw.render.graph_captures`` and
+    ``graph_replays`` counters (under one CPU-only profiler), the K1 and
+    K2 launch counts of one call (eight each a replay), and each film's
+    call time both ways (median of 5, in turns)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops import integrator as I
+    from raytracingweekend_jl_tpu_torch.utils import profiling
+
+    book = pt.trim_scene(pt.scene_random_spheres(seed=1, device=dev))
+    diel = pt.trim_scene(pt.scene_diel_spheres(device=dev))
+    cam1, cam2 = pt.t_cam1(device=dev), pt.t_cam2(device=dev)
+    # name: (scene, camera, W, H, n_pix, pixel_start, k, groups, spp)
+    films = {"flagship_1080p": (book, cam1, 1920, 1080, 1920 * 1080, 0, 64,
+                                1, 4),
+             "defocus_96px": (diel, cam2, 96, 54, 96 * 54, 0, 1, 16, 16),
+             "tile_127": (book, cam1, 1920, 1080, 8192, 127 * 8192, 1, 4, 4),
+             "tile_253_last": (book, cam1, 1920, 1080, 1024, 253 * 8192, 1,
+                               4, 4)}
+    calls = ((7, 0), (2**31 + 5, 4))
+
+    def graphed(f, seed, offset):
+        sc, cm, W, H, n, start, k, m, spp = f
+        return I.persistent_render_sum_strided(
+            sc, cm, n, seed, spp, offset, 16, 1e-4, float(W), float(H), k=k,
+            pixel_start=start, sample_groups=m, impl="kernels")
+
+    def eager(f, seed, offset):
+        sc, cm, W, H, n, start, k, m, spp = f
+        st, cc, tables, seed32 = I.strided_setup(
+            sc, cm, n, seed, spp, offset, 16, W, H, k, start, m, None, None)
+        I._eager_strided_loop(tables, st, cc, seed32, offset, 16, 1e-4,
+                              "kernels")
+        return I.strided_result(st)
+
+    I._STRIDED_PLANS.clear()
+    profiling.reset()
+    rows, counters = {}, {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        for name, f in films.items():
+            before = dict(profiling.summary()["counters"])
+            row = {"calls": []}
+            for seed, offset in calls:
+                a, b = graphed(f, seed, offset), eager(f, seed, offset)
+                torch.cuda.synchronize()
+                row["calls"].append({
+                    "seed": seed, "first_sample": offset,
+                    "bitwise": bool(torch.equal(a, b)),
+                    "pixels_differing": int((a != b).any(1).sum()),
+                    "finite": bool(torch.isfinite(a).all())})
+            after = profiling.summary()["counters"]
+            row["counters"] = {k: after.get(k, 0) - before.get(k, 0)
+                               for k in ("rtw.render.graph_captures",
+                                         "rtw.render.graph_replays",
+                                         "rtw.render.iters")}
+            rows[name] = row
+        counters = profiling.summary()["counters"]
+    profiling.reset()
+    reset_counts()
+    graphed(films["flagship_1080p"], 3, 0)
+    torch.cuda.synchronize()
+    one_call = {k: v for k, v in counts().items()
+                if k in ("sweep", "shade_strided", "gather")}
+    times = {}
+    for name in ("flagship_1080p", "defocus_96px"):
+        f = films[name]
+        runs = {"graphed": [], "eager": []}
+        for i in range(5):
+            for way, fn in (("graphed", graphed), ("eager", eager)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(f, 11 + i, 0)
+                torch.cuda.synchronize()
+                runs[way].append(time.perf_counter() - t0)
+        times[name] = {way: sorted(v)[2] for way, v in runs.items()}
+    emit({"phase": "strided_graph", "card": card, "films": rows,
+          "plans_kept": len(I._STRIDED_PLANS),
+          "counters_all_calls": {k: v for k, v in counters.items()
+                                 if k.startswith("rtw.render.")},
+          "launches_one_flagship_call": one_call,
+          "call_seconds_median_of_5": times,
+          "tolerance": "every call's sums bit for bit the eager loop's; one "
+                       "capture a shape, the second call of a shape none; "
+                       "K1 and K2 counted 8 each a replay, no gather"})
+    for name, row in rows.items():
+        for c in row["calls"]:
+            check(c["bitwise"] and c["finite"],
+                  f"strided_graph {name}: graphed sums differ from the "
+                  f"eager loop's: {c}")
+        check(row["counters"]["rtw.render.graph_captures"] == 1,
+              f"strided_graph {name}: captures {row['counters']}")
+    check(one_call["sweep"] == one_call["shade_strided"] > 0
+          and one_call["sweep"] % 8 == 0 and one_call["gather"] == 0,
+          f"strided_graph: one call launched {one_call}")
+
+
 def mid_render_state(scene, cam, W: int, H: int, SPP: int, k: int = 64):
     """The flagship's strided state after 24 iterations (32 400 lanes at
     k = 64): ``(state, camera constants, tables, seed)``."""
@@ -5409,6 +5529,10 @@ def main() -> int:
           "tolerance": "0 lanes differ in any word after every iteration"})
     check(not any(loop_bad), f"K2's loop differs from plain: {loop_bad}")
     del st_k, st_p
+
+    # -- 3a. the strided loop's chunks as captured CUDA graphs against the
+    # loop pass by pass, bit for bit --------------------------------------
+    strided_graph_phase(dev, card)
 
     # -- 3b. the regenerated camera ray against make_rays' (K2, K9, K12);
     # the kernels' normalisation against its plain version on every float;

@@ -42,6 +42,12 @@
 // PyTorch version (shade_strided_step_ref) can be fed the same numbers.
 // Built with --fmad=false: each expression is evaluated as written, in the
 // same order as the plain version.
+//
+// The strided loop runs its passes in chunks of 8, each chunk one replay of
+// a captured CUDA graph (ops/integrator.py): there K2 reads the call's
+// scalars from a parameter block (`params`), so that one capture serves
+// every call of its shape, and a chunk ends in rtw_strided_chunk_end, which
+// leaves the any-lane-active flag where the host reads it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,15 +55,34 @@
 #include "philox.cuh"
 #include "shade_core.cuh"
 
+// The graphed loop's parameter block (int32, ops/cuda/shade_kernel.py
+// PARAMS_*): the call's Philox seed, first sample and p_end, the iteration
+// of the chunk's first pass (advanced at each chunk's end) and iter_limit.
+#define RTW_P_SEED 0
+#define RTW_P_FIRST_SAMPLE 1
+#define RTW_P_END 2
+#define RTW_P_BASE 3
+#define RTW_P_LIMIT 4
+
 __global__ void shade_strided_kernel(
     float* __restrict__ fs, int* __restrict__ is, float* __restrict__ buf,
     const float* __restrict__ t_in, const int* __restrict__ idx,
     const float* __restrict__ amat, const float* __restrict__ cam,
     const float* __restrict__ u9, int n, int k, int W, int H, int dpx,
     int dpy, int p_end, int first_sample, int max_depth, uint32_t seed,
-    uint32_t iteration) {
+    uint32_t iteration, const int* __restrict__ params) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  if (params) {
+    // A pass of the graphed loop's chunk: `iteration` is its place in the
+    // chunk, and the call's scalars are read from the parameter block. A
+    // pass at or past the loop's end changes nothing.
+    iteration += (uint32_t)params[RTW_P_BASE];
+    if ((int)iteration >= params[RTW_P_LIMIT]) return;
+    seed = (uint32_t)params[RTW_P_SEED];
+    first_sample = params[RTW_P_FIRST_SAMPLE];
+    p_end = params[RTW_P_END];
+  }
 
   float ox = fs[0 * n + i], oy = fs[1 * n + i], oz = fs[2 * n + i];
   float dx = fs[3 * n + i], dy = fs[4 * n + i], dz = fs[5 * n + i];
@@ -142,6 +167,25 @@ __global__ void shade_strided_kernel(
   is[3 * n + i] = pxi; is[4 * n + i] = pyi; is[5 * n + i] = active ? 1 : 0;
 }
 
+// The one launch of K2. params: NULL (every scalar from the arguments),
+// or the graphed loop's parameter block.
+static int rtw_launch_shade_strided(float* fstate, int* istate, float* buf,
+                                    const float* t, const int* idx,
+                                    const float* amat, const float* cam,
+                                    const float* u9, int n, int k, int W,
+                                    int H, int dpx, int dpy, int p_end,
+                                    int first_sample, int max_depth,
+                                    unsigned int seed, unsigned int iteration,
+                                    const int* params, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  shade_strided_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      fstate, istate, buf, t, idx, amat, cam, u9, n, k, W, H, dpx, dpy, p_end,
+      first_sample, max_depth, seed, iteration, params);
+  return (int)cudaGetLastError();
+}
+
 // fstate [12, n] f32 and istate [7, n] i32 are updated in place; buf [3k, n]
 // f32 is accumulated in place. idx [n] i32: the sweep's winners, rows of
 // amat [N, 10] f32. u9 [9, n] f32 may be NULL (in-kernel Philox).
@@ -153,11 +197,58 @@ extern "C" int rtw_shade_strided(float* fstate, int* istate, float* buf,
                                  int p_end, int first_sample, int max_depth,
                                  unsigned int seed, unsigned int iteration,
                                  void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  shade_strided_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      fstate, istate, buf, t, idx, amat, cam, u9, n, k, W, H, dpx, dpy, p_end,
-      first_sample, max_depth, seed, iteration);
-  return (int)cudaGetLastError();
+  return rtw_launch_shade_strided(fstate, istate, buf, t, idx, amat, cam, u9,
+                                  n, k, W, H, dpx, dpy, p_end, first_sample,
+                                  max_depth, seed, iteration, nullptr, stream);
+}
+
+// K2 as pass `pass` of a graphed chunk: the state as rtw_shade_strided's,
+// in-kernel Philox, and seed, first sample, p_end and the iteration
+// (params[RTW_P_BASE] + pass) read from params [5] i32 when it runs.
+extern "C" int rtw_shade_strided_pass(float* fstate, int* istate, float* buf,
+                                      const float* t, const int* idx,
+                                      const float* amat, const float* cam,
+                                      const int* params, int n, int k, int W,
+                                      int H, int dpx, int dpy, int max_depth,
+                                      unsigned int pass, void* stream) {
+  return rtw_launch_shade_strided(fstate, istate, buf, t, idx, amat, cam,
+                                  nullptr, n, k, W, H, dpx, dpy, 0, 0,
+                                  max_depth, 0u, pass, params, stream);
+}
+
+// The end of a graphed chunk of `passes` passes, chunk c = params[BASE] /
+// passes: flags[c & 1] = c + 1 where any lane is still active (each block
+// that holds one writes it; the slot keeps chunk c - 2's c - 1 otherwise,
+// or the zeros a call starts from), then params[BASE] += passes, in a
+// second kernel, once every block has read it.
+__global__ void strided_chunk_flag_kernel(const int* __restrict__ active,
+                                          int n,
+                                          const int* __restrict__ params,
+                                          int passes, int* __restrict__ flags) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (__syncthreads_or(i < n && active[i] != 0) && threadIdx.x == 0) {
+    const int c = params[RTW_P_BASE] / passes;
+    flags[c & 1] = c + 1;
+  }
+}
+
+__global__ void strided_chunk_advance_kernel(int* params, int passes) {
+  params[RTW_P_BASE] += passes;
+}
+
+// active: istate's active plane [n] i32; params [5] i32; flags [2] i32 on
+// the card; host_flags [2] i32 in pinned host memory, which gets a copy of
+// flags. Three operations on `stream`, all of which a graph can capture.
+extern "C" int rtw_strided_chunk_end(const int* active, int n, int* params,
+                                     int passes, int* flags, int* host_flags,
+                                     void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0)
+    strided_chunk_flag_kernel<<<(n + 255) / 256, 256, 0, s>>>(
+        active, n, params, passes, flags);
+  strided_chunk_advance_kernel<<<1, 1, 0, s>>>(params, passes);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemcpyAsync(host_flags, flags, 2 * sizeof(int),
+                              cudaMemcpyDeviceToHost, s);
 }

@@ -47,6 +47,12 @@ _SIGNATURES = {
     # max_depth, seed, iteration, stream
     "rtw_shade_strided": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _U, _U, _P],
+    # fstate[12,R], istate[7,R], buf[3k,R], t[R], idx[R], amat[N,10],
+    # cam[21], params[5], R, k, W, H, dpx, dpy, max_depth, pass, stream
+    "rtw_shade_strided_pass": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _U, _P],
+    # active[R], R, params[5], passes, flags[2], host_flags[2], stream
+    "rtw_strided_chunk_end": [_P, _I, _P, _I, _P, _P, _P],
     # rays[6,R], spheres[N,4], amat[N,10], R, N, tmin, t[R], idx[R],
     # attrs[10,R], parts, stream
     "rtw_sweep_fetch": [_P, _P, _P, _I, _I, _F, _P, _P, _P, _I, _P],

@@ -8,6 +8,8 @@ Counterparts of ``raytracingweekend_jl_tpu/ops/pallas/intersect_kernel.py``
 :func:`sweep`, :func:`sweep_masked` and :func:`sweep_fetch` launch the CUDA
 kernels on CUDA tensors and run :func:`sweep_ref`, :func:`sweep_masked_ref`
 and :func:`sweep_fetch_ref` on CPU tensors; nothing else.
+:func:`sweep_into` launches K1 into outputs the caller keeps (the strided
+loop's captured chunk).
 
 K1, K3 and K10 split each ray's sweep over a group of P threads of one
 warp and merge the parts on the lexicographic minimum of ``(t, idx)``,
@@ -266,19 +268,41 @@ def sweep(rays: torch.Tensor, spheres: torch.Tensor,
         return sweep_ref(rays, spheres, tmin)
     _check_sweep_args("sweep", rays, spheres)
     n_rays, n_sph = rays.shape[1], spheres.shape[0]
+    t = torch.empty(n_rays, dtype=torch.float32, device=rays.device)
+    idx = torch.empty(n_rays, dtype=torch.int32, device=rays.device)
+    _launch_sweep(rays, spheres, tmin, parts, t, idx)
+    launches += 1
+    return t, idx
+
+
+def sweep_into(rays: torch.Tensor, spheres: torch.Tensor, t: torch.Tensor,
+               idx: torch.Tensor, tmin: float = DEFAULT_TMIN,
+               parts: int | None = None) -> None:
+    """K1 as :func:`sweep`, on CUDA tensors, writing ``t`` [R] float32 and
+    ``idx`` [R] int32 in place: the sweep of the strided loop's captured
+    chunk, whose outputs keep their addresses. Not counted in
+    :data:`launches`: the loop counts its chunk's replays."""
+    if parts is not None:
+        _check_parts("sweep_into", parts)
+    _check_sweep_args("sweep_into", rays, spheres)
+    n_rays = rays.shape[1]
+    build.check_arg("sweep_into: t", t, torch.float32, (n_rays,), rays.device)
+    build.check_arg("sweep_into: idx", idx, torch.int32, (n_rays,),
+                    rays.device)
+    _launch_sweep(rays, spheres, tmin, parts, t, idx)
+
+
+def _launch_sweep(rays, spheres, tmin, parts, t, idx) -> None:
+    n_rays, n_sph = rays.shape[1], spheres.shape[0]
     if parts is None:
         parts = sweep_parts(n_rays, n_sph,
                             _resident_threads(rays.device, n_sph))
-    t = torch.empty(n_rays, dtype=torch.float32, device=rays.device)
-    idx = torch.empty(n_rays, dtype=torch.int32, device=rays.device)
     lib = build.load()
     with torch.cuda.device(rays.device):  # the launch uses the current device
         err = lib.rtw_sweep(rays.data_ptr(), spheres.data_ptr(), n_rays, n_sph,
                             float(tmin), t.data_ptr(), idx.data_ptr(), parts,
                             torch.cuda.current_stream().cuda_stream)
     build.check(err, "sweep")
-    launches += 1
-    return t, idx
 
 
 def sweep_masked(rays: torch.Tensor, alive: torch.Tensor,

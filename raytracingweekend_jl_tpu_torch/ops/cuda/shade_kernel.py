@@ -22,6 +22,9 @@ K2 takes the sweep's winner index and the [N, 10] attribute table and
 fetches the winner's row itself: :func:`shade_strided_step` launches the
 CUDA kernel on CUDA tensors and runs :func:`shade_strided_fetch_ref` (the
 gather, then :func:`shade_strided_step_ref`) on CPU tensors; nothing else.
+:func:`shade_strided_pass` is K2 as the strided loop's captured chunk runs
+it, its per-call scalars read from a parameter block on the card, and
+:func:`strided_chunk_end` the chunk's end (the any-lane-active flag).
 
 K9 — one pixel-pinned persistent iteration (csrc/shade_pinned.cu), the
 counterpart of ``_shade_kernel`` with ``_shade_math`` — keeps one lane per
@@ -61,6 +64,13 @@ pinned_launches = 0
 N_FSTATE = 12
 N_ISTATE = 7
 N_PINNED_ISTATE = 3
+
+#: The strided loop's parameter block (int32 [N_PARAMS], csrc/shade_strided.cu
+#: ``RTW_P_*``): the call's Philox seed (its bits), first sample and p_end,
+#: the iteration of the chunk's first pass, and the loop's iteration limit.
+PARAMS_SEED, PARAMS_FIRST_SAMPLE, PARAMS_END, PARAMS_BASE, PARAMS_LIMIT = \
+    range(5)
+N_PARAMS = 5
 
 _TWO_PI = np.float32(2.0 * np.pi)
 _QP = np.float32(np.pi / 4)
@@ -344,6 +354,27 @@ def _check_planes(name, x, dtype, shape, device):
         raise ValueError(f"shade_strided_step: {name} must be contiguous")
 
 
+def _check_strided(fstate, istate, buf, t, idx, amat, cam, dev) -> tuple:
+    """``(n_lanes, k)`` of K2's arguments on ``dev``; raises on anything
+    the kernel does not take."""
+    if dev.type != "cuda":
+        raise ValueError(f"shade_strided_step: unsupported device {dev}")
+    n = t.shape[0] if t.dim() == 1 else -1
+    k = buf.shape[0] // 3 if buf.dim() == 2 else -1
+    f32, i32 = torch.float32, torch.int32
+    _check_planes("fstate", fstate, f32, (N_FSTATE, n), dev)
+    _check_planes("istate", istate, i32, (N_ISTATE, n), dev)
+    _check_planes("buf", buf, f32, (3 * k, n), dev)
+    _check_planes("t", t, f32, (n,), dev)
+    _check_planes("idx", idx, i32, (n,), dev)
+    _check_planes("amat", amat, f32,
+                  (amat.shape[0] if amat.dim() == 2 else -1, 10), dev)
+    _check_planes("cam", cam, f32, (21,), dev)
+    if k < 1:
+        raise ValueError("shade_strided_step: buf must hold 3k planes, k >= 1")
+    return n, k
+
+
 def shade_strided_step(fstate: torch.Tensor, istate: torch.Tensor,
                        buf: torch.Tensor, t: torch.Tensor,
                        idx: torch.Tensor, amat: torch.Tensor,
@@ -361,23 +392,9 @@ def shade_strided_step(fstate: torch.Tensor, istate: torch.Tensor,
                                        geom, seed, iteration, first_sample,
                                        max_depth, u9)
     dev = fstate.device
-    if dev.type != "cuda":
-        raise ValueError(f"shade_strided_step: unsupported device {dev}")
-    n = t.shape[0] if t.dim() == 1 else -1
-    k = buf.shape[0] // 3 if buf.dim() == 2 else -1
-    f32, i32 = torch.float32, torch.int32
-    _check_planes("fstate", fstate, f32, (N_FSTATE, n), dev)
-    _check_planes("istate", istate, i32, (N_ISTATE, n), dev)
-    _check_planes("buf", buf, f32, (3 * k, n), dev)
-    _check_planes("t", t, f32, (n,), dev)
-    _check_planes("idx", idx, i32, (n,), dev)
-    _check_planes("amat", amat, f32,
-                  (amat.shape[0] if amat.dim() == 2 else -1, 10), dev)
-    _check_planes("cam", cam, f32, (21,), dev)
+    n, k = _check_strided(fstate, istate, buf, t, idx, amat, cam, dev)
     if u9 is not None:
-        _check_planes("u9", u9, f32, (9, n), dev)
-    if k < 1:
-        raise ValueError("shade_strided_step: buf must hold 3k planes, k >= 1")
+        _check_planes("u9", u9, torch.float32, (9, n), dev)
     W, H, dpx, dpy, p_end = (int(g) for g in geom)
     lib = build.load()
     with torch.cuda.device(dev):  # the launch uses the current device
@@ -389,6 +406,75 @@ def shade_strided_step(fstate: torch.Tensor, istate: torch.Tensor,
             iteration & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
     build.check(err, "shade_strided_step")
     launches += 1
+
+
+def shade_strided_pass(fstate: torch.Tensor, istate: torch.Tensor,
+                       buf: torch.Tensor, t: torch.Tensor, idx: torch.Tensor,
+                       amat: torch.Tensor, cam: torch.Tensor, geom: tuple,
+                       params: torch.Tensor, j: int, max_depth: int) -> None:
+    """K2 as pass ``j`` of the strided loop's chunk, in place: iteration
+    ``params[PARAMS_BASE] + j`` with the seed, first sample and p_end read
+    from ``params`` [N_PARAMS] int32 (``geom``'s p_end is not read), the
+    kernel's own draws; a pass at or past ``params[PARAMS_LIMIT]`` changes
+    nothing. On the card the kernel reads ``params`` when it runs, so that
+    a captured chunk serves every call.
+
+    CPU tensors run :func:`shade_strided_fetch_ref` with those scalars.
+    CUDA tensors launch the kernel on the current stream, not counted in
+    :data:`launches` (the loop counts its chunk's replays)."""
+    if fstate.device.type == "cpu":
+        seed, first, p_end, base, limit = params.tolist()
+        if base + j < limit:
+            shade_strided_fetch_ref(fstate, istate, buf, t, idx, amat, cam,
+                                    (*geom[:4], p_end), seed & 0xFFFFFFFF,
+                                    base + j, first, max_depth)
+        return
+    dev = fstate.device
+    n, k = _check_strided(fstate, istate, buf, t, idx, amat, cam, dev)
+    _check_planes("params", params, torch.int32, (N_PARAMS,), dev)
+    W, H, dpx, dpy = (int(g) for g in geom[:4])
+    with torch.cuda.device(dev):
+        err = build.load().rtw_shade_strided_pass(
+            fstate.data_ptr(), istate.data_ptr(), buf.data_ptr(), t.data_ptr(),
+            idx.data_ptr(), amat.data_ptr(), cam.data_ptr(), params.data_ptr(),
+            n, k, W, H, dpx, dpy, int(max_depth), j,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "shade_strided_pass")
+
+
+def strided_chunk_end(istate: torch.Tensor, params: torch.Tensor,
+                      flags: torch.Tensor, host_flags: torch.Tensor,
+                      passes: int) -> None:
+    """The end of the strided loop's chunk of ``passes`` passes, chunk ``c
+    = params[PARAMS_BASE] // passes``: ``flags[c % 2] = c + 1`` if any lane
+    of ``istate`` is active (else the slot is left as it is), then
+    ``params[PARAMS_BASE] += passes`` and ``host_flags`` [2] int32 (pinned
+    host memory on the card) gets a copy of ``flags`` [2] int32. Plain
+    PyTorch on CPU tensors; on the card two kernels and a copy on the
+    current stream (csrc/shade_strided.cu)."""
+    if istate.device.type == "cpu":
+        c = int(params[PARAMS_BASE]) // passes
+        if bool(istate[5].any()):
+            flags[c % 2] = c + 1
+        params[PARAMS_BASE] += passes
+        host_flags.copy_(flags)
+        return
+    dev, i32 = istate.device, torch.int32
+    build.check_arg("strided_chunk_end: istate", istate, i32,
+                    (N_ISTATE, istate.shape[1]), dev)
+    build.check_arg("strided_chunk_end: params", params, i32, (N_PARAMS,),
+                    dev)
+    build.check_arg("strided_chunk_end: flags", flags, i32, (2,), dev)
+    build.check_arg("strided_chunk_end: host_flags", host_flags, i32, (2,),
+                    torch.device("cpu"))
+    if not host_flags.is_pinned():
+        raise ValueError("strided_chunk_end: host_flags must be pinned")
+    with torch.cuda.device(dev):
+        err = build.load().rtw_strided_chunk_end(
+            istate[5].data_ptr(), istate.shape[1], params.data_ptr(), passes,
+            flags.data_ptr(), host_flags.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "strided_chunk_end")
 
 
 # ---------------------------------------------------------------------------

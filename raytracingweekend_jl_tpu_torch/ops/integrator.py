@@ -35,6 +35,9 @@ reference package's CPU persistent drivers run.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+from collections import OrderedDict
 from typing import Callable, NamedTuple
 
 import torch
@@ -48,7 +51,7 @@ from .intersect import BIG, DEFAULT_TMIN, HitResult, intersect_spheres
 from .materials import (attr_mat, fetch_attr_planes, gather_sphere_attrs,
                         positional_draws, scatter, slot_draws)
 from .sampling import concentric_disk_map, per_ray_uniforms
-from .cuda import intersect_kernel, shade_kernel
+from .cuda import build, intersect_kernel, shade_kernel
 
 #: Reference default bounce depth (src/ray_color.jl:14).
 DEFAULT_MAX_DEPTH = 16
@@ -234,6 +237,25 @@ def strided_result(st: StridedState) -> torch.Tensor:
     return planes.reshape(3, st.k * n_lanes)[:, :st.n_pix].T.contiguous()
 
 
+def strided_setup(scene: Scene, cam, n_pix: int, seed: int, n_samples: int,
+                  sample_offset: int, max_depth: int, W: int, H: int, k: int,
+                  pixel_start: int, sample_groups: int,
+                  generator: torch.Generator | None,
+                  init_u4: torch.Tensor | None) -> tuple:
+    """``(st, cam_consts, tables, seed32)`` of a strided render on the
+    scene's device: the state (:func:`init_strided_state`), the camera's
+    constants, ``(scene, sphere_consts, attr_mat)`` and the key word of the
+    in-kernel draws; what either strided loop starts from."""
+    device = scene.device
+    st = init_strided_state(cam, n_pix, W, H, seed, n_samples, sample_offset,
+                            max_depth, k, pixel_start, sample_groups,
+                            generator=generator, init_u4=init_u4,
+                            device=device)
+    cam_consts = shade_kernel.pack_camera_consts(cam, W, H, device=device)
+    tables = (scene, intersect_kernel.sphere_consts(scene), attr_mat(scene))
+    return st, cam_consts, tables, rng.persistent_seed(seed, sample_offset)
+
+
 def persistent_render_sum_strided(
         scene: Scene, cam, n_pix: int, seed: int, n_samples: int,
         sample_offset: int = 0, max_depth: int = DEFAULT_MAX_DEPTH,
@@ -252,9 +274,14 @@ def persistent_render_sum_strided(
     strip-0 draws, ``rng_u9_fn(it)`` -> [9, n_lanes] the per-iteration ones
     (the in-kernel Philox stream otherwise).
 
+    With ``impl="kernels"`` and no ``rng_u9_fn`` the loop runs in chunks of
+    ``ACTIVE_CHECK_EVERY`` passes, each a replay of one captured CUDA graph
+    (:func:`_chunked_strided_sums`); otherwise pass by pass
+    (:func:`_eager_strided_loop`). Both give the same sums, bit for bit.
+
     Spans ``rtw.render.loop`` and ``rtw.render.result``; the counter
-    ``rtw.render.iters`` counts the loop's passes, the last of which may be
-    the active check that found no lane active."""
+    ``rtw.render.iters`` counts the loop's passes (the eager loop's last may
+    be the active check that found no lane active)."""
     device = scene.device
     if cam.origin.device != device:
         raise ValueError(f"scene on {device} but camera on {cam.origin.device}")
@@ -266,28 +293,287 @@ def persistent_render_sum_strided(
     if max_depth <= 0 or n_samples <= 0:
         return torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
     _check_film(f32_w, f32_h)
-    W, H = int(f32_w), int(f32_h)
-
-    st = init_strided_state(cam, n_pix, W, H, seed, n_samples, sample_offset,
-                            max_depth, k, pixel_start, sample_groups,
-                            generator=generator, init_u4=init_u4,
-                            device=device)
-    cam_consts = shade_kernel.pack_camera_consts(cam, W, H, device=device)
-    tables = (scene, intersect_kernel.sphere_consts(scene), attr_mat(scene))
-    seed32 = rng.persistent_seed(seed, sample_offset)
-
+    st, cam_consts, tables, seed32 = strided_setup(
+        scene, cam, n_pix, seed, n_samples, sample_offset, max_depth,
+        int(f32_w), int(f32_h), k, pixel_start, sample_groups, generator,
+        init_u4)
+    if impl == "kernels" and rng_u9_fn is None:
+        return _chunked_strided_sums(tables, st, cam_consts, seed32,
+                                     sample_offset, max_depth, tmin)
     with span("rtw.render.loop"):
-        for it in range(st.iter_limit):  # iter_limit >= 1
-            if it % ACTIVE_CHECK_EVERY == 0:
-                with sync("active_check"):
-                    if not bool(st.istate[5].any()):
-                        break
-            u9 = None if rng_u9_fn is None else rng_u9_fn(it)
-            strided_step(tables, st, cam_consts, seed32, it, sample_offset,
-                         max_depth, tmin, impl, u9)
-    count("rtw.render.iters", it + 1)
+        passes = _eager_strided_loop(tables, st, cam_consts, seed32,
+                                     sample_offset, max_depth, tmin, impl,
+                                     rng_u9_fn)
+    count("rtw.render.iters", passes)
     with span("rtw.render.result"):
         return strided_result(st)
+
+
+def _eager_strided_loop(tables: tuple, st: StridedState, cam_consts, seed32,
+                        sample_offset: int, max_depth: int, tmin: float,
+                        impl: str, rng_u9_fn=None) -> int:
+    """The strided loop pass by pass on ``st``, in place, the active check
+    before every ``ACTIVE_CHECK_EVERY``-th pass; returns the passes (the
+    check that found no lane active counts as one). The route of the plain
+    implementation and of the test hook ``rng_u9_fn``; the card checks hold
+    the chunked loop against it."""
+    for it in range(st.iter_limit):  # iter_limit >= 1
+        if it % ACTIVE_CHECK_EVERY == 0:
+            with sync("active_check"):
+                if not bool(st.istate[5].any()):
+                    break
+        u9 = None if rng_u9_fn is None else rng_u9_fn(it)
+        strided_step(tables, st, cam_consts, seed32, it, sample_offset,
+                     max_depth, tmin, impl, u9)
+    return it + 1
+
+
+# ---------------------------------------------------------------------------
+# The chunked strided loop: one CUDA graph per chunk of passes
+# ---------------------------------------------------------------------------
+
+#: The most chunk plans kept, least recently used out first: each holds its
+#: loop shape's state (28 MB at the flagship's k = 64) and its captured chunk.
+STRIDED_PLANS_KEPT = 4
+
+_STRIDED_PLANS: OrderedDict = OrderedDict()
+
+
+def strided_plan_key(st: StridedState, n_spheres: int, max_depth: int,
+                     tmin: float, stream_id: int = 0,
+                     library: str | None = None) -> tuple:
+    """What a captured chunk holds fixed: the device, the lanes, ``k``, the
+    sample groups, the (padded) sphere count, the film's ``W`` and ``H``,
+    ``max_depth``, ``tmin``, the stream it runs on (its order keeps a
+    call's copies behind the last call's chunks) and the kernel library
+    loaded (a rebuilt one gets its own capture). A call's seed, first
+    sample, ``p_end`` and iteration limit are read from the parameter block,
+    so one plan serves every tile of one shape."""
+    dev = st.fstate.device
+    return (dev.type, dev.index, st.fstate.shape[1], st.k, st.sample_groups,
+            n_spheres, st.geom[0], st.geom[1], max_depth, float(tmin),
+            stream_id, library)
+
+
+def lru_get(cache: OrderedDict, key, make: Callable, capacity: int) -> tuple:
+    """``(cache[key], dropped)``: the entry, made by ``make()`` if missing,
+    now the most recently used, and the entries dropped to keep at most
+    ``capacity``, least recently used first."""
+    if key in cache:
+        cache.move_to_end(key)
+        return cache[key], []
+    cache[key] = make()
+    dropped = []
+    while len(cache) > capacity:
+        dropped.append(cache.popitem(last=False)[1])
+    return cache[key], dropped
+
+
+def run_chunks(n_chunks: int, queue: Callable[[int], None],
+               active_after: Callable[[int], bool]) -> int:
+    """The chunked loop's schedule: ``queue(0)``, then ``queue(c + 1)``
+    before ``active_after(c)`` waits for chunk ``c`` and says whether a lane
+    is still active after it, so one chunk is in flight while the host
+    waits; it stops when a flag says no lane is active, or once all
+    ``n_chunks`` (>= 1) are queued. Each wait is one ``active_check`` sync.
+    Returns the chunks queued. A pass with no active lane changes nothing,
+    so the chunks past the last active pass leave the sums as they are."""
+    queue(0)
+    queued = 1
+    while queued < n_chunks:
+        queue(queued)
+        queued += 1
+        with sync("active_check"):
+            if not active_after(queued - 2):
+                break
+    return queued
+
+
+def _strided_chunk(tables: tuple, st: StridedState, cam_consts, params,
+                   flags, host_flags, hits: tuple, max_depth: int,
+                   tmin: float, parts: int | None) -> None:
+    """One chunk on ``st``, in place: ``ACTIVE_CHECK_EVERY`` passes of the
+    sweep and K2 (:func:`shade_kernel.shade_strided_pass`, its scalars from
+    ``params``), then :func:`shade_kernel.strided_chunk_end`. On the card
+    K1 writes ``hits`` (t, idx) and the chunk is what the graph captures;
+    on the CPU the plain sweep and step run it as it stands."""
+    for j in range(ACTIVE_CHECK_EVERY):
+        if st.fstate.is_cuda:
+            intersect_kernel.sweep_into(st.fstate[0:6], tables[1], *hits,
+                                        tmin, parts)
+            t, idx = hits
+        else:
+            t, idx = sweep_hits(tables, st.fstate[0:6], tmin, "plain")
+        shade_kernel.shade_strided_pass(st.fstate, st.istate, st.buf, t, idx,
+                                        tables[2], cam_consts, st.geom,
+                                        params, j, max_depth)
+    shade_kernel.strided_chunk_end(st.istate, params, flags, host_flags,
+                                   ACTIVE_CHECK_EVERY)
+
+
+class _StridedPlan:
+    """The chunked loop's fixed-address tensors for one key of
+    :func:`strided_plan_key`: the state, the sweep's ``t``/``idx``, the
+    sphere and attribute tables, the camera's constants, the parameter
+    block, the flags on the device and their copy on the host, and, on the
+    card, the captured chunk. ``lock`` is held while a call uses it, from
+    its copies to its result."""
+
+    def __init__(self, st: StridedState, tables: tuple, cam_consts):
+        dev = st.fstate.device
+        n = st.fstate.shape[1]
+        self.cuda = dev.type == "cuda"
+        self.st = st._replace(fstate=torch.empty_like(st.fstate),
+                              istate=torch.empty_like(st.istate),
+                              buf=torch.empty_like(st.buf))
+        self.hits = (torch.empty(n, dtype=torch.float32, device=dev),
+                     torch.empty(n, dtype=torch.int32, device=dev))
+        self.tables = (tables[0], torch.empty_like(tables[1]),
+                       torch.empty_like(tables[2]))
+        self.cam = torch.empty_like(cam_consts)
+        self.params = torch.zeros(shade_kernel.N_PARAMS, dtype=torch.int32,
+                                  device=dev)
+        self.flags = torch.zeros(2, dtype=torch.int32, device=dev)
+        self.host_flags = torch.zeros(2, dtype=torch.int32,
+                                      pin_memory=self.cuda)
+        self.host_view = self.host_flags.numpy()
+        self.lock = threading.Lock()
+        self.graph = None
+        self.parts = self.events = self.done = None
+        if self.cuda:
+            n_sph = tables[1].shape[0]
+            self.parts = intersect_kernel.sweep_parts(
+                n, n_sph, intersect_kernel._resident_threads(dev, n_sph))
+            self.events = [torch.cuda.Event(), torch.cuda.Event()]
+            self.done = torch.cuda.Event()
+
+    def load(self, st: StridedState, tables: tuple, cam_consts, seed32: int,
+             first_sample: int) -> None:
+        """Copy a call's fresh state, tables and camera in (device to
+        device) and write its scalars into the parameter block: one copy
+        from pinned memory, queued without a wait."""
+        for dst, src in ((self.st.fstate, st.fstate),
+                         (self.st.istate, st.istate),
+                         (self.tables[1], tables[1]),
+                         (self.tables[2], tables[2]), (self.cam, cam_consts)):
+            dst.copy_(src)
+        self.st.buf.zero_()
+        self.flags.zero_()
+        self.tables = (tables[0],) + self.tables[1:]  # the plain sweep's
+        seed = seed32 & 0xFFFFFFFF
+        scalars = torch.tensor(
+            [seed - (1 << 32) if seed >= 1 << 31 else seed, first_sample,
+             st.geom[4], 0, st.iter_limit], dtype=torch.int32,
+            pin_memory=self.cuda)
+        self.params.copy_(scalars, non_blocking=True)
+
+    def chunk(self, max_depth: int, tmin: float) -> None:
+        _strided_chunk(self.tables, self.st, self.cam, self.params,
+                       self.flags, self.host_flags, self.hits, max_depth,
+                       tmin, self.parts)
+
+    def capture(self, max_depth: int, tmin: float) -> None:
+        """Capture one chunk as a CUDA graph, on a side stream (a graph is
+        not captured on the default stream); nothing runs until a
+        replay."""
+        stream = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.chunk(max_depth, tmin)
+            finally:
+                graph.capture_end()
+        stream.wait_stream(side)
+        self.graph = graph
+
+    def queue(self, c: int, max_depth: int, tmin: float) -> None:
+        """Chunk ``c``: a replay of the captured chunk on the card (counted
+        as ``ACTIVE_CHECK_EVERY`` launches of K1 and of K2), the chunk
+        itself on the CPU."""
+        if not self.cuda:
+            self.chunk(max_depth, tmin)
+            return
+        self.graph.replay()
+        self.events[c % 2].record()
+        intersect_kernel.launches += ACTIVE_CHECK_EVERY
+        shade_kernel.launches += ACTIVE_CHECK_EVERY
+
+    def active_after(self, c: int) -> bool:
+        """Whether chunk ``c`` left a lane active, once it has run (its
+        flag slot is not written again before chunk ``c + 2``)."""
+        if self.cuda:
+            self.events[c % 2].synchronize()
+        return int(self.host_view[c % 2]) == c + 1
+
+    def retire(self) -> None:
+        """Wait until the last call's work on the plan has run, before the
+        plan (its graph, tensors and pinned flags) is dropped."""
+        with self.lock:
+            if self.cuda:
+                self.done.synchronize()
+
+
+def _chunked_strided_sums(tables: tuple, st: StridedState, cam_consts,
+                          seed32: int, sample_offset: int, max_depth: int,
+                          tmin: float) -> torch.Tensor:
+    """The strided loop on ``st``'s device in chunks of
+    ``ACTIVE_CHECK_EVERY`` passes, driven by :func:`run_chunks`, and its
+    sums (:func:`strided_result`), under
+    :func:`persistent_render_sum_strided`'s spans and counters.
+
+    The call's state, tables and camera are copied into the plan of its
+    shape (:func:`strided_plan_key`; at most :data:`STRIDED_PLANS_KEPT`,
+    least recently used out first), whose chunk is captured as a CUDA graph
+    once, on first use (counter ``rtw.render.graph_captures``), and replayed
+    for every chunk of every call (``rtw.render.graph_replays``). CPU
+    tensors (the tests) run the same plan, chunks and schedule, each chunk
+    as it stands."""
+    dev = st.fstate.device
+    with torch.cuda.device(dev) if dev.type == "cuda" \
+            else contextlib.nullcontext():
+        cuda = dev.type == "cuda"
+        key = strided_plan_key(
+            st, tables[1].shape[0], max_depth, tmin,
+            torch.cuda.current_stream().stream_id if cuda else 0,
+            build.load()._name if cuda else None)
+        with _PLANS_LOCK:
+            plan, dropped = lru_get(
+                _STRIDED_PLANS, key,
+                lambda: _StridedPlan(st, tables, cam_consts),
+                STRIDED_PLANS_KEPT)
+        for old in dropped:
+            old.retire()
+        with plan.lock:
+            with span("rtw.render.loop"):
+                plan.load(st, tables, cam_consts, seed32, sample_offset)
+                if plan.cuda and plan.graph is None:
+                    plan.capture(max_depth, tmin)
+                    count("rtw.render.graph_captures")
+                chunks = run_chunks(
+                    -(-st.iter_limit // ACTIVE_CHECK_EVERY),
+                    lambda c: plan.queue(c, max_depth, tmin),
+                    plan.active_after)
+            if plan.cuda:
+                count("rtw.render.graph_replays", chunks)
+            count("rtw.render.iters",
+                  min(chunks * ACTIVE_CHECK_EVERY, st.iter_limit))
+            with span("rtw.render.result"):
+                out = strided_result(st._replace(fstate=plan.st.fstate,
+                                                 istate=plan.st.istate,
+                                                 buf=plan.st.buf))
+                if out.untyped_storage().data_ptr() == \
+                        plan.st.buf.untyped_storage().data_ptr():
+                    out = out.clone()  # a view of the plan's strips
+                if plan.cuda:
+                    plan.done.record()
+                return out
+
+
+#: Held while the plans are looked up, made or dropped.
+_PLANS_LOCK = threading.Lock()
 
 
 # ---------------------------------------------------------------------------
