@@ -4,8 +4,10 @@
 --trace <0|1>``: set-up (inputs from the seed, the program's objects, one
 warm call at the cell's shapes), a closed-loop window of ``--seconds``,
 with ``--trace 1`` a traced sub-window after it, then the check against
-the plain reference. The last line of standard output is one JSON object;
-the numbers compared, each beside its limit, close standard error.
+the plain reference. The loop, its set-up and its check are the traffic
+mix's loop module (:func:`loop_module`); the metrics read the run by the
+module's kind (:class:`Run`). The last line of standard output is one JSON
+object; the numbers compared, each beside its limit, close standard error.
 """
 
 from __future__ import annotations
@@ -30,14 +32,27 @@ from .spec import PKG, ROOT, load_cell
 FORBIDDEN = ("jax", "jaxlib", "flax", "raytracingweekend_jl_tpu")
 
 
+def loop_module(cell):
+    """The cell's loop, ``portbench/loops/<loop>.py``, ``<loop>`` the
+    traffic mix's ``loop``."""
+    return importlib.import_module(f"portbench.loops.{cell.traffic['loop']}")
+
+
 class Run:
     """What one run measured; the metric readers take their numbers from
-    it."""
+    it.
+
+    ``kind`` is the loop module's ``KIND`` (``"render"`` or ``"grad"``), or
+    its file name where it sets none: the readers of a kind read the runs
+    of every loop of that kind, so a new loop, with its own plain
+    reference, reports the metrics of its kind. ``roofline`` is found by
+    the loop's file name, ``portbench/roofline/<loop>.py``: each loop
+    counts its own work."""
 
     def __init__(self, cell):
-        self.kind = cell.traffic["loop"]
-        self.roofline = importlib.import_module(f"portbench.roofline."
-                                                f"{self.kind}")
+        loop = cell.traffic["loop"]
+        self.kind = getattr(loop_module(cell), "KIND", loop)
+        self.roofline = importlib.import_module(f"portbench.roofline.{loop}")
         self.setup_s = 0.0
         self.call_s: list[float] = []
         self.window_s = 0.0
@@ -82,9 +97,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
              overrides: dict | None = None) -> dict:
     """One run's result line; ``t0`` is the process's start on
     :func:`time.perf_counter`."""
-    loops = importlib.import_module(f"portbench.loops.{cell.traffic['loop']}")
     run = Run(cell)
-    loop = loops.Loop(cell, seed, device, variant, overrides)
+    loop = loop_module(cell).Loop(cell, seed, device, variant, overrides)
     run.loop = loop
     loop.warm()
     on_card = torch.device(device).type == "cuda"

@@ -3,12 +3,15 @@ traffic mix, limits and metrics, each found by name.
 
 - configuration ``<config>``: ``portbench/configs/<config>.json``;
 - traffic mix ``<traffic>``: ``portbench/traffic/<traffic>.json``, whose
-  ``loop`` names the module ``portbench/loops/<loop>.py``;
+  ``loop`` names the module ``portbench/loops/<loop>.py``: the loop, its
+  plain reference's check, and its ``KIND`` (``"render"`` or ``"grad"``;
+  the file name where it sets none), the kind of run whose metrics the
+  cell reports;
 - a cell's limits on the numbers that decide ``correct``:
   ``portbench/limits/<cell>.json``;
 - metric ``<name>``: ``portbench/metrics/<name>.py`` (its ``read``);
-- the work a loop kind counts for a roofline:
-  ``portbench/roofline/<loop>.py``.
+- the work a loop counts for a roofline: ``portbench/roofline/<loop>.py``,
+  by the loop's file name, not its kind.
 """
 
 from __future__ import annotations

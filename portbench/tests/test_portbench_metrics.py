@@ -71,8 +71,11 @@ def _run(kind):
 
 @pytest.mark.parametrize("metric", [
     m["name"] for m in load_json(ROOT, "BENCHMARK.json")["per_layer"]
-    + load_json(ROOT, "BENCHMARK.json")["end_to_end"]])
+    + load_json(ROOT, "BENCHMARK.json")["end_to_end"]
+    if m["source"] in ("host_clock", "device_trace")])
 def test_each_reader_on_the_recorded_trace(metric):
+    """The readers of the host's clock and the profile; those of the
+    program's own spans and counters are test_portbench_program_spans.py's."""
     kind = "grad" if "grad" in metric else "render"
     got = load_reader(metric).read(_run(kind))
     other = load_reader(metric).read(_run("render" if kind == "grad"

@@ -13,9 +13,9 @@ import types
 
 import pytest
 
-from portbench.harness.main import load_reader, main
+from portbench.harness.main import Run, load_reader, main
 from portbench.harness.spans import ROOTS
-from portbench.harness.spec import ROOT, load_json
+from portbench.harness.spec import ROOT, load_cell, load_json
 
 #: Tiny films: blocks of 16 x 12 pixels, few reference samples and steps.
 SMALL = {"width": 64, "height": 36,
@@ -33,30 +33,33 @@ READERS = {
 
 class _Clock:
     """Half a second a reading: a window of ``s`` seconds is ``s`` calls,
-    the traced sub-window four."""
+    the traced sub-window four. A reading of ``tick`` seconds makes the
+    traced sub-window ``ceil(2 / tick)`` calls."""
 
-    def __init__(self):
+    def __init__(self, tick: float = 0.5):
         self.now = 0.0
+        self.tick = tick
 
     def perf_counter(self):
-        self.now += 0.5
+        self.now += self.tick
         return self.now
 
 
-def _run(cell: str, trace: int) -> dict:
+def _run(cell: str, trace: int, overrides: dict = SMALL,
+         tick: float = 0.5) -> dict:
     """One run's result line, the calls it traced, and the program's
     summary right after it."""
     from raytracingweekend_jl_tpu_torch.utils import profiling
     profiling.reset()
     out, err = io.StringIO(), io.StringIO()
     with pytest.MonkeyPatch.context() as mp:
-        clock = _Clock()
+        clock = _Clock(tick)
         mp.setattr("portbench.harness.main.time", clock)
         mp.setattr("portbench.loops.grad.time", clock)
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = main(["--workload", cell, "--seed", "2300000411",
                        "--seconds", "1", "--trace", str(trace)], 0.0,
-                      allow_cpu=True, overrides=SMALL)
+                      allow_cpu=True, overrides=overrides)
     assert rc == 0, err.getvalue()
     traced = re.search(r"traced (\d+) calls", err.getvalue())
     return {"result": json.loads(out.getvalue().strip().splitlines()[-1]),
@@ -71,15 +74,32 @@ def runs():
 
 
 def test_the_readers_are_the_benchmarks():
-    bench = {m["name"]: m for m in load_json(ROOT, "BENCHMARK.json")
-             ["per_layer"]}
+    """Each reader of the program's spans lists every cell whose loop is of
+    its kind."""
+    bench = load_json(ROOT, "BENCHMARK.json")
+    metrics = {m["name"]: m for m in bench["per_layer"]}
+    kinds = {w["name"]: Run(load_cell(w["name"])).kind
+             for w in bench["workloads"]}
     for name, kind in READERS.items():
-        assert bench[name]["source"] in ("program_span", "program_counter")
-        assert bench[name]["workloads"] == [
-            w for w in ("book1_final.render_1080p",
-                        "diel_defocus.render_96px",
-                        "book1_final.grad_1080p")
-            if (kind == "grad") == ("grad" in w)]
+        assert metrics[name]["source"] in ("program_span", "program_counter")
+        assert metrics[name]["workloads"] == [
+            w for w, k in kinds.items() if k == kind]
+
+
+def test_the_pass_loop_reads_every_grad_reader():
+    """The gradient step at several samples a pixel, every pass's records
+    kept (the route of ``book1_final.grad_1080p_spp4`` on the card; here 2
+    samples of a 16x9 film, one step in the window and one traced): each
+    ``*.grad`` reader reads a finite number, and the program counted the
+    step traced."""
+    run = _run("book1_final.grad_1080p_spp4", 1,
+               dict(SMALL, width=16, height=9, spp=2), tick=2.0)
+    for name, kind in READERS.items():
+        if kind == "grad":
+            value = run["result"]["metrics"][name]["value"]
+            assert math.isfinite(value) and value > 0, name
+    assert run["summary"]["spans"][ROOTS["grad"]]["count"] == \
+        run["traced_calls"] >= 1
 
 
 @pytest.mark.parametrize("name", sorted(READERS))
