@@ -31,7 +31,12 @@ of the wavefront ``trace`` at the flagship film (seeds 7-14 pooled);
 and ``jax_goldens`` runs the strided, pinned and megakernel
 routes with the JAX package's draws (rebuilt by the port's threefry,
 ``rng.reference_strided_draws``) against the JAX package's per-pixel
-goldens (``tests/goldens/persistent_interpret_64x36_spp4.npz``). K2 and K4 fetch the sweep winner's attributes
+goldens (``tests/goldens/persistent_interpret_64x36_spp4.npz``).
+``motion_kernels`` holds K1m and K2m, the sweep and step of a moving scene
+(book 2's motion blur), bit for bit against their plain versions at the
+shape of the benchmark cell ``book2_motion.render_400px``, and reads their
+launches and device times from the cell's own call. K2 and K4 fetch the
+sweep winner's attributes
 themselves: they are held bit for bit
 against their plain versions (the gather, then the attribute-level step;
 ``k2_vs_plain``, ``k2_loop_vs_plain`` over the render's first 32
@@ -218,6 +223,7 @@ def reset_counts() -> None:
     GK.record_launches = GK.replay_step_launches = 0
     GK.replay_fused_launches = K8.launches = 0
     K12.launches = K13.launches = 0
+    K1.motion_launches = K2.motion_launches = 0
 
 
 def counts() -> dict:
@@ -238,7 +244,9 @@ def counts() -> dict:
             "inline": K8.launches, "sweep_fetch": K1.fetch_launches,
             "shade_pinned": K2.pinned_launches,
             "persist_record_fused": PK.record_fused_launches,
-            "mega": K12.launches, "grid_sweep": K13.launches}
+            "mega": K12.launches, "grid_sweep": K13.launches,
+            "sweep_motion": K1.motion_launches,
+            "shade_strided_motion": K2.motion_launches}
 
 
 def call_ms(fn, n: int, setup=None) -> float:
@@ -344,11 +352,15 @@ def profile_call(fn, sums: dict | None = None) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Only events that ran on the card (kernels, copies): the host-side
-    # aten:: rows repeat their kernels' device time.
+    # aten:: rows repeat their kernels' device time, and the program's
+    # spans (rtw.*) appear on the card's timeline too, spanning kernels
+    # that are counted already.
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("rtw.")]
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) / 1e6
     # Host side: operators by their own CPU time (a synchronising operator
@@ -5273,7 +5285,8 @@ def strided_graph_phase(dev, card) -> None:
     CUDA graph each (``integrator._chunked_strided_sums``, the route of
     ``impl="kernels"``) against the loop pass by pass
     (``integrator._eager_strided_loop`` with the kernels), bit for bit: the
-    flagship film (1920x1080, k = 64, spp 4), the defocus benchmark's film
+    flagship film (1920x1080, k = 64, spp 4), book 2's moving film
+    (400x225, k = 2, spp 8: K1m and K2m), the defocus benchmark's film
     (96x54, spp 16 in 16 sample groups) and two sharded tiles (8 192
     pixels from ``pixel_start = 127 * 8192``, then the film's last, ragged
     1 024: k = 1, 4 sample groups), each shape twice with other seeds and
@@ -5290,10 +5303,13 @@ def strided_graph_phase(dev, card) -> None:
 
     book = pt.trim_scene(pt.scene_random_spheres(seed=1, device=dev))
     diel = pt.trim_scene(pt.scene_diel_spheres(device=dev))
+    bounce = pt.trim_scene(pt.scene_bouncing_spheres(seed=1, device=dev))
     cam1, cam2 = pt.t_cam1(device=dev), pt.t_cam2(device=dev)
     # name: (scene, camera, W, H, n_pix, pixel_start, k, groups, spp)
     films = {"flagship_1080p": (book, cam1, 1920, 1080, 1920 * 1080, 0, 64,
                                 1, 4),
+             "bouncing_400px": (bounce, cam1, 400, 225, 400 * 225, 0, 2, 1,
+                                8),
              "defocus_96px": (diel, cam2, 96, 54, 96 * 54, 0, 1, 16, 16),
              "tile_127": (book, cam1, 1920, 1080, 8192, 127 * 8192, 1, 4, 4),
              "tile_253_last": (book, cam1, 1920, 1080, 1024, 253 * 8192, 1,
@@ -5342,6 +5358,12 @@ def strided_graph_phase(dev, card) -> None:
     torch.cuda.synchronize()
     one_call = {k: v for k, v in counts().items()
                 if k in ("sweep", "shade_strided", "gather")}
+    reset_counts()
+    graphed(films["bouncing_400px"], 3, 0)
+    torch.cuda.synchronize()
+    one_moving = {k: v for k, v in counts().items()
+                  if k in ("sweep", "shade_strided", "sweep_motion",
+                           "shade_strided_motion", "gather")}
     times = {}
     for name in ("flagship_1080p", "defocus_96px"):
         f = films[name]
@@ -5359,10 +5381,12 @@ def strided_graph_phase(dev, card) -> None:
           "counters_all_calls": {k: v for k, v in counters.items()
                                  if k.startswith("rtw.render.")},
           "launches_one_flagship_call": one_call,
+          "launches_one_moving_call": one_moving,
           "call_seconds_median_of_5": times,
           "tolerance": "every call's sums bit for bit the eager loop's; one "
                        "capture a shape, the second call of a shape none; "
-                       "K1 and K2 counted 8 each a replay, no gather"})
+                       "K1 and K2 (K1m and K2m on the moving film) counted "
+                       "8 each a replay, no gather"})
     for name, row in rows.items():
         for c in row["calls"]:
             check(c["bitwise"] and c["finite"],
@@ -5373,6 +5397,193 @@ def strided_graph_phase(dev, card) -> None:
     check(one_call["sweep"] == one_call["shade_strided"] > 0
           and one_call["sweep"] % 8 == 0 and one_call["gather"] == 0,
           f"strided_graph: one call launched {one_call}")
+    check(one_moving["sweep_motion"] == one_moving["shade_strided_motion"] > 0
+          and one_moving["sweep_motion"] % 8 == 0
+          and one_moving["sweep"] == one_moving["shade_strided"] == 0
+          and one_moving["gather"] == 0,
+          f"strided_graph: one moving call launched {one_moving}")
+
+
+def motion_kernels_phase(dev, card) -> list:
+    """``motion_kernels``: K1m and K2m at the shape of the benchmark cell
+    ``book2_motion.render_400px`` (book 2's moving lattice, 400x225, k = 2:
+    45 000 lanes, spp 100, depth 50), on the moving state after 16 plain
+    iterations, each held bit for bit against its plain version
+    (``sweep_motion_ref`` at every P; ``shade_strided_step_ref`` with
+    injected and Philox draws, every word of the state and strip buffers),
+    then 16 iterations of K1m and K2m on one state and the plain sweep and
+    step on a copy, bit for bit after each. Then the cell's own call
+    (``render_tile_sum(persistent=True, inline=False)``) with the launch
+    counts set to 0 just before it, under the profiler: each kernel's
+    launches and mean device time a launch there. Returns the two rows of
+    the ``kernels`` line, timed at the mid state (device time, queue
+    pre-filled), with their bounds and the cell call's launches."""
+    import torch
+    import raytracingweekend_jl_tpu_torch as pt
+    from raytracingweekend_jl_tpu_torch.ops import integrator as I
+    from raytracingweekend_jl_tpu_torch.ops.cuda import intersect_kernel as K1
+    from raytracingweekend_jl_tpu_torch.ops.cuda import shade_kernel as K2
+
+    W, H, k, spp, depth, tmin = 400, 225, 2, 100, 50, 1e-4
+    scene = pt.trim_scene(pt.scene_bouncing_spheres(seed=1, device=dev))
+    cam = pt.t_cam1(device=dev)
+    st, cc, tabs, seed32 = I.strided_setup(scene, cam, W * H, 5, spp, 0,
+                                           depth, W, H, k, 0, 1, None, None)
+    n_lanes, n_sph = st.fstate.shape[1], tabs[1].shape[0]
+    check(n_lanes == 45000 and st.fstate.shape[0] == K2.N_FSTATE_MOTION,
+          f"motion_kernels: state {tuple(st.fstate.shape)}")
+    for it in range(16):  # a mid-render state, by the plain step
+        I.strided_step(tabs, st, cc, seed32, it, 0, depth, tmin, "plain")
+    rays, times = st.fstate[0:6].contiguous(), I.shutter_plane(st).contiguous()
+    state0 = [x.clone() for x in (st.fstate, st.istate, st.buf)]
+
+    # K1m at every P against its plain version.
+    t_r, i_r = K1.sweep_motion_ref(rays, times, tabs[1])
+    sweep_bad = {}
+    for P in SPLIT_PARTS:
+        t_k, i_k = K1.sweep_motion(rays, times, tabs[1], parts=P)
+        torch.cuda.synchronize()
+        sweep_bad["auto" if P is None else str(P)] = int(
+            _bitwise_lanes([(t_k, t_r), (i_k, i_r)], n_lanes).sum())
+
+    # K2m against its plain version, injected and Philox draws.
+    def k2m_diff(u10):
+        kern = [x.clone() for x in state0]
+        ref = [x.clone() for x in state0]
+        K2.shade_strided_step(*kern, t_r, i_r, tabs[2], cc, st.geom, seed32,
+                              16, 0, depth, u10)
+        torch.cuda.synchronize()
+        K2.shade_strided_fetch_ref(*ref, t_r, i_r, tabs[2], cc, st.geom,
+                                   seed32, 16, 0, depth, u10)
+        return int(_bitwise_lanes(list(zip(kern, ref)), n_lanes).sum())
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    u10 = torch.rand((10, n_lanes), generator=g, device=dev)
+    shade_bad = {"injected": k2m_diff(u10), "philox": k2m_diff(None)}
+
+    # 16 iterations: the kernels on one state, the plain versions on a copy.
+    kern = [x.clone() for x in state0]
+    ref = [x.clone() for x in state0]
+    loop_bad = []
+    for it in range(16, 32):
+        t_k, i_k = K1.sweep_motion(kern[0][0:6].contiguous(),
+                                   kern[0][K2.N_FSTATE].contiguous(), tabs[1])
+        t_p, i_p = K1.sweep_motion_ref(ref[0][0:6], ref[0][K2.N_FSTATE],
+                                       tabs[1])
+        K2.shade_strided_step(*kern, t_k, i_k, tabs[2], cc, st.geom, seed32,
+                              it, 0, depth)
+        K2.shade_strided_fetch_ref(*ref, t_p, i_p, tabs[2], cc, st.geom,
+                                   seed32, it, 0, depth)
+        torch.cuda.synchronize()
+        loop_bad.append(int(_bitwise_lanes(
+            [(t_k, t_p), (i_k, i_p)] + list(zip(kern, ref)), n_lanes).sum()))
+    del kern, ref
+
+    # Times at the mid state, and the bounds of that launch.
+    live = [x.clone() for x in state0]
+
+    def restore():
+        for x, y in zip(live, state0):
+            x.copy_(y)
+
+    k1m = lambda: K1.sweep_motion(rays, times, tabs[1])
+    k1m_plain = lambda: K1.sweep_motion_ref(rays, times, tabs[1])
+    k2m = lambda: K2.shade_strided_step(*live, t_r, i_r, tabs[2], cc,
+                                        st.geom, seed32, 16, 0, depth)
+    k2m_plain = lambda: K2.shade_strided_fetch_ref(*live, t_r, i_r, tabs[2],
+                                                   cc, st.geom, seed32, 16, 0,
+                                                   depth)
+    long_sleep = 3_000_000_000  # covers the plain versions' host enqueue
+    ms = {"sweep_motion": device_ms(k1m, 50),
+          "sweep_motion_plain": device_ms(k1m_plain, 3,
+                                          sleep_cycles=long_sleep),
+          "shade_strided_motion": device_ms(k2m, 50, setup=restore),
+          "shade_strided_motion_plain": device_ms(k2m_plain, 5,
+                                                  setup=restore,
+                                                  sleep_cycles=long_sleep)}
+    after = [x.clone() for x in state0]
+    K2.shade_strided_fetch_ref(*after, t_r, i_r, tabs[2], cc, st.geom, seed32,
+                               16, 0, depth)
+    n_active = int((state0[1][5] != 0).sum())
+    n_fold = int(((after[1][2] != state0[1][2]) & (state0[1][2] < k)).sum())
+    del after, live
+    # K1m: the rays, their times and the [N, 8] table in, t and idx out;
+    # each pair at its least work, the centre at the time (6) and a static
+    # pair's (portbench/roofline/render_motion.py).
+    k1m_bound = bound(n_lanes * (28 + 8) + 32 * n_sph,
+                      n_lanes * (SWEEP_RAY_OPS
+                                 + (SWEEP_SPHERE_OPS + 6) * n_sph))
+    # K2m: K2's words with the time plane read and written, the 13-column
+    # table, and the winner's centre moved (6) on every active lane.
+    k2m_bound = bound(n_lanes * ((13 + 7 + 1 + 1) + (13 + 6)) * 4
+                      + n_fold * 6 * 4 + 21 * 4 + n_sph * 52,
+                      n_active * (SHADE_OPS + 6 + ADVANCE_OPS))
+
+    # The cell's own call, its launch counts set to 0 just before it.
+    def cell_call(seed):
+        return pt.render_tile_sum(scene, cam, W * H, seed, spp, 0, depth,
+                                  tmin, float(W), float(H), persistent=True,
+                                  inline=False)
+
+    cell_call(2)  # warm-up: the plan's capture
+    torch.cuda.synchronize()
+    reset_counts()
+    prof = profile_call(lambda: cell_call(2**31 + 7), {
+        "sweep_motion": r"^sweep_motion_kernel",
+        "shade_strided_motion": r"^shade_strided_motion_kernel",
+        "static_k1_k2": r"^(sweep_kernel|shade_strided_kernel)"})
+    launched = counts()
+    by = prof["device_ms_by_match"]
+    cell = {name: {"launches": launched[name], "profiled": by[name]["count"],
+                   "device_ms_total": by[name]["device_ms"],
+                   "device_ms_per_launch": (by[name]["device_ms"]
+                                            / by[name]["count"]
+                                            if by[name]["count"] else None)}
+            for name in ("sweep_motion", "shade_strided_motion")}
+    emit({"phase": "motion_kernels", "card": card, "lanes": n_lanes, "k": k,
+          "spheres": n_sph, "spp": spp, "max_depth": depth,
+          "active_share": n_active / n_lanes,
+          "hit_share": (t_r < K1.BIG).float().mean().item(),
+          "parts_chosen": K1.sweep_parts(
+              n_lanes, n_sph, K1._resident_threads(dev, n_sph,
+                                                   "sweep_motion")),
+          "sweep_lanes_differing_by_p": sweep_bad,
+          "shade_lanes_differing_by_case": shade_bad,
+          "loop_lanes_differing_by_iteration": loop_bad,
+          "device_ms_mid_state": ms,
+          "bound_ms": {"sweep_motion": k1m_bound["bound_ms"],
+                       "shade_strided_motion": k2m_bound["bound_ms"]},
+          "cell_call": {"launches": {k_: launched[k_] for k_ in (
+              "sweep", "shade_strided", "sweep_motion",
+              "shade_strided_motion", "gather")}, "by_kernel": cell,
+              "static_k1_k2_device_ms": by["static_k1_k2"]["device_ms"],
+              "wall_s_profiled": prof["wall_s_profiled"],
+              "device_idle_share": prof["device_idle_share"]},
+          "tolerance": "K1m at every P, K2m with both draws and the 16-"
+                       "iteration loop: 0 lanes differ in any word; the "
+                       "cell's call launches K1m and K2m alike, 8 a chunk, "
+                       "and no K1, K2 or gather"})
+    check(all(v == 0 for v in sweep_bad.values()),
+          f"K1m differs from its plain version: {sweep_bad}")
+    check(all(v == 0 for v in shade_bad.values()),
+          f"K2m differs from its plain version: {shade_bad}")
+    check(not any(loop_bad), f"K1m/K2m loop differs from plain: {loop_bad}")
+    check(launched["sweep_motion"] == launched["shade_strided_motion"] > 0
+          and launched["sweep_motion"] % 8 == 0
+          and launched["sweep"] == launched["shade_strided"] == 0
+          and launched["gather"] == 0,
+          f"motion_kernels: the cell's call launched {launched}")
+    pkg = "raytracingweekend_jl_tpu_torch/csrc"
+    rows = [kernel_row("sweep_motion", f"{pkg}/sweep.cu", None, 0.0,
+                       ms["sweep_motion"], ms["sweep_motion_plain"],
+                       k1m_bound),
+            kernel_row("shade_strided_motion", f"{pkg}/shade_strided.cu",
+                       None, 0.0, ms["shade_strided_motion"],
+                       ms["shade_strided_motion_plain"], k2m_bound)]
+    for row in rows:
+        row["launches"] = launched[row["name"]]
+        row["cell_ms_per_launch"] = cell[row["name"]]["device_ms_per_launch"]
+    return rows
 
 
 def mid_render_state(scene, cam, W: int, H: int, SPP: int, k: int = 64):
@@ -5533,6 +5744,10 @@ def main() -> int:
     # -- 3a. the strided loop's chunks as captured CUDA graphs against the
     # loop pass by pass, bit for bit --------------------------------------
     strided_graph_phase(dev, card)
+
+    # -- 3a'. K1m and K2m at the moving cell's shape, bit for bit their
+    # plain versions; their launches and times in the cell's own call -----
+    motion_rows = motion_kernels_phase(dev, card)
 
     # -- 3b. the regenerated camera ray against make_rays' (K2, K9, K12);
     # the kernels' normalisation against its plain version on every float;
@@ -5762,7 +5977,8 @@ def main() -> int:
         if row["name"] in ("persist_record", "persist_replay_fused",
                            "persist_replay_step"):
             row["ms"] = batch[row["name"]]
-    rows = fwd_rows + grad_rows + fit_rows + trace_rows + last_rows
+    rows = (fwd_rows + motion_rows + grad_rows + fit_rows + trace_rows
+            + last_rows)
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} never launched on its "
                                    "main path")

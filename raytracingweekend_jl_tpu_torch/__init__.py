@@ -61,9 +61,9 @@ kernels' plain PyTorch versions. Module names follow the JAX package so each
 counterpart is easy to find; this package never imports JAX.
 """
 
-from .scene import (Scene, make_scene, trim_scene, scene_from_numpy, sphere,
-                    lambertian, metal, dielectric, LAMBERTIAN, METAL,
-                    DIELECTRIC)
+from .scene import (Scene, MovingScene, scene_moves, make_scene, trim_scene,
+                    scene_from_numpy, sphere, lambertian, metal, dielectric,
+                    LAMBERTIAN, METAL, DIELECTRIC)
 from .camera import (Camera, default_camera, make_rays, get_rays,
                      camera_from_numpy, t_default_cam, t_cam1, t_cam2,
                      hollow_glass_cam)
@@ -94,8 +94,9 @@ from .ops.sampling import (unit_sphere_directions, unit_disk_points,
 from .models.scenes import (scene_2_spheres, scene_4_spheres,
                             scene_diel_spheres, scene_diel_spheres_hollow,
                             scene_blue_red_spheres, scene_random_spheres,
-                            scene_random_spheres_reference, save_scene,
-                            load_scene, ALL_SCENES)
+                            scene_random_spheres_reference,
+                            scene_bouncing_spheres, save_scene, load_scene,
+                            STATIC_SCENES, ALL_SCENES)
 from .utils.config import RenderConfig
 from .utils.checkpoint import (RenderState, StripState, render_checkpointed,
                                render_checkpointed_sharded)

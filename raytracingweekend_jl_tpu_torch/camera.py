@@ -108,6 +108,15 @@ def make_rays(cam: Camera, s: torch.Tensor, t: torch.Tensor,
     return origin, normalize(direction)
 
 
+def shutter_times(n: int, generator: torch.Generator | None = None,
+                  device="cpu") -> torch.Tensor:
+    """``[n]`` float32 shutter times in [0, 1), one a camera ray: the moment
+    at which the ray sees a moving scene (*Ray Tracing: The Next Week* §2.2,
+    ``ray(origin, direction, random_double())``). Every ray scattered from
+    it keeps its time."""
+    return torch.rand(n, generator=generator, device=device)
+
+
 def get_rays(cam: Camera, s: torch.Tensor, t: torch.Tensor,
              generator: torch.Generator | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -43,6 +43,20 @@
 // Built with --fmad=false: each expression is evaluated as written, in the
 // same order as the plain version.
 //
+// K2m, the step of a moving scene (book 2's motion blur, Ray Tracing: The
+// Next Week §2; no TPU kernel had a time), is the same lane with three
+// additions, under `if constexpr (kMoving)` in rtw_shade_strided_lane:
+//   - the lane carries its ray's shutter time in a 13th float plane
+//     (fs[12]); a scattered ray keeps it;
+//   - the table has 13 columns a sphere, attr_mat's 10 and the motion m:
+//     the winner's centre is moved to c0 + time * m before shading, so the
+//     hit normal is (p - c(t)) / r at the centre that K1m hit;
+//   - a lane that starts a sample draws a 10th uniform, the new ray's time:
+//     word 1 of the third Philox block, which K2 computes and drops. The
+//     other nine uniforms are K2's, stream and counter.
+// Each form is its own __global__ function, so each keeps its name in a
+// trace; K2's instantiation gives the bits K2 gave before K2m shared it.
+//
 // The strided loop runs its passes in chunks of 8, each chunk one replay of
 // a captured CUDA graph (ops/integrator.py): there K2 reads the call's
 // scalars from a parameter block (`params`), so that one capture serves
@@ -64,7 +78,10 @@
 #define RTW_P_BASE 3
 #define RTW_P_LIMIT 4
 
-__global__ void shade_strided_kernel(
+// The lane of K2 (kMoving false) and of K2m (true). u9 holds 9 uniforms a
+// lane for K2, 10 for K2m, or is NULL (in-kernel Philox).
+template <bool kMoving>
+__device__ __forceinline__ void rtw_shade_strided_lane(
     float* __restrict__ fs, int* __restrict__ is, float* __restrict__ buf,
     const float* __restrict__ t_in, const int* __restrict__ idx,
     const float* __restrict__ amat, const float* __restrict__ cam,
@@ -88,27 +105,40 @@ __global__ void shade_strided_kernel(
   float dx = fs[3 * n + i], dy = fs[4 * n + i], dz = fs[5 * n + i];
   float tx = fs[6 * n + i], ty = fs[7 * n + i], tz = fs[8 * n + i];
   float cx = fs[9 * n + i], cy = fs[10 * n + i], cz = fs[11 * n + i];
+  float time = 0.0f;  // the ray's shutter time (K2m)
+  if constexpr (kMoving) time = fs[12 * n + i];
   int bo = is[0 * n + i], sa = is[1 * n + i], strip = is[2 * n + i];
   int pxi = is[3 * n + i], pyi = is[4 * n + i];
   bool active = is[5 * n + i] != 0;
   const int lane_lim = is[6 * n + i];
 
-  float u[9];
+  constexpr int NU = kMoving ? 10 : 9;
+  float u[NU];
   if (u9) {
 #pragma unroll
-    for (int j = 0; j < 9; ++j) u[j] = u9[j * n + i];
+    for (int j = 0; j < NU; ++j) u[j] = u9[j * n + i];
   } else {
-    rtw_uniforms<9>(seed, iteration, (uint32_t)i, u);
+    rtw_uniforms<NU>(seed, iteration, (uint32_t)i, u);
   }
 
   const float t = t_in[i];
   float a[10];
-  rtw_fetch_row(idx, amat, i, a);
+  if constexpr (kMoving) {
+    // The winner's row, its centre moved to the ray's time.
+    const float* row = amat + 13 * (size_t)__ldg(idx + i);
+#pragma unroll
+    for (int j = 0; j < 10; ++j) a[j] = __ldg(row + j);
+    a[0] = a[0] + time * __ldg(row + 10);
+    a[1] = a[1] + time * __ldg(row + 11);
+    a[2] = a[2] + time * __ldg(row + 12);
+  } else {
+    rtw_fetch_row(idx, amat, i, a);
+  }
 
   const RtwShade s = rtw_shade_core(u, t, a, ox, oy, oz, dx, dy, dz, tx, ty,
                                     tz, active, cx, cy, cz);
 
-  // Continue bouncing.
+  // Continue bouncing (the scattered ray keeps the time).
   const int newb = bo + 1;
   const bool cont = s.hitm && (newb < max_depth);
   if (cont) {
@@ -156,6 +186,7 @@ __global__ void shade_strided_kernel(
                    db, ox, oy, oz, dx, dy, dz);
     tx = 1.0f; ty = 1.0f; tz = 1.0f;
     bo = 0;
+    if constexpr (kMoving) time = u[9];  // the new ray's shutter time
   }
   active = (active && !need) || start;
 
@@ -163,26 +194,58 @@ __global__ void shade_strided_kernel(
   fs[3 * n + i] = dx; fs[4 * n + i] = dy; fs[5 * n + i] = dz;
   fs[6 * n + i] = tx; fs[7 * n + i] = ty; fs[8 * n + i] = tz;
   fs[9 * n + i] = cx; fs[10 * n + i] = cy; fs[11 * n + i] = cz;
+  if constexpr (kMoving) fs[12 * n + i] = time;
   is[0 * n + i] = bo; is[1 * n + i] = sa; is[2 * n + i] = strip;
   is[3 * n + i] = pxi; is[4 * n + i] = pyi; is[5 * n + i] = active ? 1 : 0;
 }
 
-// The one launch of K2. params: NULL (every scalar from the arguments),
-// or the graphed loop's parameter block.
-static int rtw_launch_shade_strided(float* fstate, int* istate, float* buf,
-                                    const float* t, const int* idx,
-                                    const float* amat, const float* cam,
-                                    const float* u9, int n, int k, int W,
-                                    int H, int dpx, int dpy, int p_end,
-                                    int first_sample, int max_depth,
-                                    unsigned int seed, unsigned int iteration,
+__global__ void shade_strided_kernel(
+    float* __restrict__ fs, int* __restrict__ is, float* __restrict__ buf,
+    const float* __restrict__ t_in, const int* __restrict__ idx,
+    const float* __restrict__ amat, const float* __restrict__ cam,
+    const float* __restrict__ u9, int n, int k, int W, int H, int dpx,
+    int dpy, int p_end, int first_sample, int max_depth, uint32_t seed,
+    uint32_t iteration, const int* __restrict__ params) {
+  rtw_shade_strided_lane<false>(fs, is, buf, t_in, idx, amat, cam, u9, n, k,
+                                W, H, dpx, dpy, p_end, first_sample,
+                                max_depth, seed, iteration, params);
+}
+
+__global__ void shade_strided_motion_kernel(
+    float* __restrict__ fs, int* __restrict__ is, float* __restrict__ buf,
+    const float* __restrict__ t_in, const int* __restrict__ idx,
+    const float* __restrict__ amat, const float* __restrict__ cam,
+    const float* __restrict__ u10, int n, int k, int W, int H, int dpx,
+    int dpy, int p_end, int first_sample, int max_depth, uint32_t seed,
+    uint32_t iteration, const int* __restrict__ params) {
+  rtw_shade_strided_lane<true>(fs, is, buf, t_in, idx, amat, cam, u10, n, k,
+                               W, H, dpx, dpy, p_end, first_sample,
+                               max_depth, seed, iteration, params);
+}
+
+// The one launch of K2, or of K2m where `moving`. params: NULL (every
+// scalar from the arguments), or the graphed loop's parameter block.
+static int rtw_launch_shade_strided(bool moving, float* fstate, int* istate,
+                                    float* buf, const float* t,
+                                    const int* idx, const float* amat,
+                                    const float* cam, const float* u9, int n,
+                                    int k, int W, int H, int dpx, int dpy,
+                                    int p_end, int first_sample,
+                                    int max_depth, unsigned int seed,
+                                    unsigned int iteration,
                                     const int* params, void* stream) {
   if (n <= 0) return 0;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
-  shade_strided_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      fstate, istate, buf, t, idx, amat, cam, u9, n, k, W, H, dpx, dpy, p_end,
-      first_sample, max_depth, seed, iteration, params);
+  if (moving) {
+    shade_strided_motion_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        fstate, istate, buf, t, idx, amat, cam, u9, n, k, W, H, dpx, dpy,
+        p_end, first_sample, max_depth, seed, iteration, params);
+  } else {
+    shade_strided_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        fstate, istate, buf, t, idx, amat, cam, u9, n, k, W, H, dpx, dpy,
+        p_end, first_sample, max_depth, seed, iteration, params);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -197,9 +260,10 @@ extern "C" int rtw_shade_strided(float* fstate, int* istate, float* buf,
                                  int p_end, int first_sample, int max_depth,
                                  unsigned int seed, unsigned int iteration,
                                  void* stream) {
-  return rtw_launch_shade_strided(fstate, istate, buf, t, idx, amat, cam, u9,
-                                  n, k, W, H, dpx, dpy, p_end, first_sample,
-                                  max_depth, seed, iteration, nullptr, stream);
+  return rtw_launch_shade_strided(false, fstate, istate, buf, t, idx, amat,
+                                  cam, u9, n, k, W, H, dpx, dpy, p_end,
+                                  first_sample, max_depth, seed, iteration,
+                                  nullptr, stream);
 }
 
 // K2 as pass `pass` of a graphed chunk: the state as rtw_shade_strided's,
@@ -211,8 +275,33 @@ extern "C" int rtw_shade_strided_pass(float* fstate, int* istate, float* buf,
                                       const int* params, int n, int k, int W,
                                       int H, int dpx, int dpy, int max_depth,
                                       unsigned int pass, void* stream) {
-  return rtw_launch_shade_strided(fstate, istate, buf, t, idx, amat, cam,
-                                  nullptr, n, k, W, H, dpx, dpy, 0, 0,
+  return rtw_launch_shade_strided(false, fstate, istate, buf, t, idx, amat,
+                                  cam, nullptr, n, k, W, H, dpx, dpy, 0, 0,
+                                  max_depth, 0u, pass, params, stream);
+}
+
+// K2m, arguments as rtw_shade_strided's: fstate [13, n] f32 (K2's 12
+// planes, then the time); amat [N, 13] f32 (attr_mat's 10 columns, then the
+// motion); u10 [10, n] f32 or NULL.
+extern "C" int rtw_shade_strided_motion(
+    float* fstate, int* istate, float* buf, const float* t, const int* idx,
+    const float* amat, const float* cam, const float* u10, int n, int k,
+    int W, int H, int dpx, int dpy, int p_end, int first_sample,
+    int max_depth, unsigned int seed, unsigned int iteration, void* stream) {
+  return rtw_launch_shade_strided(true, fstate, istate, buf, t, idx, amat,
+                                  cam, u10, n, k, W, H, dpx, dpy, p_end,
+                                  first_sample, max_depth, seed, iteration,
+                                  nullptr, stream);
+}
+
+// K2m as pass `pass` of a graphed chunk, as rtw_shade_strided_pass.
+extern "C" int rtw_shade_strided_motion_pass(
+    float* fstate, int* istate, float* buf, const float* t, const int* idx,
+    const float* amat, const float* cam, const int* params, int n, int k,
+    int W, int H, int dpx, int dpy, int max_depth, unsigned int pass,
+    void* stream) {
+  return rtw_launch_shade_strided(true, fstate, istate, buf, t, idx, amat,
+                                  cam, nullptr, n, k, W, H, dpx, dpy, 0, 0,
                                   max_depth, 0u, pass, params, stream);
 }
 

@@ -1,6 +1,6 @@
 // K1, K3 and K10: the closest-hit ray-sphere sweep, its occupancy-masked
 // form and its form fused with the winner's attribute fetch, for Hopper
-// (sm_90a).
+// (sm_90a); and K1m, K1 for a moving scene.
 //
 // K1 replaces the TPU kernel raytracingweekend_jl_tpu/ops/pallas/
 // intersect_kernel.py :: _sweep_kernel (launched by _sweep_forward),
@@ -44,6 +44,17 @@
 // order. The (t, idx) of the three kernels is bit for bit
 // rtw_sweep_closest's, the one-thread loop that K13 keeps and that
 // sweep_fetch_one_thread_kernel keeps as the split loop's reference.
+//
+// K1m (sweep_motion_kernel) is K1 for a moving scene (book 2's motion blur,
+// Ray Tracing: The Next Week §2; no TPU kernel had a time): each ray has a
+// shutter time (the strided state's time plane), and sphere s is centred at
+// c0 + time * m. The table holds two float4 a sphere, (c0x, c0y, c0z, r^2)
+// and (mx, my, mz, 0), so |c|^2 - r^2 cannot be precomputed as K1's ck is:
+// each pair forms its centre and that term (rtw_sweep_pair_motion), 32
+// float operations where K1's pair takes 20, then K1's pair test. It is
+// K1's split sweep and launch (rtw_split_sweep<true>), with its own name in
+// a trace; its (t, idx) is the one-thread loop's over the moved centres,
+// bit for bit, at every P (intersect_kernel.py::sweep_motion_ref).
 
 #include <cuda_runtime.h>
 
@@ -51,16 +62,21 @@
 
 #define RTW_SWEEP_THREADS 256
 
-// The split sweep of K1 and K10 up to the merge: stages the sphere table in
-// `sph` (shared memory), then the group of P = 2^log2p threads that holds
-// this thread sweeps ray i, part p of it, and merges. Afterwards every
-// thread of the group holds ray i's (t, idx), or (BIG, 0) where i is past
-// the rays. Every thread of the block calls it.
+// The split sweep of K1, K1m (kMoving) and K10 up to the merge: stages the
+// sphere table in `sph` (shared memory; two float4 a sphere for K1m), then
+// the group of P = 2^log2p threads that holds this thread sweeps ray i,
+// part p of it (at its shutter time times[i] for K1m), and merges.
+// Afterwards every thread of the group holds ray i's (t, idx), or (BIG, 0)
+// where i is past the rays. Every thread of the block calls it.
+template <bool kMoving>
 __device__ __forceinline__ void rtw_split_sweep(
     float4* sph, const float4* __restrict__ spheres,
-    const float* __restrict__ rays, int n_rays, int n_spheres, float tmin,
-    int log2p, long long& i, int& p, float& best_t, int& best_i) {
-  for (int s = threadIdx.x; s < n_spheres; s += blockDim.x) sph[s] = spheres[s];
+    const float* __restrict__ rays, const float* __restrict__ times,
+    int n_rays, int n_spheres, float tmin, int log2p, long long& i, int& p,
+    float& best_t, int& best_i) {
+  constexpr int rows = kMoving ? 2 : 1;
+  for (int s = threadIdx.x; s < rows * n_spheres; s += blockDim.x)
+    sph[s] = spheres[s];
   __syncthreads();
 
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -71,9 +87,15 @@ __device__ __forceinline__ void rtw_split_sweep(
   best_i = 0;
   if (i < n_rays) {
     const size_t n = n_rays;
-    rtw_sweep_part(sph, n_spheres, p, P, rays[i], rays[n + i],
-                   rays[2 * n + i], rays[3 * n + i], rays[4 * n + i],
-                   rays[5 * n + i], tmin, best_t, best_i);
+    if constexpr (kMoving)
+      rtw_sweep_part_motion(sph, n_spheres, p, P, times[i], rays[i],
+                            rays[n + i], rays[2 * n + i], rays[3 * n + i],
+                            rays[4 * n + i], rays[5 * n + i], tmin, best_t,
+                            best_i);
+    else
+      rtw_sweep_part(sph, n_spheres, p, P, rays[i], rays[n + i],
+                     rays[2 * n + i], rays[3 * n + i], rays[4 * n + i],
+                     rays[5 * n + i], tmin, best_t, best_i);
   }
   rtw_merge_closest(best_t, best_i, P);  // every lane of the warp
 }
@@ -87,26 +109,47 @@ __global__ void __launch_bounds__(RTW_SWEEP_THREADS)
   long long i;
   int p, best_i;
   float best_t;
-  rtw_split_sweep(sph, spheres, rays, n_rays, n_spheres, tmin, log2p, i, p,
-                  best_t, best_i);
+  rtw_split_sweep<false>(sph, spheres, rays, nullptr, n_rays, n_spheres,
+                         tmin, log2p, i, p, best_t, best_i);
   if (i < n_rays && p == 0) {
     t_out[i] = best_t;
     idx_out[i] = best_i;
   }
 }
 
-// The launch of K1 and K10: log2 of `parts` (a power of two in [1, 32]),
-// the block count, and the sphere table's shared memory reserved for
-// `kernel`. Returns the error, or cudaSuccess.
+// K1m: K1 over the moving table, each ray at its shutter time.
+__global__ void __launch_bounds__(RTW_SWEEP_THREADS)
+    sweep_motion_kernel(const float* __restrict__ rays,
+                        const float* __restrict__ times,
+                        const float4* __restrict__ spheres, int n_rays,
+                        int n_spheres, float tmin, int log2p,
+                        float* __restrict__ t_out,
+                        int* __restrict__ idx_out) {
+  extern __shared__ float4 sph[];
+  long long i;
+  int p, best_i;
+  float best_t;
+  rtw_split_sweep<true>(sph, spheres, rays, times, n_rays, n_spheres, tmin,
+                        log2p, i, p, best_t, best_i);
+  if (i < n_rays && p == 0) {
+    t_out[i] = best_t;
+    idx_out[i] = best_i;
+  }
+}
+
+// The launch of K1, K1m and K10: log2 of `parts` (a power of two in
+// [1, 32]), the block count, and the sphere table's shared memory (`rows`
+// float4 a sphere) reserved for `kernel`. Returns the error, or
+// cudaSuccess.
 static cudaError_t rtw_split_launch(const void* kernel, int n_rays,
-                                    int n_spheres, int parts, int* log2p,
-                                    int* blocks, size_t* smem) {
+                                    int n_spheres, int rows, int parts,
+                                    int* log2p, int* blocks, size_t* smem) {
   if (parts < 1 || parts > 32 || (parts & (parts - 1)))
     return cudaErrorInvalidValue;
   *log2p = __builtin_ctz(parts);
   const long long threads = (long long)n_rays << *log2p;
   *blocks = (int)((threads + RTW_SWEEP_THREADS - 1) / RTW_SWEEP_THREADS);
-  *smem = (size_t)n_spheres * sizeof(float4);
+  *smem = (size_t)n_spheres * rows * sizeof(float4);
   return rtw_reserve_smem(kernel, *smem);
 }
 
@@ -120,11 +163,32 @@ extern "C" int rtw_sweep(const float* rays, const float* spheres, int n_rays,
   int log2p, blocks;
   size_t smem;
   cudaError_t e = rtw_split_launch((const void*)sweep_kernel, n_rays,
-                                   n_spheres, parts, &log2p, &blocks, &smem);
+                                   n_spheres, 1, parts, &log2p, &blocks,
+                                   &smem);
   if (e != cudaSuccess) return (int)e;
   sweep_kernel<<<blocks, RTW_SWEEP_THREADS, smem, (cudaStream_t)stream>>>(
       rays, reinterpret_cast<const float4*>(spheres), n_rays, n_spheres, tmin,
       log2p, t_out, idx_out);
+  return (int)cudaGetLastError();
+}
+
+// K1m. rays: [6, n_rays] f32 planes; times: [n_rays] f32; spheres: [n, 8]
+// f32 rows (c0x, c0y, c0z, r^2, mx, my, mz, 0); parts as rtw_sweep's.
+extern "C" int rtw_sweep_motion(const float* rays, const float* times,
+                                const float* spheres, int n_rays,
+                                int n_spheres, float tmin, float* t_out,
+                                int* idx_out, int parts, void* stream) {
+  if (n_rays <= 0) return 0;
+  int log2p, blocks;
+  size_t smem;
+  cudaError_t e = rtw_split_launch((const void*)sweep_motion_kernel, n_rays,
+                                   n_spheres, 2, parts, &log2p, &blocks,
+                                   &smem);
+  if (e != cudaSuccess) return (int)e;
+  sweep_motion_kernel<<<blocks, RTW_SWEEP_THREADS, smem,
+                        (cudaStream_t)stream>>>(
+      rays, times, reinterpret_cast<const float4*>(spheres), n_rays,
+      n_spheres, tmin, log2p, t_out, idx_out);
   return (int)cudaGetLastError();
 }
 
@@ -261,8 +325,8 @@ __global__ void __launch_bounds__(RTW_SWEEP_THREADS)
   long long i;
   int p, best_i;
   float best_t;
-  rtw_split_sweep(sph, spheres, rays, n_rays, n_spheres, tmin, log2p, i, p,
-                  best_t, best_i);
+  rtw_split_sweep<false>(sph, spheres, rays, nullptr, n_rays, n_spheres,
+                         tmin, log2p, i, p, best_t, best_i);
   const size_t n = n_rays;
   if (i < n_rays && p == 0) {
     t_out[i] = best_t;
@@ -286,7 +350,8 @@ extern "C" int rtw_sweep_fetch(const float* rays, const float* spheres,
   int log2p, blocks;
   size_t smem;
   cudaError_t e = rtw_split_launch((const void*)sweep_fetch_kernel, n_rays,
-                                   n_spheres, parts, &log2p, &blocks, &smem);
+                                   n_spheres, 1, parts, &log2p, &blocks,
+                                   &smem);
   if (e != cudaSuccess) return (int)e;
   sweep_fetch_kernel<<<blocks, RTW_SWEEP_THREADS, smem,
                        (cudaStream_t)stream>>>(
@@ -355,7 +420,7 @@ extern "C" int rtw_sweep_fetch_one_thread(const float* rays,
 }
 
 // The registers per thread of kernel `which` (0: K1, 1: K3, 2: K10, 3: the
-// one-thread reference), the blocks of it that one SM holds at the launch's
+// one-thread reference, 4: K1m), the blocks of it that one SM holds at the launch's
 // block size and shared memory for `n_spheres`, and the device's SM count.
 extern "C" int rtw_sweep_occupancy(int which, int n_spheres, int* regs,
                                    int* blocks_per_sm, int* sm_count) {
@@ -372,6 +437,9 @@ extern "C" int rtw_sweep_occupancy(int which, int n_spheres, int* regs,
     k = (const void*)sweep_fetch_one_thread_kernel;
     threads = RTW_ONE_THREAD_THREADS;
     smem += (size_t)n_spheres * 10 * sizeof(float);
+  } else if (which == 4) {
+    k = (const void*)sweep_motion_kernel;
+    smem *= 2;
   } else {
     return (int)cudaErrorInvalidValue;
   }

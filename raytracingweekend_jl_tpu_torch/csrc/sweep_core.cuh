@@ -25,6 +25,11 @@
 //     first index)
 // Built with --fmad=false, so each expression is evaluated as written, in
 // the plain version's order (intersect_kernel.py::sweep_ref).
+//
+// rtw_sweep_pair_motion + rtw_sweep_part_motion: the pair and part of the
+// moving sweep K1m (sweep.cu), whose sphere is centred at
+// c0 + time * m at the ray's shutter time: the centre and ck are formed per
+// pair, then rtw_sweep_pair.
 
 #pragma once
 
@@ -114,6 +119,41 @@ __device__ __forceinline__ void rtw_sweep_part(const float4* sph, int n,
   for (int s = p; s < n; s += P)
     rtw_sweep_pair(sph[s], s, ox, oy, oz, dx, dy, dz, od, oo, tmin, best_t,
                    best_i);
+}
+
+// The moving sweep's pair (K1m, sweep.cu): sphere s, centred at
+// c0 + time * m at the ray's shutter time, against one ray. c4 holds
+// (c0x, c0y, c0z, r^2) and m4 (mx, my, mz, 0). The centre and its
+// |c|^2 - r^2 are formed per pair, in the plain version's order
+// (intersect_kernel.py::sweep_motion_ref), then rtw_sweep_pair takes them as
+// the static pair takes a precomputed (cx, cy, cz, ck): with m = 0 the same
+// bits as the static pair of that sphere.
+__device__ __forceinline__ void rtw_sweep_pair_motion(
+    float4 c4, float4 m4, int s, float time, float ox, float oy, float oz,
+    float dx, float dy, float dz, float od, float oo, float tmin,
+    float& best_t, int& best_i) {
+  const float cx = c4.x + time * m4.x;
+  const float cy = c4.y + time * m4.y;
+  const float cz = c4.z + time * m4.z;
+  const float ck = cx * cx + cy * cy + cz * cz - c4.w;
+  rtw_sweep_pair(make_float4(cx, cy, cz, ck), s, ox, oy, oz, dx, dy, dz, od,
+                 oo, tmin, best_t, best_i);
+}
+
+// rtw_sweep_part over the moving table: sph holds two float4 a sphere,
+// (c0, r^2) at 2s and (m, 0) at 2s + 1.
+__device__ __forceinline__ void rtw_sweep_part_motion(
+    const float4* sph, int n, int p, int P, float time, float ox, float oy,
+    float oz, float dx, float dy, float dz, float tmin, float& best_t,
+    int& best_i) {
+  const float od = ox * dx + oy * dy + oz * dz;
+  const float oo = ox * ox + oy * oy + oz * oz;
+  best_t = RTW_BIG;
+  best_i = 0;
+#pragma unroll 4
+  for (int s = p; s < n; s += P)
+    rtw_sweep_pair_motion(sph[2 * s], sph[2 * s + 1], s, time, ox, oy, oz, dx,
+                          dy, dz, od, oo, tmin, best_t, best_i);
 }
 
 // Merges the parts of each group of P aligned lanes of a warp (P a power of

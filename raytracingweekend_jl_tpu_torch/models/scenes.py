@@ -12,8 +12,8 @@ import math
 import numpy as np
 import torch
 
-from ..scene import (Scene, make_scene, scene_from_numpy, lambertian, metal,
-                     dielectric)
+from ..scene import (LAMBERTIAN, MovingScene, Scene, make_scene,
+                     scene_from_numpy, lambertian, metal, dielectric)
 
 
 def scene_2_spheres(dtype=torch.float32, device="cpu") -> Scene:
@@ -67,11 +67,8 @@ def scene_blue_red_spheres(dtype=torch.float32, device="cpu") -> Scene:
     ], dtype=dtype, device=device)
 
 
-def scene_random_spheres(seed: int = 1, dtype=torch.float32,
-                         grid_half: int = 11, device="cpu") -> Scene:
-    """Book-1 final scene: ground, a ``(2*grid_half)^2`` grid of random small
-    spheres and 3 hero spheres (src/scenes.jl:49-84), drawn from a seeded
-    numpy Generator in the reference package's order."""
+def _random_spheres(seed: int, grid_half: int) -> list[dict]:
+    """The spheres of book 1's final scene (:func:`scene_random_spheres`)."""
     g = np.random.default_rng(seed)
     spheres = [lambertian((0, -1000, -1), 1000.0, (0.5, 0.5, 0.5))]
 
@@ -94,7 +91,41 @@ def scene_random_spheres(seed: int = 1, dtype=torch.float32,
     spheres.append(dielectric((0, 1, 0), 1.0, 1.5))
     spheres.append(lambertian((-4, 1, 0), 1.0, (0.4, 0.2, 0.1)))
     spheres.append(metal((4, 1, 0), 1.0, (0.7, 0.6, 0.5), 0.0))
-    return make_scene(spheres, dtype=dtype, device=device)
+    return spheres
+
+
+def scene_random_spheres(seed: int = 1, dtype=torch.float32,
+                         grid_half: int = 11, device="cpu") -> Scene:
+    """Book-1 final scene: ground, a ``(2*grid_half)^2`` grid of random small
+    spheres and 3 hero spheres (src/scenes.jl:49-84), drawn from a seeded
+    numpy Generator in the reference package's order."""
+    return make_scene(_random_spheres(seed, grid_half), dtype=dtype,
+                      device=device)
+
+
+def scene_bouncing_spheres(seed: int = 1, dtype=torch.float32,
+                           grid_half: int = 11, device="cpu"
+                           ) -> MovingScene:
+    """Book 2's first image (*Ray Tracing: The Next Week* §2, "Motion
+    Blur"): :func:`scene_random_spheres` bit for bit, each diffuse sphere of
+    the random grid moving from ``center`` to ``center + (0, U[0, 0.5),
+    0)`` over the shutter. The draws come from a second generator,
+    ``numpy.random.default_rng(2)``, one per diffuse grid sphere in the
+    grid's order, so the grid's own draws are untouched; the ground, the
+    three hero spheres and the padding stay still."""
+    spheres = _random_spheres(seed, grid_half)
+    g = np.random.default_rng(2)
+    motion = np.zeros((len(spheres), 3))
+    for i, s in enumerate(spheres[1:-3], start=1):
+        if s["mat"] == LAMBERTIAN:
+            motion[i, 1] = 0.5 * g.random()
+    scene = make_scene(spheres, dtype=dtype, device=device)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    padded = np.zeros((scene.n_spheres, 3), dtype=np_dtype)
+    padded[:len(spheres)] = motion.astype(np_dtype)
+    moving = MovingScene(*scene, motion=torch.as_tensor(padded).to(device))
+    moving.motion.moving_spheres = int((padded != 0).any(1).sum())
+    return moving
 
 
 def scene_random_spheres_reference(dtype=torch.float32, device="cpu",
@@ -148,20 +179,22 @@ def scene_random_spheres_reference(dtype=torch.float32, device="cpu",
 def save_scene(scene: Scene, path: str) -> None:
     """Write a scene's six arrays to ``.npz``, under the field names the
     JAX package's ``save_scene`` uses: a file either package writes loads
-    in the other."""
+    in the other. A :class:`MovingScene` adds its ``motion``."""
     np.savez(path, **{f: getattr(scene, f).detach().cpu().numpy()
-                      for f in Scene._fields})
+                      for f in scene._fields})
 
 
 def load_scene(path: str, dtype=torch.float32, device="cpu") -> Scene:
     """Load a scene written by :func:`save_scene` (or by the JAX package's)
     onto ``device``, its floats in ``dtype`` and ``mat`` int32."""
     with np.load(path) as data:
-        return scene_from_numpy({f: data[f] for f in Scene._fields},
+        return scene_from_numpy({f: data[f] for f in MovingScene._fields
+                                 if f in data.files},
                                 device=device, dtype=dtype)
 
 
-ALL_SCENES = {
+#: The static scene presets, which every route renders.
+STATIC_SCENES = {
     "2_spheres": scene_2_spheres,
     "4_spheres": scene_4_spheres,
     "diel_spheres": scene_diel_spheres,
@@ -170,3 +203,7 @@ ALL_SCENES = {
     "random_spheres": scene_random_spheres,
     "random_spheres_reference": scene_random_spheres_reference,
 }
+
+#: Every scene preset: the static ones and book 2's moving lattice, which
+#: only the strided forward route renders.
+ALL_SCENES = {**STATIC_SCENES, "bouncing_spheres": scene_bouncing_spheres}

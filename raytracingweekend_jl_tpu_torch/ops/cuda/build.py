@@ -53,6 +53,18 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _U, _P],
     # active[R], R, params[5], passes, flags[2], host_flags[2], stream
     "rtw_strided_chunk_end": [_P, _I, _P, _I, _P, _P, _P],
+    # rays[6,R], times[R], spheres[N,8], R, N, tmin, t[R], idx[R], parts,
+    # stream
+    "rtw_sweep_motion": [_P, _P, _P, _I, _I, _F, _P, _P, _I, _P],
+    # fstate[13,R], istate[7,R], buf[3k,R], t[R], idx[R], amat[N,13],
+    # cam[21], u10[10,R] or NULL, R, k, W, H, dpx, dpy, p_end,
+    # first_sample, max_depth, seed, iteration, stream
+    "rtw_shade_strided_motion": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _U, _U, _P],
+    # fstate[13,R], istate[7,R], buf[3k,R], t[R], idx[R], amat[N,13],
+    # cam[21], params[5], R, k, W, H, dpx, dpy, max_depth, pass, stream
+    "rtw_shade_strided_motion_pass": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _I, _U, _P],
     # rays[6,R], spheres[N,4], amat[N,10], R, N, tmin, t[R], idx[R],
     # attrs[10,R], parts, stream
     "rtw_sweep_fetch": [_P, _P, _P, _I, _I, _F, _P, _P, _P, _I, _P],

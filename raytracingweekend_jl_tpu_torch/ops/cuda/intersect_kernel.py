@@ -22,6 +22,14 @@ winner's row of the ``[N, 10]`` table by index. :func:`sweep_split_ref` and
 ray), the independent reference the card checks hold the split kernels
 against; no route runs any of the three.
 
+K1m (``sweep_motion_kernel`` in csrc/sweep.cu) is K1 for a moving scene (book 2's motion blur;
+no TPU kernel had a time): each ray carries a shutter time and each pair
+moves its sphere to ``c0 + time * m`` and forms ``|c|^2 - r^2`` from it,
+over the ``[N, 8]`` table of :func:`motion_sphere_table`, with K1's split
+and merge. :func:`sweep_motion` and :func:`sweep_motion_into` launch it,
+:func:`sweep_motion_ref` is its plain version; the strided route of a
+``MovingScene`` is its only caller.
+
 :func:`intersect_spheres_kernel` and :func:`intersect_fetch_kernel` (the
 reference's ``intersect_spheres_pallas`` and ``intersect_fetch_pallas``)
 wrap K1 and K10 in ``torch.autograd.Function`` s whose backward is the
@@ -51,7 +59,10 @@ masked_launches = 0
 #: Number of K10 launches since the last reset.
 fetch_launches = 0
 
-#: Threads per block of K1, K3 and K10 (``RTW_SWEEP_THREADS`` in
+#: Number of K1m launches since the last reset.
+motion_launches = 0
+
+#: Threads per block of K1, K1m, K3 and K10 (``RTW_SWEEP_THREADS`` in
 #: csrc/sweep.cu), and K3's lanes per block.
 SWEEP_THREADS = 256
 
@@ -60,7 +71,7 @@ ONE_THREAD_THREADS = 128
 
 #: The kernels of :func:`occupancy`.
 OCCUPANCY_KERNELS = {"sweep": 0, "sweep_masked": 1, "sweep_fetch": 2,
-                     "sweep_fetch_one_thread": 3}
+                     "sweep_fetch_one_thread": 3, "sweep_motion": 4}
 
 
 def sphere_consts(scene: Scene) -> torch.Tensor:
@@ -72,20 +83,30 @@ def sphere_consts(scene: Scene) -> torch.Tensor:
     return torch.stack([c[:, 0], c[:, 1], c[:, 2], ck], dim=1).contiguous()
 
 
-def sweep_ref(rays: torch.Tensor, spheres: torch.Tensor,
-              tmin: float = DEFAULT_TMIN) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K1: ``rays`` [6, R] planes (o.xyz, d.xyz), ``spheres``
-    [N, 4] from :func:`sphere_consts`. Returns ``(t [R] f32, idx [R] i32)``.
+def motion_sphere_table(scene) -> torch.Tensor:
+    """``[N, 8]`` float32 rows ``(c0x, c0y, c0z, r^2, mx, my, mz, 0)`` of a
+    :class:`~raytracingweekend_jl_tpu_torch.scene.MovingScene`: the table
+    K1m reads, two float4 a sphere."""
+    c = scene.center.to(torch.float32)
+    r = scene.radius.to(torch.float32)
+    m = scene.motion.to(torch.float32)
+    return torch.cat([c, (r * r)[:, None], m, torch.zeros_like(r)[:, None]],
+                     dim=1).contiguous()
 
-    The TPU kernel's expanded form, one sphere at a time with a running
-    ``(best_t, best_idx)`` updated only on a strict ``t < best_t``."""
+
+def _sweep_pairs(rays: torch.Tensor, n: int, sphere, tmin: float) -> tuple:
+    """``(t [R], idx [R] i32)`` of ``rays`` [6, R] over spheres ``0 ..
+    n-1``, ``sphere(s)`` giving sphere ``s``'s ``(cx, cy, cz, ck)`` (scalars
+    or [R] planes): the TPU kernel's expanded form, one sphere at a time
+    with a running ``(best_t, best_idx)`` updated only on a strict ``t <
+    best_t``."""
     ox, oy, oz, dx, dy, dz = rays
     od = ox * dx + oy * dy + oz * dz
     oo = ox * ox + oy * oy + oz * oz
     best_t = torch.full_like(ox, BIG)
     best_i = torch.zeros(ox.shape, dtype=torch.int32, device=ox.device)
-    for s in range(spheres.shape[0]):
-        cx, cy, cz, ck = spheres[s]
+    for s in range(n):
+        cx, cy, cz, ck = sphere(s)
         cd = cx * dx + cy * dy + cz * dz
         oc = cx * ox + cy * oy + cz * oz
         hb = od - cd
@@ -98,6 +119,31 @@ def sweep_ref(rays: torch.Tensor, spheres: torch.Tensor,
         best_t = torch.where(ok, t, best_t)
         best_i = torch.where(ok, torch.full_like(best_i, s), best_i)
     return best_t, best_i
+
+
+def sweep_ref(rays: torch.Tensor, spheres: torch.Tensor,
+              tmin: float = DEFAULT_TMIN) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K1: ``rays`` [6, R] planes (o.xyz, d.xyz), ``spheres``
+    [N, 4] from :func:`sphere_consts`. Returns ``(t [R] f32, idx [R] i32)``
+    (:func:`_sweep_pairs`)."""
+    return _sweep_pairs(rays, spheres.shape[0], lambda s: spheres[s], tmin)
+
+
+def sweep_motion_ref(rays: torch.Tensor, times: torch.Tensor,
+                     spheres: torch.Tensor, tmin: float = DEFAULT_TMIN
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K1m: ``rays`` [6, R], their shutter ``times`` [R],
+    ``spheres`` [N, 8] from :func:`motion_sphere_table`. Each pair moves
+    the centre to ``c0 + time * m`` and forms ``|c|^2 - r^2`` from it, in
+    the kernel's order, then :func:`sweep_ref`'s test. Returns ``(t [R]
+    f32, idx [R] i32)``."""
+    def sphere(s):
+        c0x, c0y, c0z, r2, mx, my, mz, _ = spheres[s]
+        cx = c0x + times * mx
+        cy = c0y + times * my
+        cz = c0z + times * mz
+        return cx, cy, cz, cx * cx + cy * cy + cz * cz - r2
+    return _sweep_pairs(rays, spheres.shape[0], sphere, tmin)
 
 
 def sweep_masked_ref(rays: torch.Tensor, alive: torch.Tensor,
@@ -215,8 +261,8 @@ def occupancy(kernel: str, n_spheres: int, device) -> dict:
 
 
 def _resident_threads(device, n_spheres: int, kernel: str = "sweep") -> int:
-    """The threads of K1 (or ``kernel``, K10) that ``device`` holds at once
-    (cached)."""
+    """The threads of K1 (or ``kernel``: K10, K1m) that ``device`` holds at
+    once (cached)."""
     key = (torch.device(device).index, n_spheres, kernel)
     if key not in _RESIDENT:
         o = occupancy(kernel, n_spheres, device)
@@ -290,6 +336,61 @@ def sweep_into(rays: torch.Tensor, spheres: torch.Tensor, t: torch.Tensor,
     build.check_arg("sweep_into: idx", idx, torch.int32, (n_rays,),
                     rays.device)
     _launch_sweep(rays, spheres, tmin, parts, t, idx)
+
+
+def sweep_motion(rays: torch.Tensor, times: torch.Tensor,
+                 spheres: torch.Tensor, tmin: float = DEFAULT_TMIN,
+                 parts: int | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1m: closest hit of ``rays`` [6, R] at their shutter ``times`` [R]
+    against the moving table ``spheres`` [N, 8], each ray swept by
+    ``parts`` threads (by default :func:`sweep_parts` for K1m on this
+    card). Every P gives the same result.
+
+    CPU tensors run :func:`sweep_motion_ref`. CUDA tensors launch the
+    kernel on the current stream, counted in :data:`motion_launches`;
+    anything it does not take raises."""
+    global motion_launches
+    if rays.device.type == "cpu":
+        return sweep_motion_ref(rays, times, spheres, tmin)
+    t = torch.empty(rays.shape[1], dtype=torch.float32, device=rays.device)
+    idx = torch.empty(rays.shape[1], dtype=torch.int32, device=rays.device)
+    sweep_motion_into(rays, times, spheres, t, idx, tmin, parts)
+    motion_launches += 1
+    return t, idx
+
+
+def sweep_motion_into(rays: torch.Tensor, times: torch.Tensor,
+                      spheres: torch.Tensor, t: torch.Tensor,
+                      idx: torch.Tensor, tmin: float = DEFAULT_TMIN,
+                      parts: int | None = None) -> None:
+    """K1m as :func:`sweep_motion`, on CUDA tensors, writing ``t`` and
+    ``idx`` in place (the strided loop's captured chunk); not counted."""
+    if parts is not None:
+        _check_parts("sweep_motion", parts)
+    dev = rays.device
+    if dev.type != "cuda":
+        raise ValueError(f"sweep_motion: unsupported device {dev}")
+    n_rays, n_sph = (rays.shape[1] if rays.dim() == 2 else -1,
+                     spheres.shape[0] if spheres.dim() == 2 else -1)
+    f32 = torch.float32
+    build.check_arg("sweep_motion: rays", rays, f32, (6, n_rays), dev)
+    build.check_arg("sweep_motion: times", times, f32, (n_rays,), dev)
+    build.check_arg("sweep_motion: spheres", spheres, f32, (n_sph, 8), dev)
+    build.check_arg("sweep_motion: t", t, f32, (n_rays,), dev)
+    build.check_arg("sweep_motion: idx", idx, torch.int32, (n_rays,), dev)
+    if n_sph * 32 > 227 * 1024:
+        raise ValueError(f"sweep_motion: {n_sph} spheres exceed the "
+                         "kernel's shared-memory table (max 7264)")
+    if parts is None:
+        parts = sweep_parts(n_rays, n_sph,
+                            _resident_threads(dev, n_sph, "sweep_motion"))
+    with torch.cuda.device(dev):
+        err = build.load().rtw_sweep_motion(
+            rays.data_ptr(), times.data_ptr(), spheres.data_ptr(), n_rays,
+            n_sph, float(tmin), t.data_ptr(), idx.data_ptr(), parts,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "sweep_motion")
 
 
 def _launch_sweep(rays, spheres, tmin, parts, t, idx) -> None:

@@ -25,6 +25,12 @@ gather, then :func:`shade_strided_step_ref`) on CPU tensors; nothing else.
 :func:`shade_strided_pass` is K2 as the strided loop's captured chunk runs
 it, its per-call scalars read from a parameter block on the card, and
 :func:`strided_chunk_end` the chunk's end (the any-lane-active flag).
+K2m (``shade_strided_motion_kernel`` in csrc/shade_strided.cu, K2's lane
+with a time), a moving scene's step, runs through
+the same wrappers on a 13-plane ``fstate`` (plane 12 the ray's shutter
+time) and a 13-column table (``materials.motion_attr_mat``): the winner's
+centre moved to the ray's time, a new ray's time the 10th uniform
+(:func:`shade_strided_step_ref`).
 
 K9 — one pixel-pinned persistent iteration (csrc/shade_pinned.cu), the
 counterpart of ``_shade_kernel`` with ``_shade_math`` — keeps one lane per
@@ -61,7 +67,13 @@ launches = 0
 #: reset.
 pinned_launches = 0
 
+#: Number of K2m launches (:func:`shade_strided_step` on a moving scene's
+#: state) since the last reset.
+motion_launches = 0
+
 N_FSTATE = 12
+#: K2m's float state: K2's 12 planes, then the ray's shutter time.
+N_FSTATE_MOTION = 13
 N_ISTATE = 7
 N_PINNED_ISTATE = 3
 
@@ -249,13 +261,25 @@ def shade_strided_step_ref(fstate: torch.Tensor, istate: torch.Tensor,
     camera constants; ``geom`` = (W, H, dpx, dpy, p_end) with
     ``dpx, dpy = n_lanes % W, n_lanes // W``. ``u9`` [9, R] injects the
     uniforms; without it they are :func:`rng.philox_uniforms` of
-    ``(seed, iteration)``, the kernel's own draws."""
+    ``(seed, iteration)``, the kernel's own draws.
+
+    K2m, a moving scene's step (csrc/shade_strided.cu), is this step
+    on a 13-plane ``fstate`` (plane 12 the ray's shutter time) with 13
+    attribute rows (the last three the winner's motion) and 10 uniforms: the
+    winner's centre is moved to ``c0 + time * m`` before shading, and a lane
+    that starts a sample takes the 10th uniform as its new time."""
     n = t.shape[0]
     k = buf.shape[0] // 3
     W, H, dpx, dpy, p_end = (int(g) for g in geom)
+    moving = fstate.shape[0] == N_FSTATE_MOTION
     if u9 is None:
-        u9 = rng.philox_uniforms(seed, iteration, n, 9, device=t.device)
-    ox, oy, oz, dx, dy, dz, tx, ty, tz, cx, cy, cz = fstate.unbind(0)
+        u9 = rng.philox_uniforms(seed, iteration, n, 10 if moving else 9,
+                                 device=t.device)
+    ox, oy, oz, dx, dy, dz, tx, ty, tz, cx, cy, cz = \
+        fstate[:N_FSTATE].unbind(0)
+    if moving:
+        time = fstate[N_FSTATE]
+        attrs = torch.cat([attrs[0:3] + time * attrs[10:13], attrs[3:10]])
     bo, sa, strip, pxi, pyi, ac, lane_lim = istate.unbind(0)
     aar, aag, aab = attrs[4], attrs[5], attrs[6]
     active = ac != 0
@@ -320,7 +344,10 @@ def shade_strided_step_ref(fstate: torch.Tensor, istate: torch.Tensor,
     bo = torch.where(start, torch.zeros_like(bo), bo)
     active = (active & ~need) | start
 
-    fstate.copy_(torch.stack([ox, oy, oz, dx, dy, dz, tx, ty, tz, cx, cy, cz]))
+    if moving:
+        fstate[N_FSTATE].copy_(torch.where(start, u9[9], time))
+    fstate[:N_FSTATE].copy_(torch.stack([ox, oy, oz, dx, dy, dz, tx, ty, tz,
+                                         cx, cy, cz]))
     istate[:6].copy_(torch.stack([bo, sa, strip, pxi, pyi,
                                   active.to(torch.int32)]))
 
@@ -355,24 +382,28 @@ def _check_planes(name, x, dtype, shape, device):
 
 
 def _check_strided(fstate, istate, buf, t, idx, amat, cam, dev) -> tuple:
-    """``(n_lanes, k)`` of K2's arguments on ``dev``; raises on anything
-    the kernel does not take."""
+    """``(n_lanes, k, moving)`` of K2's arguments on ``dev``, ``moving``
+    for K2m's (a 13-plane ``fstate`` and a 13-column ``amat``); raises on
+    anything the kernels do not take."""
     if dev.type != "cuda":
         raise ValueError(f"shade_strided_step: unsupported device {dev}")
     n = t.shape[0] if t.dim() == 1 else -1
     k = buf.shape[0] // 3 if buf.dim() == 2 else -1
+    moving = fstate.dim() == 2 and fstate.shape[0] == N_FSTATE_MOTION
     f32, i32 = torch.float32, torch.int32
-    _check_planes("fstate", fstate, f32, (N_FSTATE, n), dev)
+    _check_planes("fstate", fstate, f32,
+                  (N_FSTATE_MOTION if moving else N_FSTATE, n), dev)
     _check_planes("istate", istate, i32, (N_ISTATE, n), dev)
     _check_planes("buf", buf, f32, (3 * k, n), dev)
     _check_planes("t", t, f32, (n,), dev)
     _check_planes("idx", idx, i32, (n,), dev)
     _check_planes("amat", amat, f32,
-                  (amat.shape[0] if amat.dim() == 2 else -1, 10), dev)
+                  (amat.shape[0] if amat.dim() == 2 else -1,
+                   13 if moving else 10), dev)
     _check_planes("cam", cam, f32, (21,), dev)
     if k < 1:
         raise ValueError("shade_strided_step: buf must hold 3k planes, k >= 1")
-    return n, k
+    return n, k, moving
 
 
 def shade_strided_step(fstate: torch.Tensor, istate: torch.Tensor,
@@ -382,37 +413,44 @@ def shade_strided_step(fstate: torch.Tensor, istate: torch.Tensor,
                        iteration: int, first_sample: int, max_depth: int,
                        u9: torch.Tensor | None = None) -> None:
     """K2: one strided iteration with its winner fetch, in place
-    (arguments as :func:`shade_strided_fetch_ref`; ``idx`` int32).
+    (arguments as :func:`shade_strided_fetch_ref`; ``idx`` int32); K2m on a
+    moving scene's 13-plane state and 13-column table, with ``u9`` [10, R].
 
     CPU tensors run :func:`shade_strided_fetch_ref`. CUDA tensors launch the
-    kernel on the current stream; anything it does not take raises."""
-    global launches
+    kernel on the current stream, counted in :data:`launches` (K2) or
+    :data:`motion_launches` (K2m); anything it does not take raises."""
+    global launches, motion_launches
     if fstate.device.type == "cpu":
         return shade_strided_fetch_ref(fstate, istate, buf, t, idx, amat, cam,
                                        geom, seed, iteration, first_sample,
                                        max_depth, u9)
     dev = fstate.device
-    n, k = _check_strided(fstate, istate, buf, t, idx, amat, cam, dev)
+    n, k, moving = _check_strided(fstate, istate, buf, t, idx, amat, cam, dev)
     if u9 is not None:
-        _check_planes("u9", u9, torch.float32, (9, n), dev)
+        _check_planes("u9", u9, torch.float32, (10 if moving else 9, n), dev)
     W, H, dpx, dpy, p_end = (int(g) for g in geom)
     lib = build.load()
+    launch = lib.rtw_shade_strided_motion if moving else lib.rtw_shade_strided
     with torch.cuda.device(dev):  # the launch uses the current device
-        err = lib.rtw_shade_strided(
+        err = launch(
             fstate.data_ptr(), istate.data_ptr(), buf.data_ptr(), t.data_ptr(),
             idx.data_ptr(), amat.data_ptr(), cam.data_ptr(),
             None if u9 is None else u9.data_ptr(), n, k, W, H, dpx, dpy,
             p_end, int(first_sample), int(max_depth), seed & 0xFFFFFFFF,
             iteration & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
     build.check(err, "shade_strided_step")
-    launches += 1
+    if moving:
+        motion_launches += 1
+    else:
+        launches += 1
 
 
 def shade_strided_pass(fstate: torch.Tensor, istate: torch.Tensor,
                        buf: torch.Tensor, t: torch.Tensor, idx: torch.Tensor,
                        amat: torch.Tensor, cam: torch.Tensor, geom: tuple,
                        params: torch.Tensor, j: int, max_depth: int) -> None:
-    """K2 as pass ``j`` of the strided loop's chunk, in place: iteration
+    """K2 (K2m on a moving scene's state) as pass ``j`` of the strided
+    loop's chunk, in place: iteration
     ``params[PARAMS_BASE] + j`` with the seed, first sample and p_end read
     from ``params`` [N_PARAMS] int32 (``geom``'s p_end is not read), the
     kernel's own draws; a pass at or past ``params[PARAMS_LIMIT]`` changes
@@ -421,7 +459,8 @@ def shade_strided_pass(fstate: torch.Tensor, istate: torch.Tensor,
 
     CPU tensors run :func:`shade_strided_fetch_ref` with those scalars.
     CUDA tensors launch the kernel on the current stream, not counted in
-    :data:`launches` (the loop counts its chunk's replays)."""
+    :data:`launches` or :data:`motion_launches` (the loop counts its
+    chunk's replays)."""
     if fstate.device.type == "cpu":
         seed, first, p_end, base, limit = params.tolist()
         if base + j < limit:
@@ -430,11 +469,14 @@ def shade_strided_pass(fstate: torch.Tensor, istate: torch.Tensor,
                                     base + j, first, max_depth)
         return
     dev = fstate.device
-    n, k = _check_strided(fstate, istate, buf, t, idx, amat, cam, dev)
+    n, k, moving = _check_strided(fstate, istate, buf, t, idx, amat, cam, dev)
     _check_planes("params", params, torch.int32, (N_PARAMS,), dev)
     W, H, dpx, dpy = (int(g) for g in geom[:4])
+    lib = build.load()
+    launch = (lib.rtw_shade_strided_motion_pass if moving
+              else lib.rtw_shade_strided_pass)
     with torch.cuda.device(dev):
-        err = build.load().rtw_shade_strided_pass(
+        err = launch(
             fstate.data_ptr(), istate.data_ptr(), buf.data_ptr(), t.data_ptr(),
             idx.data_ptr(), amat.data_ptr(), cam.data_ptr(), params.data_ptr(),
             n, k, W, H, dpx, dpy, int(max_depth), j,

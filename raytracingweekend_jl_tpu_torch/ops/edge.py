@@ -48,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import rng
 from ..camera import sample_pass_rays
-from ..scene import Scene, trim_scene
+from ..scene import Scene, check_static, trim_scene
 from .integrator import (DEFAULT_MAX_DEPTH, _pick_intersector, resolve_impl,
                          skycolor, wavefront_bounce)
 from .intersect import BIG, DEFAULT_TMIN
@@ -225,6 +225,7 @@ def trace_edge(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
     the interaction distance (pass ``pix_angle`` from :func:`pixel_angle`).
     Each plain bounce, and each bounce of the branches' continuations, is
     recomputed in the backward (``torch.utils.checkpoint``)."""
+    check_static(scene, "the edge estimator")
     if sigma is None and pix_angle is None:
         raise ValueError("sigma=None needs pix_angle (see pixel_angle()) "
                          "for the footprint scale")
@@ -299,6 +300,7 @@ def render_radiance_edge(scene: Scene, cam, image_width: int,
     ``remat_chunks`` checkpoints each chunk, one after another: the backward
     keeps each chunk's ``[chunk, 3]`` sum and recomputes one chunk at a
     time; it needs ``pixel_chunk < H * W`` above 2^16 pixels."""
+    check_static(scene, "the edge estimator")
     from ..render import _resolve_device, image_height_for, pixel_coords
     device = _resolve_device(device)
     scene = trim_scene(scene.to(device))

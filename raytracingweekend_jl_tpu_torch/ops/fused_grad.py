@@ -39,7 +39,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..scene import Scene
+from ..scene import Scene, check_static
 from ..utils.profiling import count, span
 from .integrator import resolve_impl
 from .intersect import DEFAULT_TMIN
@@ -157,6 +157,7 @@ def trace_recorded_fused(scene: Scene, origin: torch.Tensor,
     low 32 bits). ``replay_fused=False`` replays bounce by bounce (K7b)
     instead of in one launch (K7c). Test hook: ``u5_fn(b, R)`` -> [5, R]
     replaces the draws of bounce ``b`` (record and replay)."""
+    check_static(scene, "the fixed-depth gradient pair")
     if scene.center.dtype != torch.float32:
         raise NotImplementedError(
             "only float32 gradients are ported (the record kernels are "
@@ -365,6 +366,7 @@ def trace_recorded_fused_staged(scene: Scene, origin: torch.Tensor,
     ``stats`` (a dict) is given; without it, a ``RuntimeWarning`` reports
     any overflow (one host read per call). Test hook: ``u5_fn(b, width)``
     -> [5, width] replaces bounce ``b``'s draws at its stage's width."""
+    check_static(scene, "the staged fixed-depth gradient pair")
     if scene.center.dtype != torch.float32:
         raise NotImplementedError(
             "only float32 gradients are ported (the record kernels are "

@@ -42,7 +42,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..scene import Scene
+from ..scene import Scene, check_static
 from .cuda.grad_kernel import dattr_contract_stages
 from .integrator import (DEFAULT_MAX_DEPTH, _pick_intersector, bounce_advance,
                          resolve_impl, skycolor)
@@ -260,6 +260,7 @@ def trace_recorded(scene: Scene, origin: torch.Tensor,
     (``mat`` gets none). Float32 or float64. Test hook: ``draws(b, n) ->
     (u [n, 3], xi [n])`` replaces bounce ``b``'s draws, in the forward and
     the backward."""
+    check_static(scene, "the recorded wavefront")
     cfg = _config(seed, max_depth, tmin, impl, draws, origin.device)
     rad, _ = _RecordedTrace.apply(*scene[:5], origin, direction, scene.mat,
                                   cfg)
@@ -282,6 +283,7 @@ def trace_recorded_staged(scene: Scene, origin: torch.Tensor,
     positional at its own width, so they differ from :func:`trace_recorded`'s
     from the stage bounce on. Arguments otherwise as
     :func:`trace_recorded`."""
+    check_static(scene, "the staged recorded wavefront")
     R = origin.shape[0]
     width = stage_width or R // 4
     if not 1 <= width <= R:

@@ -17,7 +17,7 @@ import torch
 
 from .. import rng
 from ..camera import Camera, sample_pass_rays
-from ..scene import Scene
+from ..scene import Scene, check_static
 from .cuda import inline_kernel
 from .integrator import resolve_impl
 
@@ -51,6 +51,7 @@ def render_inline_sum(scene: Scene, cam: Camera, u: torch.Tensor,
     coordinates must be on one device, which is where it runs. Float32
     only. Test hook: ``rng_u5_fn(p)`` -> [max_depth, 5, spg * n_pix]
     replaces group ``p``'s scatter draws."""
+    check_static(scene, "the inline route (K8)")
     device = scene.device
     if cam.origin.device != device or u.device != device:
         raise ValueError(f"scene on {device}, camera on {cam.origin.device}, "

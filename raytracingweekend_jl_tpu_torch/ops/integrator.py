@@ -18,7 +18,10 @@ sample in place when its ray ends (sky or depth exhaustion):
 
 - :func:`persistent_render_sum_strided`: each lane serves ``k`` pixels
   spaced ``n_lanes`` apart and folds a finished pixel into its strip buffer;
-  its step is K2 (``cuda/shade_kernel.shade_strided_step``);
+  its step is K2 (``cuda/shade_kernel.shade_strided_step``). It is the one
+  route that renders a ``MovingScene`` (book 2's motion blur): its rays
+  carry a shutter time, swept by K1m and stepped by K2m; every other route
+  here refuses one (``scene.check_static``);
 - :func:`persistent_render_sum_fused`: one lane per pixel of any set of
   film coordinates (a non-contiguous tile); its step is K9
   (``cuda/shade_kernel.shade_and_regen_fetch``).
@@ -43,13 +46,14 @@ from typing import Callable, NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..camera import film_point, make_rays
-from ..scene import Scene
-from ..utils.profiling import count, span, sync
+from ..camera import film_point, make_rays, shutter_times
+from ..scene import Scene, check_static, moving_spheres, scene_moves
+from ..utils.profiling import count, recording, span, sync
 from .. import rng
 from .intersect import BIG, DEFAULT_TMIN, HitResult, intersect_spheres
 from .materials import (attr_mat, fetch_attr_planes, gather_sphere_attrs,
-                        positional_draws, scatter, slot_draws)
+                        motion_attr_mat, positional_draws, scatter,
+                        slot_draws)
 from .sampling import concentric_disk_map, per_ray_uniforms
 from .cuda import build, intersect_kernel, shade_kernel
 
@@ -97,7 +101,7 @@ def _check_film(f32_w: float, f32_h: float) -> None:
 class StridedState(NamedTuple):
     """Mutable state of the strided loop (see ``cuda/shade_kernel.py``)."""
 
-    fstate: torch.Tensor  # [12, n_lanes] f32
+    fstate: torch.Tensor  # [12, n_lanes] f32; [13, n_lanes] moving
     istate: torch.Tensor  # [7, n_lanes] i32
     buf: torch.Tensor     # [3k, n_lanes] f32
     geom: tuple           # (W, H, dpx, dpy, p_end)
@@ -112,7 +116,9 @@ def init_strided_state(cam, n_pix: int, W: int, H: int, seed: int,
                        k: int, pixel_start: int = 0, sample_groups: int = 1,
                        generator: torch.Generator | None = None,
                        init_u4: torch.Tensor | None = None,
-                       device=None) -> StridedState:
+                       device=None, shutter: bool = False,
+                       init_time: torch.Tensor | None = None
+                       ) -> StridedState:
     """Lanes, pixel assignment and the strip-0 camera rays of a strided
     render of the contiguous pixel range ``[pixel_start, pixel_start +
     n_pix)`` of a ``W x H`` image.
@@ -120,7 +126,10 @@ def init_strided_state(cam, n_pix: int, W: int, H: int, seed: int,
     The strip-0 rays use 4 uniforms per lane: jitter (zero for global sample
     0) and a lens-disk point. They come from ``init_u4`` ([n_lanes, 4]) when
     given, else from ``generator``, else from a generator seeded by
-    ``(seed, PIXEL_JITTER, sample_offset)``."""
+    ``(seed, PIXEL_JITTER, sample_offset)``. With ``shutter`` (a moving
+    scene) each strip-0 ray also has a shutter time, the state's 13th
+    plane: ``init_time`` [n_lanes] when given, else drawn
+    (:func:`camera.shutter_times`) from that generator after the 4."""
     device = cam.origin.device if device is None else torch.device(device)
     m = sample_groups
     if m > 1 and k != 1:
@@ -151,12 +160,15 @@ def init_strided_state(cam, n_pix: int, W: int, H: int, seed: int,
     py0 = pid0 // W
     active0 = (pid0 < p_end).to(i32)
 
+    if generator is None and (init_u4 is None
+                              or (shutter and init_time is None)):
+        generator = rng.generator(seed, rng.PIXEL_JITTER, sample_offset,
+                                  device=device)
     if init_u4 is None:
-        if generator is None:
-            generator = rng.generator(seed, rng.PIXEL_JITTER, sample_offset,
-                                      device=device)
         init_u4 = per_ray_uniforms(n_lanes, 4, generator=generator,
                                    device=device)
+    if shutter and init_time is None:
+        init_time = shutter_times(n_lanes, generator, device)
     u4 = init_u4.to(device=device, dtype=f32)
     with sync("film_scale"):  # a copy from the host waits for the card
         scale = torch.tensor([1.0 / W, 1.0 / H], dtype=f32, device=device)
@@ -167,10 +179,13 @@ def init_strided_state(cam, n_pix: int, W: int, H: int, seed: int,
     v_lane = film_point(float(H - 1) - py0.to(f32), H)
     org, d = make_rays(cam, u_lane + jit_uv[:, 0], v_lane + jit_uv[:, 1], disk)
 
-    fstate = torch.zeros((12, n_lanes), dtype=f32, device=device)
+    fstate = torch.zeros((13 if shutter else 12, n_lanes), dtype=f32,
+                         device=device)
     fstate[0:3] = org.T
     fstate[3:6] = d.T
     fstate[6:9] = 1.0
+    if shutter:
+        fstate[12] = init_time.to(device=device, dtype=f32)
     istate = torch.stack([torch.zeros_like(lane), sample_ids.to(i32),
                           torch.zeros_like(lane), px0, py0, active0,
                           lane_lim.to(i32)]).contiguous()
@@ -181,12 +196,19 @@ def init_strided_state(cam, n_pix: int, W: int, H: int, seed: int,
 
 
 def sweep_hits(scene_tables: tuple, rays: torch.Tensor, tmin: float,
-               impl: str) -> tuple[torch.Tensor, torch.Tensor]:
+               impl: str, times: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The sweep of one persistent iteration: ``(t [R], idx [R] int32)`` of
     ``rays`` [6, R] through K1 (``"kernels"``) or the dot-form sweep
     (``"plain"``). ``scene_tables`` = (scene, sphere_consts [N,4], attr_mat
-    [N,10])."""
+    [N,10]); for a moving scene (scene, motion_sphere_table [N,8],
+    motion_attr_mat [N,13]) with the rays' shutter ``times`` [R], swept by
+    K1m or its plain version."""
     scene, spheres, _ = scene_tables
+    if times is not None:
+        sweep = (intersect_kernel.sweep_motion if impl == "kernels"
+                 else intersect_kernel.sweep_motion_ref)
+        return sweep(rays, times, spheres, tmin)
     if impl == "kernels":
         return intersect_kernel.sweep(rays, spheres, tmin)
     hit = intersect_spheres(rays[0:3].T, rays[3:6].T, scene, tmin=tmin)
@@ -205,9 +227,9 @@ def strided_step(scene_tables: tuple, st: StridedState, cam_consts, seed: int,
                  it: int, sample_offset: int, max_depth: int, tmin: float,
                  impl: str, u9: torch.Tensor | None = None) -> None:
     """One iteration (sweep, then the strided step with its winner fetch)
-    on ``st``, in place. ``scene_tables`` = (scene, sphere_consts [N,4],
-    attr_mat [N,10])."""
-    t, idx = sweep_hits(scene_tables, st.fstate[0:6], tmin, impl)
+    on ``st``, in place. ``scene_tables`` as in :func:`sweep_hits`."""
+    t, idx = sweep_hits(scene_tables, st.fstate[0:6], tmin, impl,
+                        shutter_plane(st))
     step = (shade_kernel.shade_strided_step if impl == "kernels"
             else shade_kernel.shade_strided_fetch_ref)
     step(st.fstate, st.istate, st.buf, t, idx, scene_tables[2], cam_consts,
@@ -224,6 +246,13 @@ def resolve_impl(impl: str | None, device: torch.device) -> str:
         raise ValueError("impl='kernels' runs the CUDA kernels and needs "
                          f"tensors on a CUDA device, got {device}")
     return impl
+
+
+def shutter_plane(st: StridedState) -> torch.Tensor | None:
+    """The rays' shutter times [n_lanes] of a moving scene's state (its
+    13th plane), or None for a static scene's."""
+    return (st.fstate[shade_kernel.N_FSTATE]
+            if st.fstate.shape[0] == shade_kernel.N_FSTATE_MOTION else None)
 
 
 def strided_result(st: StridedState) -> torch.Tensor:
@@ -245,14 +274,30 @@ def strided_setup(scene: Scene, cam, n_pix: int, seed: int, n_samples: int,
     """``(st, cam_consts, tables, seed32)`` of a strided render on the
     scene's device: the state (:func:`init_strided_state`), the camera's
     constants, ``(scene, sphere_consts, attr_mat)`` and the key word of the
-    in-kernel draws; what either strided loop starts from."""
+    in-kernel draws; what either strided loop starts from.
+
+    A :class:`~..scene.MovingScene` gets a state with shutter times and the
+    tables ``(scene, motion_sphere_table, motion_attr_mat)``, packed under
+    the span ``rtw.render.motion_table``; the counter
+    ``rtw.render.moving_spheres`` adds its spheres whose motion is not zero
+    (:func:`~..scene.moving_spheres`, counted on the host where the scene
+    was made)."""
     device = scene.device
+    moving = scene_moves(scene)
     st = init_strided_state(cam, n_pix, W, H, seed, n_samples, sample_offset,
                             max_depth, k, pixel_start, sample_groups,
                             generator=generator, init_u4=init_u4,
-                            device=device)
+                            device=device, shutter=moving)
     cam_consts = shade_kernel.pack_camera_consts(cam, W, H, device=device)
-    tables = (scene, intersect_kernel.sphere_consts(scene), attr_mat(scene))
+    if moving:
+        with span("rtw.render.motion_table"):
+            tables = (scene, intersect_kernel.motion_sphere_table(scene),
+                      motion_attr_mat(scene))
+        if recording():
+            count("rtw.render.moving_spheres", moving_spheres(scene))
+    else:
+        tables = (scene, intersect_kernel.sphere_consts(scene),
+                  attr_mat(scene))
     return st, cam_consts, tables, rng.persistent_seed(seed, sample_offset)
 
 
@@ -270,9 +315,11 @@ def persistent_render_sum_strided(
     ``n_samples`` samples with global ids from ``sample_offset``.
 
     ``scene`` and ``cam`` must be on one device, which is where it runs.
-    Float32 only. Test hooks: ``init_u4`` [n_lanes, 4] replaces the
-    strip-0 draws, ``rng_u9_fn(it)`` -> [9, n_lanes] the per-iteration ones
-    (the in-kernel Philox stream otherwise).
+    Float32 only. A :class:`~..scene.MovingScene` runs K1m and K2m on a
+    state whose rays carry shutter times (:func:`strided_setup`). Test
+    hooks: ``init_u4`` [n_lanes, 4] replaces the strip-0 draws,
+    ``rng_u9_fn(it)`` -> [9, n_lanes] ([10, n_lanes] moving) the
+    per-iteration ones (the in-kernel Philox stream otherwise).
 
     With ``impl="kernels"`` and no ``rng_u9_fn`` the loop runs in chunks of
     ``ACTIVE_CHECK_EVERY`` passes, each a replay of one captured CUDA graph
@@ -342,17 +389,19 @@ _STRIDED_PLANS: OrderedDict = OrderedDict()
 def strided_plan_key(st: StridedState, n_spheres: int, max_depth: int,
                      tmin: float, stream_id: int = 0,
                      library: str | None = None) -> tuple:
-    """What a captured chunk holds fixed: the device, the lanes, ``k``, the
-    sample groups, the (padded) sphere count, the film's ``W`` and ``H``,
+    """What a captured chunk holds fixed: the device, whether the scene
+    moves (K1m and K2m on a 13-plane state), the lanes, ``k``, the sample
+    groups, the (padded) sphere count, the film's ``W`` and ``H``,
     ``max_depth``, ``tmin``, the stream it runs on (its order keeps a
     call's copies behind the last call's chunks) and the kernel library
     loaded (a rebuilt one gets its own capture). A call's seed, first
     sample, ``p_end`` and iteration limit are read from the parameter block,
     so one plan serves every tile of one shape."""
     dev = st.fstate.device
-    return (dev.type, dev.index, st.fstate.shape[1], st.k, st.sample_groups,
-            n_spheres, st.geom[0], st.geom[1], max_depth, float(tmin),
-            stream_id, library)
+    return (dev.type, dev.index, shutter_plane(st) is not None,
+            st.fstate.shape[1], st.k, st.sample_groups, n_spheres,
+            st.geom[0], st.geom[1], max_depth, float(tmin), stream_id,
+            library)
 
 
 def lru_get(cache: OrderedDict, key, make: Callable, capacity: int) -> tuple:
@@ -395,15 +444,21 @@ def _strided_chunk(tables: tuple, st: StridedState, cam_consts, params,
     """One chunk on ``st``, in place: ``ACTIVE_CHECK_EVERY`` passes of the
     sweep and K2 (:func:`shade_kernel.shade_strided_pass`, its scalars from
     ``params``), then :func:`shade_kernel.strided_chunk_end`. On the card
-    K1 writes ``hits`` (t, idx) and the chunk is what the graph captures;
-    on the CPU the plain sweep and step run it as it stands."""
+    K1 (K1m for a moving scene) writes ``hits`` (t, idx) and the chunk is
+    what the graph captures; on the CPU the plain sweep and step run it as
+    it stands."""
+    times = shutter_plane(st)
     for j in range(ACTIVE_CHECK_EVERY):
-        if st.fstate.is_cuda:
+        if st.fstate.is_cuda and times is not None:
+            intersect_kernel.sweep_motion_into(st.fstate[0:6], times,
+                                               tables[1], *hits, tmin, parts)
+            t, idx = hits
+        elif st.fstate.is_cuda:
             intersect_kernel.sweep_into(st.fstate[0:6], tables[1], *hits,
                                         tmin, parts)
             t, idx = hits
         else:
-            t, idx = sweep_hits(tables, st.fstate[0:6], tmin, "plain")
+            t, idx = sweep_hits(tables, st.fstate[0:6], tmin, "plain", times)
         shade_kernel.shade_strided_pass(st.fstate, st.istate, st.buf, t, idx,
                                         tables[2], cam_consts, st.geom,
                                         params, j, max_depth)
@@ -423,6 +478,7 @@ class _StridedPlan:
         dev = st.fstate.device
         n = st.fstate.shape[1]
         self.cuda = dev.type == "cuda"
+        self.moving = shutter_plane(st) is not None  # K1m and K2m
         self.st = st._replace(fstate=torch.empty_like(st.fstate),
                               istate=torch.empty_like(st.istate),
                               buf=torch.empty_like(st.buf))
@@ -442,8 +498,10 @@ class _StridedPlan:
         self.parts = self.events = self.done = None
         if self.cuda:
             n_sph = tables[1].shape[0]
+            kernel = "sweep_motion" if self.moving else "sweep"
             self.parts = intersect_kernel.sweep_parts(
-                n, n_sph, intersect_kernel._resident_threads(dev, n_sph))
+                n, n_sph, intersect_kernel._resident_threads(dev, n_sph,
+                                                             kernel))
             self.events = [torch.cuda.Event(), torch.cuda.Event()]
             self.done = torch.cuda.Event()
 
@@ -491,15 +549,19 @@ class _StridedPlan:
 
     def queue(self, c: int, max_depth: int, tmin: float) -> None:
         """Chunk ``c``: a replay of the captured chunk on the card (counted
-        as ``ACTIVE_CHECK_EVERY`` launches of K1 and of K2), the chunk
-        itself on the CPU."""
+        as ``ACTIVE_CHECK_EVERY`` launches of K1 and of K2, or of K1m and
+        K2m), the chunk itself on the CPU."""
         if not self.cuda:
             self.chunk(max_depth, tmin)
             return
         self.graph.replay()
         self.events[c % 2].record()
-        intersect_kernel.launches += ACTIVE_CHECK_EVERY
-        shade_kernel.launches += ACTIVE_CHECK_EVERY
+        if self.moving:
+            intersect_kernel.motion_launches += ACTIVE_CHECK_EVERY
+            shade_kernel.motion_launches += ACTIVE_CHECK_EVERY
+        else:
+            intersect_kernel.launches += ACTIVE_CHECK_EVERY
+            shade_kernel.launches += ACTIVE_CHECK_EVERY
 
     def active_after(self, c: int) -> bool:
         """Whether chunk ``c`` left a lane active, once it has run (its
@@ -696,6 +758,7 @@ def trace(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
     without ``fused_attrs``): a tile with no live lane costs no sweep and
     no host synchronisation, and changes nothing, as in the reference's
     per-tile ``lax.cond``. ``keyed=True`` with it raises ``ValueError``."""
+    check_static(scene, "the wavefront trace")
     if tile_skip and keyed:
         raise ValueError("tile_skip uses per-tile positional draws; "
                          "keyed=True is not supported together with it")
@@ -903,6 +966,7 @@ def persistent_render_sum_fused(
     Philox keyed by ``(persistent_seed(seed, sample_offset), iteration)``
     with the lane as the counter, in the kernel, or ``rng_u9_fn(it)`` ->
     [9, R]."""
+    check_static(scene, "the pixel-pinned route (K9)")
     return pinned_render_loop(scene, cam, u, v, seed, n_samples,
                               sample_offset, max_depth, tmin, f32_w, f32_h,
                               impl, init_u4, rng_u9_fn, _pinned_iteration)
@@ -934,6 +998,7 @@ def persistent_render_sum(
     (slot, block, sample, bounce) under its SCATTER_DIR stream, a unit
     vector by Box-Muller and a Schlick coin. The sweep is K1 on the card
     (``impl="kernels"``), the dot form otherwise; any float type."""
+    check_static(scene, "the plain pixel-pinned body")
     _check_film(f32_w, f32_h)
     dtype, dev = u.dtype, u.device
     impl = resolve_impl(impl, dev)
@@ -1009,6 +1074,7 @@ def trace_compacted(scene: Scene, origin: torch.Tensor,
     skips dead tiles and re-sorts every fourth bounce because its loop has
     fixed shapes; eager PyTorch compacts every bounce for the price of the
     gather. No gradient: use :func:`trace`."""
+    check_static(scene, "the compacting wavefront")
     dtype, dev = origin.dtype, origin.device
     R = origin.shape[0]
     isect = _pick_intersector(dtype, False, resolve_impl(impl, dev))

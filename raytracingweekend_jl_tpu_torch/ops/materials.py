@@ -50,6 +50,13 @@ def attr_mat(scene: Scene) -> torch.Tensor:
         scene.ir[:, None].to(f32), scene.mat[:, None].to(f32)], dim=1)
 
 
+def motion_attr_mat(scene) -> torch.Tensor:
+    """``[N, 13]`` float32: :func:`attr_mat`'s columns, then the sphere's
+    motion ``m`` (a ``MovingScene``): the rows K2m fetches."""
+    return torch.cat([attr_mat(scene), scene.motion.to(torch.float32)],
+                     dim=1).contiguous()
+
+
 #: Calls of :func:`fetch_attr_planes` since the last reset: on the card
 #: each is a cast and a gather launch (the strided and record loops fetch
 #: inside K2 and K4 and make none).
@@ -57,7 +64,8 @@ fetch_calls = 0
 
 
 def fetch_attr_planes(index: torch.Tensor, attr: torch.Tensor) -> torch.Tensor:
-    """Winner attributes in ``[10, R]`` plane-major layout: ``attr[index].T``,
+    """Winner attributes in ``[C, R]`` plane-major layout, ``C`` the
+    table's columns (10; 13 for a moving scene's): ``attr[index].T``,
     contiguous."""
     global fetch_calls
     fetch_calls += 1

@@ -36,7 +36,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..scene import Scene
+from ..scene import Scene, check_static
 from ..utils.profiling import count, span, sync
 from .integrator import ACTIVE_CHECK_EVERY, resolve_impl
 from .intersect import DEFAULT_TMIN
@@ -464,6 +464,7 @@ def trace_recorded_persist(scene: Scene, origin: torch.Tensor,
     ``u5_fn(i, width)`` -> [5, width] replaces the draws of absolute
     iteration ``i`` (record and replay), ``stats`` (a dict) collects the
     dropped count and the per-iteration occupancy."""
+    check_static(scene, "the persistent-record gradient pair")
     cfg = _config(seed, max_depth, tmin, n_strips, n_iters, fused_step,
                   tail_compact, rec_attrs, strict, impl, u5_fn, stats,
                   scene.device)

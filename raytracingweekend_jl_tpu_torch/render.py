@@ -77,7 +77,7 @@ from .ops.integrator import (DEFAULT_MAX_DEPTH, check_remat_policy,
 from .ops.intersect import DEFAULT_TMIN
 from .ops.persist_grad import trace_recorded_persist
 from .ops.vecmath import gamma2_encode
-from .scene import Scene, trim_scene
+from .scene import Scene, check_static, scene_moves, trim_scene
 from .utils.profiling import span, spanned, sync
 
 
@@ -136,10 +136,13 @@ def strided_sample_groups_for(n_pix: int, n_samples: int) -> int:
     return best
 
 
-def inline_route_for(n_pix: int, n_spheres: int) -> bool:
+def inline_route_for(n_pix: int, n_spheres: int,
+                     moving: bool = False) -> bool:
     """The reference's pick of the single-launch route for a full image: at
-    most 65 536 pixels, or at most 131 072 with at most 64 spheres."""
-    return n_pix <= 65536 or (n_pix <= 131072 and n_spheres <= 64)
+    most 65 536 pixels, or at most 131 072 with at most 64 spheres; never
+    for a moving scene, which K8 cannot render (it has no time)."""
+    return not moving and (n_pix <= 65536
+                           or (n_pix <= 131072 and n_spheres <= 64))
 
 
 def _resolve_device(device) -> torch.device:
@@ -185,7 +188,9 @@ def _pass_tracer(scene: Scene, max_depth: int, tmin: float,
     wavefront with ``recorded``; else the fixed-depth wavefront ``trace``
     (``remat``, ``fused_attrs``, ``remat_policy``, ``tile_skip``). The
     staged routes append the count of lanes their budgets dropped (a device
-    tensor) to ``overflow`` when it is a list."""
+    tensor) to ``overflow`` when it is a list. None of them has a shutter
+    time: a moving scene raises ``NotImplementedError``."""
+    check_static(scene, "persistent=False (the wavefront and gradient routes)")
     if compact:
         return lambda o, d, s: trace_compacted(scene, o, d, s, max_depth,
                                                tmin, impl=impl)
@@ -414,8 +419,8 @@ def render_tile_sum(scene: Scene, cam: Camera, n_pix: int, seed: int,
                                      sample_offset, max_depth, tmin, f32_w,
                                      f32_h, impl=impl)
     if inline is None:
-        inline = pixel_start is None and inline_route_for(n_pix,
-                                                          scene.n_spheres)
+        inline = pixel_start is None and inline_route_for(
+            n_pix, scene.n_spheres, scene_moves(scene))
     strided = full_image or pixel_start is not None
     if generator is not None and not (persistent and strided and not inline):
         raise ValueError(

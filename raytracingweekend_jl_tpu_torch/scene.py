@@ -4,6 +4,12 @@
 Layout, padding and signed-radius semantics are the reference package's: a
 negative radius flips the outward normal (hollow glass, src/hit.jl:33); padding
 spheres have radius 0, sit far away and can never be hit.
+
+:class:`MovingScene` is a :class:`Scene` with a motion per sphere (book 2's
+motion blur, *Ray Tracing: The Next Week* §2): the centre at shutter time
+``t`` in [0, 1) is ``center + t * motion``. Only the strided forward route
+renders it (K1m and K2m); every route without a time refuses it
+(:func:`check_static`) rather than render it frozen.
 """
 
 from __future__ import annotations
@@ -49,24 +55,92 @@ class Scene(NamedTuple):
         return self.center.device
 
     def to(self, device) -> "Scene":
-        return Scene(*(x.to(device) for x in self))
+        return type(self)(*(x.to(device) for x in self))
+
+
+class MovingScene(NamedTuple):
+    """A :class:`Scene` whose spheres move over the shutter [0, 1): sphere
+    ``s`` is centred at ``center[s] + t * motion[s]`` at time ``t``."""
+
+    center: torch.Tensor  # [N, 3] sphere centers at t = 0
+    radius: torch.Tensor  # [N] signed radii
+    albedo: torch.Tensor  # [N, 3]
+    fuzz: torch.Tensor    # [N]
+    ir: torch.Tensor      # [N]
+    mat: torch.Tensor     # [N] int32 material codes
+    motion: torch.Tensor  # [N, 3] displacement over the shutter
+
+    n_spheres = Scene.n_spheres
+    device = Scene.device
+
+    def to(self, device) -> "MovingScene":
+        out = Scene.to(self, device)
+        _carry_moving(self, out)
+        return out
+
+
+def moving_spheres(scene: MovingScene) -> int:
+    """How many of ``scene``'s spheres move: the count taken on the host
+    where its motion was made (:func:`scene_from_numpy`, the presets) and
+    carried by :meth:`MovingScene.to` and :func:`trim_scene`, else read from
+    the device once and kept on the motion tensor."""
+    n = getattr(scene.motion, "moving_spheres", None)
+    if n is None:
+        with sync("moving_spheres"):  # a copy to the host waits for the card
+            n = int((scene.motion != 0).any(1).sum())
+        scene.motion.moving_spheres = n
+    return n
+
+
+def _carry_moving(src, dst) -> None:
+    """Give ``dst``'s motion ``src``'s count of moving spheres, where it
+    was taken (padding, which trimming drops, never moves)."""
+    n = getattr(src.motion, "moving_spheres", None)
+    if n is not None:
+        dst.motion.moving_spheres = n
+
+
+def scene_moves(scene) -> bool:
+    """Whether ``scene`` is a :class:`MovingScene`, which only the strided
+    forward route renders."""
+    return isinstance(scene, MovingScene)
+
+
+def check_static(scene, route: str) -> None:
+    """Raise ``NotImplementedError`` if ``scene`` moves: ``route`` has no
+    shutter time, and would render it frozen at t = 0."""
+    if scene_moves(scene):
+        raise NotImplementedError(
+            f"{route} has no shutter time and cannot render a MovingScene; "
+            "a moving scene renders only on the strided route: "
+            "render_tile_sum(persistent=True, inline=False) of a whole "
+            "image or a contiguous pixel range, float32")
 
 
 def scene_from_numpy(arrays, device="cpu", dtype=torch.float32,
                      requires_grad: bool = False) -> Scene:
     """Build a :class:`Scene` from numpy arrays keyed by field name (or any
-    object with those attributes, e.g. the JAX package's ``Scene``).
-    ``requires_grad`` makes every field but ``mat`` a leaf that gradients
-    reach (it carries through :func:`trim_scene` and :meth:`Scene.to`)."""
+    object with those attributes, e.g. the JAX package's ``Scene``); a
+    ``motion`` key or attribute makes it a :class:`MovingScene`.
+    ``requires_grad`` makes every field but ``mat`` and ``motion`` a leaf
+    that gradients reach (it carries through :func:`trim_scene` and
+    :meth:`Scene.to`)."""
     get = (arrays.__getitem__ if isinstance(arrays, dict)
            else lambda f: getattr(arrays, f))
-    vals = {f: np.array(get(f)) for f in _FIELDS}
-    out = {f: torch.as_tensor(vals[f], dtype=torch.int32 if f == "mat"
-                              else dtype).to(device) for f in _FIELDS}
+    has_motion = ("motion" in arrays if isinstance(arrays, dict)
+                  else hasattr(arrays, "motion"))
+    fields = _FIELDS + ("motion",) if has_motion else _FIELDS
+    out = {f: torch.as_tensor(np.array(get(f)), dtype=torch.int32
+                              if f == "mat" else dtype).to(device)
+           for f in fields}
     if requires_grad:
         for f in _FIELDS[:-1]:
             out[f].requires_grad_(True)
-    return Scene(**out)
+    if not has_motion:
+        return Scene(**out)
+    out["motion"].moving_spheres = int(
+        (np.asarray(get("motion")) != 0).any(-1).sum())
+    return MovingScene(**out)
 
 
 def trim_scene(scene: Scene, multiple: int = 8) -> Scene:
@@ -79,7 +153,10 @@ def trim_scene(scene: Scene, multiple: int = 8) -> Scene:
     n = min(scene.n_spheres, max(multiple, -(-n // multiple) * multiple))
     if n == scene.n_spheres:
         return scene
-    return Scene(*(x[:n] for x in scene))
+    out = type(scene)(*(x[:n] for x in scene))
+    if scene_moves(scene):
+        _carry_moving(scene, out)
+    return out
 
 
 def make_scene(spheres: list[dict], dtype=torch.float32,

@@ -170,6 +170,13 @@ def count(name: str, n: int = 1) -> None:
         _counts[name] = _counts.get(name, 0) + n
 
 
+def recording() -> bool:
+    """Whether spans and counters record now (a profiler runs): what a
+    counter that needs a host read checks first, so that it reads nothing
+    with the profiler off."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def spans() -> list[SpanRecord]:
     """The spans closed since the last :func:`reset`, in closing order."""
     return list(_spans)

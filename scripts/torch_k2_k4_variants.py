@@ -24,6 +24,10 @@ signature unchanged:
   threads (a ballot, a scan of the 8 warp counts, 256-lane blocks), the
   draws still keyed by the lane.
 
+K2's rewrites act on its lane, ``rtw_shade_strided_lane``, which the moving
+scene's step (K2m, its ``kMoving`` instantiation) shares; only K2 is
+checked and timed here.
+
 It prints each build's registers, stack and spills. On the flagship
 render's state at iteration 24 (32 400 lanes, ``mid_render_32400``) and at
 its tail (the first multiple of 8 iterations after which under 10% of the
@@ -262,9 +266,9 @@ def k2_source(src: str, core: str, name: str, n_spheres: int) -> tuple:
                    '#include "shade_core.cuh"\n'
                    + SPLIT_HELPERS.format(P=P))
         src = _sub(src, K2_START, SPLIT_START)
-        src = _sub(src, "  float u[9];\n",
+        src = _sub(src, "  float u[NU];\n",
                    "  float u[12];  // the 9 uniforms, then g0, g1, g2\n")
-        src = _sub(src, "    rtw_uniforms<9>(seed, iteration, (uint32_t)i, u);\n",
+        src = _sub(src, "    rtw_uniforms<NU>(seed, iteration, (uint32_t)i, u);\n",
                    "    rtw_uniforms9_split(seed, iteration, (uint32_t)i, q, "
                    "u);\n")
         src = _sub(src, "  const float t = t_in[i];\n",

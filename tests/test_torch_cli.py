@@ -96,15 +96,22 @@ def _options(parser):
 
 def test_parser_has_every_jax_option():
     # Every option string of the JAX parser, with its destination, default,
-    # choices and type; plus --device (default None: the card).
+    # choices and type; plus --device (default None: the card). --scene
+    # also takes the port's moving presets (book 2), which the JAX package
+    # has not.
     jo, po = _options(jcli.build_parser()), _options(cli.build_parser())
     assert set(po) == set(jo) | {("--device",)}
+    moving = set(pt.ALL_SCENES) - set(pt.STATIC_SCENES)
+    assert moving == {"bouncing_spheres"}
     for opts, a in jo.items():
         b = po[opts]
         assert (b.dest, b.default, b.type, b.nargs, b.const) == \
             (a.dest, a.default, a.type, a.nargs, a.const), opts
+        want = set(a.choices) if a.choices else None
+        if opts == ("--scene",):
+            want |= moving
         assert (sorted(b.choices) if b.choices else None) == \
-            (sorted(a.choices) if a.choices else None), opts
+            (sorted(want) if want else None), opts
     assert po[("--device",)].default is None
 
 

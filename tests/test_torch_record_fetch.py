@@ -76,7 +76,7 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("n_rec", [PK.N_REC, PK.N_REC_LEAN])
-@pytest.mark.parametrize("name", sorted(pt.ALL_SCENES))
+@pytest.mark.parametrize("name", sorted(pt.STATIC_SCENES))
 def test_fetch_entry_is_gather_plus_step_ref(name, n_rec):
     # The record loop's plain entry is the gather followed by the
     # attribute-level step, bit for bit (state, radiance and every record
@@ -104,7 +104,7 @@ def test_fetch_entry_is_gather_plus_step_ref(name, n_rec):
     assert seen.all(), seen
 
 
-@pytest.mark.parametrize("name", sorted(pt.ALL_SCENES))
+@pytest.mark.parametrize("name", sorted(pt.STATIC_SCENES))
 def test_full_record_holds_sphere0_row_on_miss(name):
     # Planes 11-20 of the full record are the winner's row on every live
     # lane: sphere 0's row where the ray missed (the sweep's index is 0

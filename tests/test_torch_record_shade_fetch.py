@@ -82,7 +82,7 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("draws", ["philox", "injected"])
-@pytest.mark.parametrize("name", sorted(pt.ALL_SCENES))
+@pytest.mark.parametrize("name", sorted(pt.STATIC_SCENES))
 def test_fetch_entry_is_gather_plus_step_ref(name, draws):
     # The record loop's plain entry is the gather followed by the
     # attribute-level step, bit for bit (state and every record word), on
@@ -103,7 +103,7 @@ def test_fetch_entry_is_gather_plus_step_ref(name, draws):
     assert seen.all(), seen
 
 
-@pytest.mark.parametrize("name", sorted(pt.ALL_SCENES))
+@pytest.mark.parametrize("name", sorted(pt.STATIC_SCENES))
 def test_record_holds_sphere0_row_on_miss(name):
     # Planes 11-20 of a record slot are the winner's row on every live lane:
     # sphere 0's row where the ray missed (the sweep's index is 0 there, as

@@ -116,7 +116,7 @@ def _hit(rec):
 
 
 @pytest.mark.parametrize("recorder", ["k4", "k11"])
-@pytest.mark.parametrize("name", sorted(pt.ALL_SCENES))
+@pytest.mark.parametrize("name", sorted(pt.STATIC_SCENES))
 def test_hit_lane_planes_are_the_winner_rows(name, recorder):
     # On every hit lane of a phase recorded by K4 or by K11, planes 11-20
     # hold the winner's row of the table bit for bit, so K5's walk with
@@ -139,7 +139,7 @@ def test_hit_lane_planes_are_the_winner_rows(name, recorder):
         assert _same(_walk(PK.persist_replay_fused, rec, u), ref)
 
 
-@pytest.mark.parametrize("name", sorted(pt.ALL_SCENES))
+@pytest.mark.parametrize("name", sorted(pt.STATIC_SCENES))
 def test_step_fetch_entry_is_fetch_plus_ref(name):
     # K6's plain entry (the gather of the slot's winners, then the
     # attribute-level slot) walked over a lean record, newest slot first,
@@ -169,7 +169,7 @@ def test_step_fetch_entry_is_fetch_plus_ref(name):
         assert all(_same(o, outs[0]) for o in outs[1:]), s
 
 
-@pytest.mark.parametrize("name", sorted(pt.ALL_SCENES))
+@pytest.mark.parametrize("name", sorted(pt.STATIC_SCENES))
 def test_miss_lane_replay_with_row0_or_zeros(name):
     # One reverse iteration of a miss lane with sphere 0's row (K4's
     # record) and with zeros (K11's) as the winner attributes: the same
@@ -204,7 +204,7 @@ def test_miss_lane_zero_signs_follow_the_row():
     # keeps cot and dep bit for bit and dattr by value, but changes the
     # sign of some zero dattr word.
     flipped = 0
-    for name in sorted(pt.ALL_SCENES):
+    for name in sorted(pt.STATIC_SCENES):
         rec, rec_idx, amat = _phase(name, "k11")
         live = (rec[:, 10].view(torch.int32) & PK.F_ACT) != 0
         ref = _walk(PK.persist_replay_fused_ref, rec)

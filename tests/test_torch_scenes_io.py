@@ -94,7 +94,7 @@ def test_reference_scene_variants_match_jax(warmup, low52):
         pt.scene_random_spheres_reference(warmup=warmup, low52=low52))
 
 
-@pytest.mark.parametrize("name", sorted(pt.ALL_SCENES))
+@pytest.mark.parametrize("name", sorted(pt.STATIC_SCENES))
 def test_scene_files_cross_load(name, tmp_path):
     # A file the JAX package saves loads in the port, and one the port saves
     # loads in the JAX package, with equal arrays.

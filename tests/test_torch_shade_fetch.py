@@ -60,7 +60,7 @@ def _lane_kinds(st, t):
             int((st.istate[2] > 0).sum()))
 
 
-@pytest.mark.parametrize("name", sorted(pt.ALL_SCENES))
+@pytest.mark.parametrize("name", sorted(pt.STATIC_SCENES))
 @pytest.mark.parametrize("iters", [3, 24])
 def test_fetch_entry_is_gather_plus_step_ref(name, iters):
     # The strided loop's plain entry is the gather followed by the
